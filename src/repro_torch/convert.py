@@ -1,0 +1,54 @@
+"""Carry a `LazyGPState` between the two packages as numpy arrays.
+
+The keys are the tree-path names under which the reference's checkpoint
+store writes a `LazyGPState` (`repro/checkpoint/store.py`,
+`_flatten_with_paths`), so a port checkpoint can later use the same names.
+The GP state and its kernel params are what weights are to a model.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.gp import LazyGPState, resolve_device
+from repro_torch.core.kernels import KernelParams
+
+BUFFERS = (".x_buf", ".y_buf", ".l_buf", ".li_buf", ".alpha")
+COUNTERS = (".n", ".since_refit")
+PARAMS = (".params/.sigma2", ".params/.rho", ".params/.noise2")
+KEYS = BUFFERS + COUNTERS + (".clamp_count",) + PARAMS
+
+
+def state_to_numpy(state: LazyGPState) -> dict[str, np.ndarray]:
+    """Every leaf as a numpy array under its reference tree-path name
+    (float32 buffers and params, 0-d int32 counters)."""
+    out = {k: state_leaf.detach().cpu().numpy() for k, state_leaf in zip(
+        BUFFERS, (state.x_buf, state.y_buf, state.l_buf, state.li_buf,
+                  state.alpha))}
+    out[".n"] = np.asarray(state.n, np.int32)
+    out[".since_refit"] = np.asarray(state.since_refit, np.int32)
+    out[".clamp_count"] = state.clamp_count.detach().cpu().numpy() \
+        .astype(np.int32)
+    for k, v in zip(PARAMS, (state.params.sigma2, state.params.rho,
+                             state.params.noise2)):
+        out[k] = torch.as_tensor(v).detach().cpu().numpy().astype(np.float32)
+    return out
+
+
+def state_from_numpy(leaves: dict[str, np.ndarray],
+                     device: str | torch.device = "cuda") -> LazyGPState:
+    """A port state on `device` from reference tree-path leaves."""
+    missing = [k for k in KEYS if k not in leaves]
+    if missing:
+        raise KeyError(f"state leaves missing: {missing}")
+    dev = resolve_device(device)
+
+    def t(k):
+        return torch.as_tensor(np.array(leaves[k]), device=dev)
+
+    return LazyGPState(
+        x_buf=t(".x_buf"), y_buf=t(".y_buf"), l_buf=t(".l_buf"),
+        li_buf=t(".li_buf"), alpha=t(".alpha"),
+        n=int(leaves[".n"]), since_refit=int(leaves[".since_refit"]),
+        clamp_count=t(".clamp_count").to(torch.int32),
+        params=KernelParams(*(t(k) for k in PARAMS)))

@@ -1,0 +1,85 @@
+"""Covariance kernel functions for the lazy Gaussian process.
+
+Counterpart of `repro/core/kernels.py` (the mixed-space kernels come with
+the mixed-space slice).  Matérn-1.5/2.5 and squared-exponential, each a
+pairwise-distance computation |x|^2 + |y|^2 - 2 x.y^T over torch tensors.
+All kernels take `KernelParams(sigma2, rho, noise2)` so that the lag
+policy can refit them as a unit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+Tensor = torch.Tensor
+
+SQRT5 = 2.23606797749979
+SQRT3 = 1.7320508075688772
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelParams:
+    """Kernel hyper-parameters (frozen between lag events): 0-d tensors on
+    the state's device, or floats where a caller passes constants."""
+
+    sigma2: Tensor | float   # signal variance sigma^2
+    rho: Tensor | float      # length scale
+    noise2: Tensor | float   # observation noise sigma_n^2 (jitter)
+
+    @staticmethod
+    def default() -> "KernelParams":
+        return KernelParams(sigma2=1.0, rho=1.0, noise2=1e-6)
+
+    def to(self, device, dtype=torch.float32) -> "KernelParams":
+        return KernelParams(*(torch.as_tensor(v, dtype=dtype, device=device)
+                              for v in (self.sigma2, self.rho, self.noise2)))
+
+
+def pairwise_sqdist(x: Tensor, y: Tensor) -> Tensor:
+    """Squared Euclidean distances between rows of x (n, d) and y (m, d),
+    by the expansion |x - y|^2 = |x|^2 + |y|^2 - 2 x.y^T."""
+    xx = torch.sum(x * x, dim=-1)[:, None]
+    yy = torch.sum(y * y, dim=-1)[None, :]
+    return torch.clamp(xx + yy - 2.0 * (x @ y.T), min=0.0)
+
+
+def matern52(x: Tensor, y: Tensor, params: KernelParams) -> Tensor:
+    """Matérn-2.5 kernel matrix (paper Eq. 3, with the exponent sign fixed)."""
+    d = torch.sqrt(pairwise_sqdist(x, y) + 1e-36)
+    z = SQRT5 * d / params.rho
+    return params.sigma2 * (1.0 + z + z * z / 3.0) * torch.exp(-z)
+
+
+def matern32(x: Tensor, y: Tensor, params: KernelParams) -> Tensor:
+    d = torch.sqrt(pairwise_sqdist(x, y) + 1e-36)
+    z = SQRT3 * d / params.rho
+    return params.sigma2 * (1.0 + z) * torch.exp(-z)
+
+
+def rbf(x: Tensor, y: Tensor, params: KernelParams) -> Tensor:
+    sq = pairwise_sqdist(x, y)
+    return params.sigma2 * torch.exp(-0.5 * sq / (params.rho * params.rho))
+
+
+KernelFn = Callable[[Tensor, Tensor, KernelParams], Tensor]
+
+# Gram-routing tag: a kernel with a hand-written gram kernel advertises it
+# here, and `repro_torch.kernels.ops.kernel_gram` dispatches on the
+# attribute.  The reference names the same tag `pallas_gram`
+# (repro/core/kernels.py:75); nothing in the port is Pallas.
+matern52.gram_kernel = "matern52"
+
+KERNELS: dict[str, KernelFn] = {
+    "matern52": matern52,
+    "matern32": matern32,
+    "rbf": rbf,
+}
+
+
+def gram(kernel: KernelFn, x: Tensor, params: KernelParams) -> Tensor:
+    """K_y = k(X, X) + noise2 * I (paper's K + sigma^2 I)."""
+    k = kernel(x, x, params)
+    return k + params.noise2 * torch.eye(x.shape[0], dtype=k.dtype,
+                                         device=k.device)

@@ -1,0 +1,121 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Counterpart of `repro/kernels/ref.py`.  A wrapper in this package runs the
+function here when its tensor lies on the CPU; on a CUDA tensor it launches
+the hand-written kernel instead, and `chip_smoke.py` holds each kernel
+against the function here on the card.
+
+The triangular solve and the Cholesky factor are blocked loops in torch,
+vectorised over rows and columns, not `torch.linalg` calls: the Cholesky
+keeps the reference kernel's diagonal clamp `sqrt(max(., 1e-12))`
+(`repro/kernels/chol.py:41`), so it never raises on a matrix that is not
+positive definite, where `torch.linalg.cholesky` would.  Every function
+takes optional leading batch dimensions.
+"""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+SQRT5 = 2.23606797749979
+BLOCK = 32        # block width of the solve and the factorization
+DIAG_CLAMP = 1e-12
+CLAMP_EPS = 1e-10
+
+
+def matern52_gram(x: Tensor, y: Tensor, sigma2, rho) -> Tensor:
+    """Pairwise Matérn-2.5 covariance, (n, d) x (m, d) -> (n, m)."""
+    xx = torch.sum(x * x, dim=-1)[:, None]
+    yy = torch.sum(y * y, dim=-1)[None, :]
+    sq = torch.clamp(xx + yy - 2.0 * (x @ y.T), min=0.0)
+    d = torch.sqrt(sq + 1e-36)
+    z = SQRT5 * d / rho
+    return sigma2 * (1.0 + z + z * z / 3.0) * torch.exp(-z)
+
+
+def _solve_diag(ld: Tensor, rhs: Tensor, trans: bool) -> Tensor:
+    """Substitution on one (B, B) lower diagonal block, rhs (..., B, r)."""
+    b = ld.shape[-1]
+    q = torch.zeros_like(rhs)
+    rows = range(b - 1, -1, -1) if trans else range(b)
+    for i in rows:
+        if trans:   # row i of L^T is column i of L, solved rows are > i
+            coef, done = ld[..., i + 1:, i], q[..., i + 1:, :]
+        else:
+            coef, done = ld[..., i, :i], q[..., :i, :]
+        acc = torch.sum(coef[..., :, None] * done, dim=-2)
+        q[..., i, :] = (rhs[..., i, :] - acc) / ld[..., i, i, None]
+    return q
+
+
+def trsv(l: Tensor, b: Tensor, *, trans: bool = False) -> Tensor:
+    """Lower-triangular solve L q = b (or L^T q = b), b (..., n, r)."""
+    n = l.shape[-1]
+    q = torch.zeros_like(b)
+    starts = list(range(0, n, BLOCK))
+    for s in (reversed(starts) if trans else starts):
+        e = min(s + BLOCK, n)
+        if trans:
+            part = l[..., e:, s:e].transpose(-1, -2) @ q[..., e:, :]
+        else:
+            part = l[..., s:e, :s] @ q[..., :s, :]
+        q[..., s:e, :] = _solve_diag(l[..., s:e, s:e], b[..., s:e, :] - part,
+                                     trans)
+    return q
+
+
+def _chol_unblocked(a: Tensor) -> Tensor:
+    """Crout column loop on a (B, B) block with the diagonal clamp."""
+    b = a.shape[-1]
+    l = torch.zeros_like(a)
+    for j in range(b):
+        lj = l[..., j, :j]
+        s = torch.sum(l[..., j:, :j] * lj[..., None, :], dim=-1)   # rows >= j
+        ljj = torch.sqrt(torch.clamp(a[..., j, j] - s[..., 0], min=DIAG_CLAMP))
+        l[..., j, j] = ljj
+        l[..., j + 1:, j] = (a[..., j + 1:, j] - s[..., 1:]) / ljj[..., None]
+    return l
+
+
+def _inv_lower(l: Tensor) -> Tensor:
+    """Inverse of a (B, B) lower-triangular block by row substitution."""
+    b = l.shape[-1]
+    x = torch.zeros_like(l)
+    eye = torch.eye(b, dtype=l.dtype, device=l.device)
+    for i in range(b):
+        acc = torch.sum(l[..., i, :i, None] * x[..., :i, :], dim=-2)
+        x[..., i, :] = (eye[i] - acc) / l[..., i, i, None]
+    return x
+
+
+def cholesky(k: Tensor) -> Tensor:
+    """Blocked right-looking lower Cholesky with the diagonal clamp."""
+    a = k.clone()
+    n = a.shape[-1]
+    for s in range(0, n, BLOCK):
+        e = min(s + BLOCK, n)
+        ld = _chol_unblocked(a[..., s:e, s:e])
+        panel = a[..., e:, s:e] @ _inv_lower(ld).transpose(-1, -2)
+        a[..., s:e, s:e] = ld
+        a[..., e:, s:e] = panel
+        a[..., e:, e:] -= panel @ panel.transpose(-1, -2)
+    return torch.tril(a)
+
+
+def chol_append(l: Tensor, p: Tensor, c) -> tuple[Tensor, Tensor]:
+    """Incremental append on the active factor: q = L^{-1} p, d."""
+    q = trsv(l, p[:, None])[:, 0]
+    d = torch.sqrt(torch.clamp(c - q @ q, min=CLAMP_EPS))
+    return q, d
+
+
+def gp_posterior_solve(l: Tensor, resid: Tensor, k_star: Tensor,
+                       k_ss_diag: Tensor) -> tuple[Tensor, Tensor]:
+    """Posterior solve: mean = k*^T K^{-1} resid, var = k** - |v|^2."""
+    z = trsv(l, resid[:, None])
+    alpha = trsv(l, z, trans=True)[:, 0]
+    v = trsv(l, k_star)
+    mean = k_star.T @ alpha
+    var = torch.clamp(k_ss_diag - torch.sum(v * v, dim=0), min=1e-12)
+    return mean, var

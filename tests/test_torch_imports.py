@@ -1,0 +1,70 @@
+"""The port stays a package of its own: no JAX, nothing of `repro`, and
+entry points that run on the card unless asked for the CPU."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.core import BayesOpt, BOConfig, GPConfig, init_state, run_bo
+from repro_torch.core.levy import levy_bounds, neg_levy
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
+    r"|from\s+repro(\.|\s)(?!_torch))", re.MULTILINE)
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
+            "repro_torch.convert\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_or_repro_import_in_source(path):
+    text = path.read_text()
+    assert not FORBIDDEN.search(text), f"{path} imports jax or repro"
+
+
+def test_entry_points_default_to_cuda():
+    assert BOConfig(dim=2).device == "cuda"
+    assert GPConfig().device == "cuda"
+    assert run_bo.__kwdefaults__["device"] == "cuda"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lo, hi = levy_bounds(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BayesOpt(BOConfig(dim=2), lo, hi)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_state(GPConfig(n_max=8, dim=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_bo(lambda x: neg_levy(x).numpy(), lo, hi, 1, dim=2)
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """Without a card the smoke script exits non-zero and prints no result,
+    and alone in a directory it fails as well."""
+    for where in (ROOT, tmp_path):
+        script = where / "chip_smoke.py"
+        if where == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=where,
+                             capture_output=True, text=True, timeout=120,
+                             env={"PATH": "/usr/bin:/bin",
+                                  "CUDA_VISIBLE_DEVICES": ""})
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
