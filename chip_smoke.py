@@ -9,17 +9,21 @@ Phases, each printing one JSON line:
   2. build   — nvcc builds the four kernels of `src/repro_torch/csrc/`, one
                process per source, all started together.
   3. kernels — each kernel against its plain PyTorch version on the card,
-               on the same inputs at the main path's shapes, with the
-               tolerance stated; times from CUDA events (median of 20) for
-               the kernel, the plain version and, where one PyTorch call
-               computes the same function, that call (timed only, never
-               used by the port).
+               on the same inputs at the main path's shapes (the factor and
+               the solve also as the lag refit's batch of 18 grid
+               candidates, and the fused EI on raw as well as standardized
+               Levy values), with the tolerance stated; times from CUDA
+               events (median of 20) for the kernel, the plain version and,
+               where one PyTorch call computes the same function, that call
+               (timed only, never used by the port).
   4. main    — `run_bo` on Levy-5d at full width (n_max = 1024, 64 restarts
                x 25 ascent steps, 960 seed points, 48 rounds, lag 32).  Every
                launch counter is set to 0 just before and read just after;
                each kernel must have run the number of times the path
-               implies.  Suggestions in bounds, best value finite, and the
-               final factor and inverse consistent with the Gram.
+               implies.  Suggestions in bounds, best value finite, at least
+               one suggestion with a positive EI (the count of those with
+               EI 0 is printed), and the final factor and inverse
+               consistent with the Gram.
   5. profile — four more rounds under torch.profiler: device busy share and
                device time by kernel.
 Then the `{"kernels": [...]}` line, the nvidia-smi line and, last,
@@ -52,6 +56,8 @@ N_SEED = 960
 ITERATIONS = 48
 LAG = 32
 RHO0, SIGMA2, NOISE2 = 0.25, 1.0, 1e-6
+GRID_RHO = (0.05, 0.1, 0.2, 0.4, 0.8, 1.6)     # gp.refit_params' grid
+GRID_SIGMA2 = (0.25, 1.0, 4.0)
 
 # Tolerances against the plain version on the same inputs.
 TOL_MATERN = dict(rtol=1e-5, atol=1e-6)    # elementwise, K <= sigma2 = 1
@@ -61,6 +67,10 @@ TOL_TRSV_RESID = 1e-4     # ||L X - I||_max; 1.7e-6 measured on an H100
 TOL_TRSV_PLAIN = 1e-4     # max |X - X_plain| / max |X_plain|
 TOL_EI = dict(rtol=1e-4, atol=1e-5)        # tests/test_fused_acq.py:65,
 #                                            see held_to_plain
+# The lag refit's batch holds Grams that float32 cannot factor accurately
+# (long length scales, noise 1e-6): there each batched factor and solve
+# must be as good as the plain version's (within twice its residual) or
+# within the tolerance above, and each must equal its own single launch.
 
 
 def emit(obj) -> None:
@@ -111,6 +121,57 @@ def held_to_plain(got, plain, exact, tol) -> tuple[bool, dict]:
                 "plain_err_vs_f64": err_plain}
 
 
+def rel_err(a, b):
+    """max |a - b| / max |b| over the last two axes (per matrix)."""
+    return (a - b).abs().amax((-2, -1)) / b.abs().amax((-2, -1))
+
+
+def held_as_batch(name, got, singles, resid, plain_resid, tol) -> dict:
+    """A batched launch against the same matrices launched one at a time
+    (the same arithmetic: bitwise equal), and each matrix's residual
+    against the plain version's: within `tol`, or within twice the plain
+    version's own residual where float32 cannot meet `tol`."""
+    axis_err = max_abs(got, singles)
+    good = resid <= torch.clamp(2.0 * plain_resid, min=tol)
+    if axis_err != 0.0 or not bool(good.all()):
+        raise AssertionError(f"{name} batched: batch-axis err {axis_err}, "
+                             f"resid {resid.tolist()}, plain {plain_resid.tolist()}")
+    return {"batch_axis_err": axis_err, "resid_max": float(resid.max()),
+            "plain_resid_max": float(plain_resid.max()),
+            "resid": [float(v) for v in resid],
+            "plain_resid": [float(v) for v in plain_resid],
+            "matrices_within_tol": int((resid <= tol).sum())}
+
+
+def compact(batched: dict) -> dict:
+    """A batched check's numbers without its per-matrix lists."""
+    return {k: v for k, v in batched.items() if not isinstance(v, list)}
+
+
+def grid_grams(st, kern):
+    """The lag refit's batch (`gp._lml_grid`): the padded Gram of `st` under
+    each of the 18 grid candidates, (18, n_max, n_max)."""
+    from repro_torch.core.kernels import KernelParams
+    from repro_torch.kernels import ops
+    dev = st.x_buf.device
+    return torch.stack([
+        ops.masked_gram(st.x_buf, st.n, kern, KernelParams(
+            sigma2=torch.tensor(s2, device=dev),
+            rho=torch.tensor(rho, device=dev), noise2=st.params.noise2))
+        for rho in GRID_RHO for s2 in GRID_SIGMA2])
+
+
+def ei_args(st, xc):
+    """The fused EI kernel's operands for candidates xc on state st, as the
+    ascent hoists them."""
+    amask = (torch.arange(N_MAX, device=xc.device) < st.n).float()
+    a_buf = st.li_buf.T @ st.li_buf
+    ymean = torch.sum(torch.where(amask > 0, st.y_buf, 0.0)) / st.n
+    shift = ymean - torch.max(torch.where(amask > 0, st.y_buf, -torch.inf)) - 0.01
+    return (xc, st.x_buf, amask, st.alpha, a_buf, st.params.sigma2,
+            st.params.rho, shift)
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -118,16 +179,19 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def levy_state(dev, gen):
+def levy_state(dev, gen, standardize: bool = True):
     """The main path's refactor input: 960 uniform unit-box points (the
-    normalized Levy-5d seeds) in an n_max = 1024 buffer, and their state."""
+    normalized Levy-5d seeds) in an n_max = 1024 buffer, and their state.
+    Standardized values keep EI away from its tail; the main path itself
+    runs on the raw values."""
     from repro_torch.core import gp
     from repro_torch.core.kernels import matern52
     from repro_torch.core.levy import levy_bounds, neg_levy
     u = torch.rand((N_SEED, DIM), generator=gen, device=dev)
     lo, hi = (t.to(dev) for t in levy_bounds(DIM))
     y = neg_levy(lo + u * (hi - lo))
-    y = (y - y.mean()) / y.std()    # O(1) values, so EI is not ~0 everywhere
+    if standardize:
+        y = (y - y.mean()) / y.std()
     st = gp.init_state(gp.GPConfig(n_max=N_MAX, dim=DIM, noise2=NOISE2,
                                    rho0=RHO0, device=str(dev)))
     st.x_buf[:N_SEED] = u
@@ -171,8 +235,8 @@ def check_kernels(dev, gen) -> list[dict]:
     l_k = chol.cholesky_cuda(k_pad)
     l_p = ref.cholesky(k_pad)
     torch.cuda.synchronize()
-    recon = float((l_k @ l_k.T - k_pad).abs().max() / k_pad.abs().max())
-    rel = max_abs(l_k, l_p) / float(l_p.abs().max())
+    recon = float(rel_err(l_k @ l_k.T, k_pad))
+    rel = float(rel_err(l_k, l_p))
     if not (torch.isfinite(l_k).all() and recon <= TOL_CHOL_RECON
             and rel <= TOL_CHOL_PLAIN):
         raise AssertionError(f"cholesky: recon {recon}, rel err vs plain {rel}")
@@ -181,13 +245,31 @@ def check_kernels(dev, gen) -> list[dict]:
     ms = median_ms(lambda: chol.cholesky_cuda(k_pad))
     plain_ms = median_ms(lambda: ref.cholesky(k_pad))
     lib_ms = median_ms(lambda: torch.linalg.cholesky(k_pad))
+    # The lag refit's batch: the Gram under each of the 18 grid candidates.
+    k_grid = grid_grams(st, kern)
+    g = k_grid.shape[0]
+    l_grid = chol.cholesky_cuda(k_grid)
+    l_grid_p = ref.cholesky(k_grid)
+    batched = held_as_batch(
+        "cholesky", l_grid, torch.stack([chol.cholesky_cuda(k) for k in k_grid]),
+        rel_err(l_grid @ l_grid.mT, k_grid), rel_err(l_grid_p @ l_grid_p.mT, k_grid),
+        TOL_CHOL_RECON)
+    gb_ms, gb_by = bound(g * n ** 3 / 3, g * 4 * 2 * n * n)
+    batched.update(
+        shape=f"({g},{n},{n})", max_abs_err=max_abs(l_grid, l_grid_p),
+        ms=median_ms(lambda: chol.cholesky_cuda(k_grid)),
+        plain_ms=median_ms(lambda: ref.cholesky(k_grid)),
+        library_ms=median_ms(lambda: torch.linalg.cholesky_ex(k_grid)),
+        bound_ms=gb_ms, bound_by=gb_by)
     emit({"phase": "kernels", "kernel": "cholesky", "n": n, "recon_rel": recon,
           "tol_recon": TOL_CHOL_RECON, "rel_err_vs_plain": rel,
           "tol_plain": TOL_CHOL_PLAIN, "max_abs_err": max_abs(l_k, l_p),
-          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms})
+          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "batched": batched})
     rows.append(dict(name="cholesky", shape="(1024,1024)",
                      max_abs_err=max_abs(l_k, l_p), ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     batched=compact(batched)))
 
     # --- 3. trsv on that factor: L X = I both ways, and a vector RHS.
     l_fac = l_k
@@ -198,7 +280,7 @@ def check_kernels(dev, gen) -> list[dict]:
         torch.cuda.synchronize()
         op = l_fac.T if trans else l_fac
         resid = float((op @ x_k - eye).abs().max())
-        rel = max_abs(x_k, x_p) / float(x_p.abs().max())
+        rel = float(rel_err(x_k, x_p))
         if not (resid <= TOL_TRSV_RESID and rel <= TOL_TRSV_PLAIN):
             raise AssertionError(f"trsv trans={trans}: resid {resid}, rel {rel}")
         detail[f"trans={trans}"] = dict(resid=resid, rel_err_vs_plain=rel,
@@ -208,7 +290,7 @@ def check_kernels(dev, gen) -> list[dict]:
         q_k = trsv.trsv_cuda(l_fac, vec, trans=trans)
         q_p = ref.trsv(l_fac, vec, trans=trans)
         torch.cuda.synchronize()
-        rel = max_abs(q_k, q_p) / float(q_p.abs().max())
+        rel = float(rel_err(q_k, q_p))
         if rel > TOL_TRSV_PLAIN:
             raise AssertionError(f"trsv vector trans={trans}: rel {rel}")
         detail[f"vector trans={trans}"] = dict(rel_err_vs_plain=rel)
@@ -219,44 +301,65 @@ def check_kernels(dev, gen) -> list[dict]:
     plain_ms = median_ms(lambda: ref.trsv(l_fac, eye))
     lib_ms = median_ms(lambda: torch.linalg.solve_triangular(l_fac, eye, upper=False))
     vec_ms = median_ms(lambda: trsv.trsv_cuda(l_fac, vec))
+    # The lag refit's batch: L X = I on each of the 18 grid factors.
+    eye_g = eye.expand(g, n, n).contiguous()
+    x_grid = trsv.trsv_cuda(l_grid, eye_g)
+    x_grid_p = ref.trsv(l_grid, eye_g)
+    batched = held_as_batch(
+        "trsv", x_grid, torch.stack([trsv.trsv_cuda(lg, eye) for lg in l_grid]),
+        (l_grid @ x_grid - eye).abs().amax((-2, -1)),
+        (l_grid @ x_grid_p - eye).abs().amax((-2, -1)), TOL_TRSV_RESID)
+    gb_ms, gb_by = bound(g * float(n) * n * n, g * 4 * 3 * n * n)
+    batched.update(
+        shape=f"L X = I, ({g},{n},{n})", max_abs_err=max_abs(x_grid, x_grid_p),
+        ms=median_ms(lambda: trsv.trsv_cuda(l_grid, eye_g)),
+        plain_ms=median_ms(lambda: ref.trsv(l_grid, eye_g)),
+        library_ms=median_ms(
+            lambda: torch.linalg.solve_triangular(l_grid, eye_g, upper=False)),
+        bound_ms=gb_ms, bound_by=gb_by)
     emit({"phase": "kernels", "kernel": "trsv", "tol_resid": TOL_TRSV_RESID,
           "tol_plain": TOL_TRSV_PLAIN, **detail, "ms": ms, "vector_ms": vec_ms,
-          "plain_ms": plain_ms, "library_ms": lib_ms})
+          "plain_ms": plain_ms, "library_ms": lib_ms, "batched": batched})
     rows.append(dict(name="trsv", shape="L X = I, (1024,1024)",
                      max_abs_err=max_abs(x_k, x_p), ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     batched=compact(batched)))
 
-    # --- 4. Fused EI at r = 64, n = 1024, d = 5 on the refactored state.
-    st = gp.refactor(st, kern)
-    amask = (torch.arange(N_MAX, device=dev) < st.n).float()
-    a_buf = st.li_buf.T @ st.li_buf
-    ymean = torch.sum(torch.where(amask > 0, st.y_buf, 0.0)) / st.n
-    shift = ymean - torch.max(torch.where(amask > 0, st.y_buf, -torch.inf)) - 0.01
+    # --- 4. Fused EI at r = 64, n = 1024, d = 5 on the refactored state, on
+    # standardized values and on the raw Levy values the main path sees.
     xc = torch.rand((64, DIM), generator=gen, device=dev)
-    args = (xc, st.x_buf, amask, st.alpha, a_buf, st.params.sigma2,
-            st.params.rho, shift)
-    ei_k, g_k = acq.fused_ei_grad_cuda(*args)
-    ei_p, g_p = acq.ei_grad_torch(*args)
-    ei_d, g_d = acq.ei_grad_torch(*(a.double() for a in args))
-    torch.cuda.synchronize()
-    held = {name: held_to_plain(k, p, d, TOL_EI) for name, k, p, d in
-            (("ei", ei_k, ei_p, ei_d), ("grad", g_k, g_p, g_d))}
-    if not all(ok for ok, _ in held.values()):
-        raise AssertionError(f"fused EI: {held}")
-    err = max(max_abs(ei_k, ei_p), max_abs(g_k, g_p))
+    raw, _ = levy_state(dev, gen, standardize=False)
+    scales = {}
+    for scale, state in (("standardized", st), ("raw", raw)):
+        args = ei_args(gp.refactor(state, kern), xc)
+        ei_k, g_k = acq.fused_ei_grad_cuda(*args)
+        ei_p, g_p = acq.ei_grad_torch(*args)
+        ei_d, g_d = acq.ei_grad_torch(*(a.double() for a in args))
+        torch.cuda.synchronize()
+        held = {name: held_to_plain(k, p, d, TOL_EI) for name, k, p, d in
+                (("ei", ei_k, ei_p, ei_d), ("grad", g_k, g_p, g_d))}
+        if not all(ok for ok, _ in held.values()):
+            raise AssertionError(f"fused EI ({scale}): {held}")
+        scales[scale] = dict(
+            max_abs_err=max(max_abs(ei_k, ei_p), max_abs(g_k, g_p)),
+            ei_max=float(ei_p.abs().max()), grad_max=float(g_p.abs().max()),
+            rows_ei_positive=int((ei_k > 0).sum()),
+            plain_rows_ei_positive=int((ei_p > 0).sum()),
+            rows_grad_zero=int((g_k.abs().sum(-1) == 0).sum()),
+            **{k: v for name, (_, d) in held.items()
+               for k, v in ((f"{name}_{key}", val) for key, val in d.items())})
+        if scale == "standardized":
+            ms = median_ms(lambda: acq.fused_ei_grad_cuda(*args))
+            plain_ms = median_ms(lambda: acq.ei_grad_torch(*args))
     r = xc.shape[0]
     b_ms, b_by = bound(r * (2.0 * n * n + n * (4 * DIM + 40)),
                        4 * (r * DIM + n * DIM + 2 * n + n * n + r + r * DIM))
-    ms = median_ms(lambda: acq.fused_ei_grad_cuda(*args))
-    plain_ms = median_ms(lambda: acq.ei_grad_torch(*args))
     emit({"phase": "kernels", "kernel": "fused_ei_grad", "tol": TOL_EI,
-          "ei_max": float(ei_p.abs().max()), "grad_max": float(g_p.abs().max()),
-          **{k: v for name, (_, d) in held.items()
-             for k, v in ((f"{name}_{key}", val) for key, val in d.items())},
-          "ms": ms, "plain_ms": plain_ms})
+          **scales, "ms": ms, "plain_ms": plain_ms})
     rows.append(dict(name="fused_ei_grad", shape="r=64, n=1024, d=5",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None))
+                     max_abs_err=max(v["max_abs_err"] for v in scales.values()),
+                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None))
     return rows
 
 
@@ -284,11 +387,23 @@ def main_path(dev):
     launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
                 for mod in KERNEL_MODULES}
 
-    refactors = 1 + (18 + 1) * (ITERATIONS // LAG)
-    expected = {"matern": refactors + ITERATIONS, "trsv": refactors,
-                "chol": refactors, "acq": ITERATIONS * (acq_cfg.ascent_steps + 1)}
+    # One refactor at the seed points; each lag event scores the 18 grid
+    # candidates as one batch (18 Grams, one factor, one solve), then
+    # refactors under the winner.  Each round's append builds one column.
+    lag_events = ITERATIONS // LAG
+    grid = len(GRID_RHO) * len(GRID_SIGMA2)
+    expected = {"matern": 1 + lag_events * (grid + 1) + ITERATIONS,
+                "trsv": 1 + 2 * lag_events, "chol": 1 + 2 * lag_events,
+                "acq": ITERATIONS * (acq_cfg.ascent_steps + 1)}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
+    # EI of each suggestion: 0 means every restart ended where EI (and so
+    # its gradient) is 0 in float32, and the pick fell to the first restart.
+    # On raw Levy values that is common (PERF.md); an ascent that never had
+    # any signal is a failure.
+    zero_ei = [v == 0.0 for v in hist.acq_values]
+    if all(zero_ei):
+        raise AssertionError(f"all {ITERATIONS} suggestions had EI 0")
     xs = np.asarray(hist.xs[N_SEED:])
     if not (np.all(xs >= -10.0) and np.all(xs <= 10.0)):
         raise AssertionError("a suggestion left the box")
@@ -307,6 +422,11 @@ def main_path(dev):
           "absorb_ms_mean": 1e3 * float(np.mean(hist.gp_seconds)),
           "absorb_ms_max": 1e3 * float(np.max(hist.gp_seconds)),
           "clamp_count": int(state.clamp_count),
+          "suggestions_with_zero_ei": sum(zero_ei),
+          "of_them_before_the_lag_refit": sum(zero_ei[:LAG]),
+          "ei_of_suggestions": {"min": float(np.min(hist.acq_values)),
+                                "median": float(np.median(hist.acq_values)),
+                                "max": float(np.max(hist.acq_values))},
           "factor_recon_rel": recon, "inverse_err": inv_err,
           "sigma2": float(state.params.sigma2), "rho": float(state.params.rho)})
     return launches, state, hist
@@ -396,7 +516,9 @@ def main() -> int:
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"],
-                            library_ms=row["library_ms"], shape=row["shape"]))
+                            library_ms=row["library_ms"], shape=row["shape"],
+                            **({"batched": row["batched"]} if "batched" in row
+                               else {})))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

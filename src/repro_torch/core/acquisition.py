@@ -41,7 +41,8 @@ def _norm_pdf(z: Tensor) -> Tensor:
 
 
 def _norm_cdf(z: Tensor) -> Tensor:
-    return 0.5 * (1.0 + torch.erf(z / _SQRT2))
+    # erfc form: exact in the lower tail, where 1 + erf cancels to 0.
+    return 0.5 * torch.erfc(-z / _SQRT2)
 
 
 def expected_improvement(mean: Tensor, var: Tensor, f_best: Tensor,

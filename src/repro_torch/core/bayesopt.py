@@ -61,6 +61,8 @@ class BOHistory:
     gp_seconds: list = dataclasses.field(default_factory=list)   # factor+append
     acq_seconds: list = dataclasses.field(default_factory=list)  # suggestion
     obj_seconds: list = dataclasses.field(default_factory=list)  # evaluations
+    acq_values: list = dataclasses.field(default_factory=list)   # EI of each
+    # suggestion; 0 means the ascent found no restart with any signal
     clamp_counts: list = dataclasses.field(default_factory=list)  # cumulative
     # d^2 conditioning-floor hits after each round (ill-conditioning telemetry)
 
@@ -145,11 +147,12 @@ class BayesOpt:
         # Guard before the (possibly hours-long) objective evaluations.
         gp_mod.ensure_capacity(state.n, self.cfg.n_max, self.cfg.batch_size)
         t0 = time.perf_counter()
-        us, _ = acq_mod.optimize_acquisition(
+        us, vals = acq_mod.optimize_acquisition(
             state, self.kernel, self._unit_lo, self._unit_hi, self.cfg.acq,
             self.cfg.batch_size, generator=self.generator, seeds=seeds,
             jitter=jitter)
         xs = self._from_unit(us).cpu().numpy()
+        vals = vals.cpu().numpy()
         t1 = time.perf_counter()
 
         ys = np.asarray(objective(xs), dtype=np.float32).reshape(-1)
@@ -171,6 +174,7 @@ class BayesOpt:
         t3 = time.perf_counter()
 
         history.record(xs, ys)
+        history.acq_values.extend(float(v) for v in vals)
         history.acq_seconds.append(t1 - t0)
         history.obj_seconds.append(t2 - t1)
         history.gp_seconds.append(t3 - t2)

@@ -262,10 +262,26 @@ def refactor(state: LazyGPState, kernel: KernelFn,
     return dataclasses.replace(st, alpha=_recompute_alpha(st))
 
 
-def _lml_for(state: LazyGPState, kernel: KernelFn,
-             params: KernelParams) -> Tensor:
-    """LML under candidate params (full rebuild; only at lag events)."""
-    return log_marginal_likelihood(refactor(state, kernel, params))
+def _lml_grid(state: LazyGPState, kernel: KernelFn, cand: Tensor) -> Tensor:
+    """LML of `state` under each candidate `[sigma2, rho]` row of `cand`
+    (G, 2): the `refactor` + `log_marginal_likelihood` of every candidate,
+    with the G padded Grams factored and inverted as one batch (one
+    Cholesky and one solve launch on the card).  `state` stays untouched."""
+    k_pads = torch.stack([
+        ops.masked_gram(state.x_buf, state.n, kernel,
+                        KernelParams(sigma2=c[0], rho=c[1],
+                                     noise2=state.params.noise2))
+        for c in cand])
+    l_bufs = chol.lazy_full_refactor(k_pads, state.n, n_max=state.n_max)
+    li_bufs = ops.padded_tri_inverse(l_bufs)                 # (G, n, n)
+    m = _active_mask(state)
+    resid = torch.where(m, state.y_buf - _ymean(state), 0.0)
+    z = li_bufs @ resid                                      # (G, n)
+    alpha = torch.where(m, (z[:, None, :] @ li_bufs)[:, 0, :], 0.0)
+    quad = alpha @ resid
+    diag = torch.diagonal(l_bufs, dim1=-2, dim2=-1)
+    logdet = torch.sum(torch.where(m, torch.log(diag), 0.0), dim=-1)
+    return -0.5 * quad - logdet - 0.5 * state.n * math.log(2.0 * math.pi)
 
 
 def refit_params(state: LazyGPState, kernel: KernelFn,
@@ -273,7 +289,8 @@ def refit_params(state: LazyGPState, kernel: KernelFn,
                  sigma2_grid: Tensor | None = None) -> KernelParams:
     """Grid LML maximization over (sigma2, rho): the 6 x 3 grid of the
     reference, each candidate scored by a full refactor of `state` (which
-    stays untouched).  The argmax stays on the device."""
+    stays untouched), all 18 in one batch.  The argmax stays on the
+    device."""
     dev, dt = state.device, state.x_buf.dtype
     if rho_grid is None:
         # Unit-box length scales (inputs are normalized by the BO driver).
@@ -283,10 +300,7 @@ def refit_params(state: LazyGPState, kernel: KernelFn,
         sigma2_grid = torch.tensor([0.25, 1.0, 4.0], dtype=dt, device=dev)
     rr, ss = torch.meshgrid(rho_grid, sigma2_grid, indexing="ij")
     cand = torch.stack([ss.ravel(), rr.ravel()], dim=-1)  # (G, 2) [sigma2, rho]
-    lmls = torch.stack([
-        _lml_for(state, kernel, KernelParams(sigma2=c[0], rho=c[1],
-                                             noise2=state.params.noise2))
-        for c in cand])
+    lmls = _lml_grid(state, kernel, cand)
     best = torch.argmax(lmls)
     return KernelParams(sigma2=cand[best, 0], rho=cand[best, 1],
                         noise2=state.params.noise2)

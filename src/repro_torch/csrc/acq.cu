@@ -27,8 +27,10 @@
 // A CTA holds kRb candidate rows, 2 kRb n floats of shared memory (64 KB at
 // kRb = 8, n = 1024, opted in above 48 KB); the C entry picks the largest
 // kRb in {8, 4, 2, 1} that fits, so any n up to about 29000 runs.  r = 64
-// gives 8 CTAs: slow on 132 SMs, but right.  erff / expf / sqrtf are the
-// accurate forms (no fast math), as the parity with the reference needs.
+// gives 8 CTAs: slow on 132 SMs, but right.  erfcf / expf / sqrtf are the
+// accurate forms (no fast math), as the parity with the reference needs;
+// Phi is 0.5 erfc(-Z / sqrt2), which keeps its lower tail where
+// 1 + erf(Z / sqrt2) cancels to 0 and drops the gradient's mean term.
 #include "common.cuh"
 
 namespace {
@@ -172,7 +174,7 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
     const float sig = sqrtf(var);
     const float gam = gam_s[tid];
     const float zs = gam / fmaxf(sig, 1e-12f);
-    const float cdf = 0.5f * (1.f + erff(zs / kSqrt2));
+    const float cdf = 0.5f * erfcf(-zs / kSqrt2);  // accurate lower tail
     const float pdf = expf(-0.5f * zs * zs) * kInvSqrt2Pi;
     if (i0 + tid < r) ei_out[i0 + tid] = fmaxf(gam * cdf + sig * pdf, 0.f);
     cdf_s[tid] = cdf;

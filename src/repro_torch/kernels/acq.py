@@ -71,7 +71,9 @@ def ei_grad_torch(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
     var = torch.clamp(raw_var, min=VAR_FLOOR)
     sig = torch.sqrt(var)
     zs = gam / torch.clamp(sig, min=1e-12)
-    cdf = 0.5 * (1.0 + torch.erf(zs / _SQRT2))
+    # erfc keeps Phi's lower tail: 1 + erf(z / sqrt2) cancels to 0 in
+    # float32 below z ~ -5.5, which drops the mean term of the gradient.
+    cdf = 0.5 * torch.erfc(-zs / _SQRT2)
     pdf = torch.exp(-0.5 * zs * zs) * _INV_SQRT_2PI
     ei = torch.clamp(gam * cdf + sig * pdf, min=0.0)           # (r, 1)
     # dEI/dvar = phi(Z) / 2 sigma, dead where the raw variance hit the

@@ -15,13 +15,13 @@ no size envelopes: a kernel takes any n, or its wrapper raises.
   chol_append        | active factor     | trsv              | no
   gp_posterior_solve | active factor     | trsv              | no
   kernel_gram        | any kernel fn     | matern52 if tagged| no
-  masked_gram        | padded buffers    | matern52 if tagged| yes
+  masked_gram        | padded buffers    | matern52 if tagged| no
   padded_trsv        | padded buffers    | csrc/trsv.cu      | yes
   padded_cholesky    | padded buffers    | csrc/chol.cu      | yes
   padded_tri_inverse | padded buffers    | csrc/trsv.cu      | yes
-  padded_append_row  | padded buffers    | ‡                 | yes
-  lazy_append        | padded buffers    | ‡                 | yes
-  lazy_append_rows   | padded buffers    | ‡                 | yes
+  padded_append_row  | padded buffers    | ‡                 | no
+  lazy_append        | padded buffers    | ‡                 | no
+  lazy_append_rows   | padded buffers    | ‡                 | no
   fused_ei_grad      | (r,d) + padded    | csrc/acq.cu       | yes
 
   ‡  matmul-only against the maintained inverse factor (`torch.matmul`,
@@ -29,10 +29,12 @@ no size envelopes: a kernel takes any n, or its wrapper raises.
 
 The padded-state ops work on the identity-padded (n_max, n_max) buffers of
 DESIGN.md §3: the active top-left (n, n) block is real data, the rest is
-the identity, and right-hand sides are zero beyond the active block.  Their
-batched form takes a leading study axis S on every buffer and per-study
-counts `n` (a sequence or tensor of S ints); the single-study form takes
-`n` as a Python int, the host-side counter the GP state keeps.
+the identity, and right-hand sides are zero beyond the active block.  They
+take `n` as a Python int, the host-side counter the GP state keeps.  Only
+the factor and the solve take a leading batch axis, which the lag refit
+uses to score its grid of candidate hyper-parameters in one launch; the
+batched study axis of the reference's other padded ops comes with the
+pool slice.
 
 The appends are matmuls against the maintained inverse `li_buf = L^{-1}`:
 the row solve is `q = L^{-1} p` and the inverse grows by the closed-form
@@ -42,8 +44,6 @@ states off one base state), so a row is written in place only into this
 call's own copy.
 """
 from __future__ import annotations
-
-from typing import Sequence, Union
 
 import torch
 
@@ -57,7 +57,6 @@ from repro_torch.kernels.matern import matern52_gram
 from repro_torch.kernels.trsv import trsv
 
 Tensor = torch.Tensor
-Counts = Union[int, Sequence[int], Tensor]
 
 # Floor for the squared new-diagonal d^2 = c - q.q in the incremental append.
 # Exact arithmetic guarantees d^2 > 0; hitting the floor means float32
@@ -93,17 +92,12 @@ def gp_posterior_solve(l: Tensor, resid: Tensor, k_star: Tensor,
 # Padded-state ops: the identity-padded (n_max, n_max) buffers of DESIGN.md §3.
 # ---------------------------------------------------------------------------
 
-def _counts(n: Counts, device) -> Tensor:
-    """Per-study active counts as a (S,) int64 tensor on `device`."""
-    return torch.as_tensor(n, dtype=torch.int64, device=device)
-
-
 def padded_trsv(l_buf: Tensor, b: Tensor, *, trans: bool = False) -> Tensor:
     """Triangular solve on the identity-padded factor buffer.
 
     Exact for right-hand sides that are zero beyond the active block.
-    Batched form: `l_buf (S, n_max, n_max)` with `b (S, n_max)` or
-    `(S, n_max, r)` solves S systems in one launch.
+    Batched form: `l_buf (G, n_max, n_max)` with `b (G, n_max)` or
+    `(G, n_max, r)` solves G systems in one launch.
     """
     return trsv(l_buf, b, trans=trans)
 
@@ -111,7 +105,7 @@ def padded_trsv(l_buf: Tensor, b: Tensor, *, trans: bool = False) -> Tensor:
 def padded_cholesky(k_pad: Tensor) -> Tensor:
     """Cholesky of an identity-padded Gram buffer: the factor of
     [[K, 0], [0, I]] is [[L, 0], [0, I]], the identity-padded factor the
-    lazy state stores.  Batched form: (S, n_max, n_max) in one launch."""
+    lazy state stores.  Batched form: (G, n_max, n_max) in one launch."""
     return cholesky(k_pad)
 
 
@@ -128,45 +122,23 @@ def kernel_gram(kernel_fn, x: Tensor, y: Tensor, params) -> Tensor:
     return kernel_fn(x, y, params)
 
 
-def masked_gram(x_buf: Tensor, n: Counts, kernel_fn, params) -> Tensor:
+def masked_gram(x_buf: Tensor, n: int, kernel_fn, params) -> Tensor:
     """Identity-padded Gram K + noise2 I over the padded point buffer:
     rows/cols >= n are the identity, so `padded_cholesky` of it is the
-    identity-padded factor.
-
-    Batched form: `x_buf (S, n_max, d)` with per-study `n (S,)` and params
-    whose leaves carry a leading (S,) axis.
-    """
+    identity-padded factor."""
     n_max = x_buf.shape[-2]
     eye = torch.eye(n_max, dtype=x_buf.dtype, device=x_buf.device)
     idx = torch.arange(n_max, device=x_buf.device)
-    if x_buf.ndim == 3:
-        grams = torch.stack([
-            kernel_gram(kernel_fn, xb, xb,
-                        type(params)(params.sigma2[s], params.rho[s],
-                                     params.noise2[s]))
-            for s, xb in enumerate(x_buf)])
-        noise = torch.as_tensor(params.noise2, dtype=x_buf.dtype,
-                                device=x_buf.device)[:, None, None]
-        cnt = _counts(n, x_buf.device)[:, None, None]
-        active = (idx[:, None] < cnt) & (idx[None, :] < cnt)
-        return torch.where(active, grams + noise * eye, eye)
     k = kernel_gram(kernel_fn, x_buf, x_buf, params) + params.noise2 * eye
     active = (idx[:, None] < n) & (idx[None, :] < n)
     return torch.where(active, k, eye)
 
 
-def write_append_row(buf: Tensor, q: Tensor, d, n: Counts) -> Tensor:
+def write_append_row(buf: Tensor, q: Tensor, d, n: int) -> Tensor:
     """A copy of the padded triangular buffer with row n replaced by
-    [q^T, d, 0, ...] (per study in the batched form)."""
-    n_max = buf.shape[-1]
-    idx = torch.arange(n_max, device=buf.device)
+    [q^T, d, 0, ...]."""
+    idx = torch.arange(buf.shape[-1], device=buf.device)
     out = buf.clone()      # this call's own buffer: written in place below
-    if buf.ndim == 3:
-        cnt = _counts(n, buf.device)
-        row = torch.where(idx[None, :] < cnt[:, None], q, 0.0)
-        row = torch.where(idx[None, :] == cnt[:, None], d[:, None], row)
-        out[torch.arange(buf.shape[0], device=buf.device), cnt] = row
-        return out
     row = torch.where(idx < n, q, 0.0)
     row[n] = d
     out[n] = row
@@ -176,13 +148,13 @@ def write_append_row(buf: Tensor, q: Tensor, d, n: Counts) -> Tensor:
 def padded_tri_inverse(l_buf: Tensor) -> Tensor:
     """Identity-padded inverse `L^{-1}` of the identity-padded factor, by
     solving `L X = I` (the identity block is self-inverse).  Runs only at
-    refactor events.  Batched form: (S, n_max, n_max)."""
+    refactor events.  Batched form: (G, n_max, n_max)."""
     eye = torch.eye(l_buf.shape[-1], dtype=l_buf.dtype, device=l_buf.device)
     return padded_trsv(l_buf, eye.expand_as(l_buf))
 
 
 def padded_append_row(l_buf: Tensor, li_buf: Tensor, p_pad: Tensor, c,
-                      n: Counts) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+                      n: int) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Paper Alg. 3 row append on the padded factor + inverse, O(n_max^2).
 
     Args:
@@ -193,70 +165,63 @@ def padded_append_row(l_buf: Tensor, li_buf: Tensor, p_pad: Tensor, c,
       n: active count; the new row lands at index n.
 
     Returns (l_new, li_new, d, clamped) where `clamped` is 1 (int32) iff
-    d^2 hit the CLAMP_EPS conditioning floor.  Batched form: (S, ...)
-    buffers, (S, n_max) columns, (S,) self-covariances and counts.
+    d^2 hit the CLAMP_EPS conditioning floor.
     """
     # Rows >= n of li are identity and p is zero there, so q is exact and
     # already zero beyond the active block.
-    q = (li_buf @ p_pad[..., None])[..., 0]
-    d2 = c - torch.sum(q * q, dim=-1)
+    q = li_buf @ p_pad
+    d2 = c - q @ q
     clamped = (d2 < CLAMP_EPS).to(torch.int32)
     d = torch.sqrt(torch.clamp(d2, min=CLAMP_EPS))
     l_new = write_append_row(l_buf, q, d, n)
     # Bordered inverse: row n of L'^{-1} is [-(1/d) q^T L^{-1}, 1/d].
-    r = -(q[..., None, :] @ li_buf)[..., 0, :] / d[..., None]
+    r = -(q @ li_buf) / d
     li_new = write_append_row(li_buf, r, 1.0 / d, n)
     return l_new, li_new, d, clamped
 
 
 def _refresh_alpha(li_new: Tensor, resid: Tensor, active: Tensor) -> Tensor:
     """alpha = L'^{-T} (L'^{-1} r) as two matvecs, zero past the active rows."""
-    z = (li_new @ resid[..., None])[..., 0]
-    alpha = (z[..., None, :] @ li_new)[..., 0, :]          # == li_new.T @ z
+    z = li_new @ resid
+    alpha = z @ li_new                                     # == li_new.T @ z
     return torch.where(active, alpha, 0.0)
 
 
 def lazy_append(l_buf: Tensor, li_buf: Tensor, p_pad: Tensor, c,
-                resid: Tensor, n: Counts
+                resid: Tensor, n: int
                 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Fused Alg. 3 append: row + inverse update + alpha refresh, O(n_max^2).
 
     `resid` (n_max,) is y - mean *including* the new observation at row n,
-    zero beyond it.  Returns (l_new, li_new, alpha, d, clamped).  Batched
-    form as `padded_append_row`, heterogeneous counts allowed.
+    zero beyond it.  Returns (l_new, li_new, alpha, d, clamped).
     """
     idx = torch.arange(l_buf.shape[-1], device=l_buf.device)
     l_new, li_new, d, clamped = padded_append_row(l_buf, li_buf, p_pad, c, n)
-    cnt = _counts(n, l_buf.device)[..., None] if l_buf.ndim == 3 else n
-    return (l_new, li_new, _refresh_alpha(li_new, resid, idx <= cnt), d,
+    return (l_new, li_new, _refresh_alpha(li_new, resid, idx <= n), d,
             clamped)
 
 
 def lazy_append_rows(l_buf: Tensor, li_buf: Tensor, p_pads: Tensor, cs: Tensor,
-                     resid: Tensor, n: Counts
+                     resid: Tensor, n: int
                      ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Append q bordered rows, then one alpha refresh.
 
     Row i lands at index n + i; `p_pads (q, n_max)` row i covers the first
     n + i rows of the final point buffer, `cs (q,)` the self-covariances,
     `resid` includes all q new rows.  Returns (l_new, li_new, alpha,
-    ds (q,), clamped count).  Batched form: (S, q, n_max) columns, (S, q)
-    self-covariances, per-study counts.
+    ds (q,), clamped count).
     """
-    batched = l_buf.ndim == 3
-    base = _counts(n, l_buf.device) if batched else n
-    q_rows = p_pads.shape[-2]
+    q_rows = p_pads.shape[0]
     ds, clamped = [], 0
     l_new, li_new = l_buf, li_buf
     for i in range(q_rows):
-        l_new, li_new, d, cl = padded_append_row(
-            l_new, li_new, p_pads[..., i, :], cs[..., i], base + i)
+        l_new, li_new, d, cl = padded_append_row(l_new, li_new, p_pads[i],
+                                                 cs[i], n + i)
         ds.append(d)
         clamped = clamped + cl
     idx = torch.arange(l_buf.shape[-1], device=l_buf.device)
-    end = base[:, None] + q_rows if batched else base + q_rows
-    alpha = _refresh_alpha(li_new, resid, idx < end)
-    return l_new, li_new, alpha, torch.stack(ds, dim=-1), clamped
+    alpha = _refresh_alpha(li_new, resid, idx < n + q_rows)
+    return l_new, li_new, alpha, torch.stack(ds), clamped
 
 
 # ---------------------------------------------------------------------------
@@ -282,8 +247,8 @@ def fused_ei_grad(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
       a_buf: (n_max, n_max) hoisted A = li_buf^T li_buf.
       sigma2, rho: kernel hyper-parameters; shift = ymean - f_best - xi.
 
-    Returns (ei (r,), grad (r, d)).  Batched: a leading study axis on every
-    tensor and (S,) scalars.
+    Returns (ei (r,), grad (r, d)).  Batched: a leading axis on every
+    tensor and (G,) scalars, one launch.
     """
     return acq_kernels.fused_ei_grad(x, x_buf, amask.to(x.dtype), alpha,
                                      a_buf, sigma2, rho, shift)

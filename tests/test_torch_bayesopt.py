@@ -20,10 +20,11 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 
 def _objective(x: np.ndarray) -> np.ndarray:
     """Levy scaled to O(1) values.  At the raw scale (values ~ -40 against
-    the unit prior variance) EI underflows to 0 everywhere, and the
-    reference's ascent then moves along the gradient of its float32 erf's
-    tail (cdf ~ 1e-8 where torch's erf gives 0): a direction with no
-    meaning, which no port can reproduce."""
+    the unit prior variance) EI underflows to 0 almost everywhere, and the
+    reference's ascent then moves along the gradient of its float32
+    1 + erf, which leaves cdf ~ 6e-8 where the true Phi (the port's erfc
+    form) is many orders smaller: a direction with no meaning, which the
+    port does not reproduce."""
     return 0.05 * neg_levy(x).numpy()
 
 
@@ -69,6 +70,9 @@ def test_run_bo_records_history_on_cpu():
     assert np.all(np.diff(hist.best_y) >= 0)
     assert all(np.all(np.abs(x) <= 10.0) for x in hist.xs)
     assert len(hist.acq_seconds) == len(hist.gp_seconds) == 3
+    # One EI value per suggestion, best first within each round.
+    assert len(hist.acq_values) == 3 * 2
+    assert all(np.isfinite(v) and v >= 0.0 for v in hist.acq_values)
     # Same seed, same draws: the run is deterministic.
     _, again = bo.run_bo(_objective, lo, hi, 3, dim=3, n_seed=4, n_max=16,
                          batch_size=2, device="cpu",

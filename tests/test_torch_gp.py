@@ -7,6 +7,7 @@ import pytest
 from _torch_port import j, n, seeded_states, t
 
 from repro.core import gp as jgp
+from repro.core.kernels import KernelParams as JParams
 from repro.core.kernels import matern52 as jmatern52
 from repro_torch.core import gp
 from repro_torch.core.kernels import matern52
@@ -62,6 +63,19 @@ def test_posterior_and_lml(pair):
     mg, vg = gp.dense_posterior(t(x), t(y), t(xq), matern52, ts.params)
     np.testing.assert_allclose(n(mg), n(mw), **POST_TOL)
     np.testing.assert_allclose(n(vg), n(vw), **POST_TOL)
+
+
+def test_lml_grid_matches_reference_per_candidate(pair):
+    """The lag refit scores its 18 candidates as one batch; each score is
+    the reference's full-refactor LML under that candidate."""
+    js, ts = pair
+    cand = np.array([[s2, rho] for rho in (0.05, 0.2, 0.8, 1.6)
+                     for s2 in (0.25, 4.0)], np.float32)
+    got = n(gp._lml_grid(ts, matern52, t(cand)))
+    want = [float(jgp._lml_for(js, jmatern52, JParams(
+        sigma2=jnp.float32(s2), rho=jnp.float32(rho), noise2=js.params.noise2),
+        implementation="xla")) for s2, rho in cand]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
 
 
 def test_refactor_and_refit_params(pair):

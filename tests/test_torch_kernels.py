@@ -195,3 +195,25 @@ def test_ei_variance_floor_zeroes_dvar():
     ei, g = acq.ei_grad_torch(t(x), t(xb), t(am), t(al), t(ab), s2, rho, shift)
     np.testing.assert_allclose(n(ei), n(ei_w), **EI_TOL)
     np.testing.assert_allclose(n(g), n(g_w), **EI_TOL)
+
+
+@pytest.mark.parametrize("z", [-6.0, -8.0, -12.0])
+def test_fused_ei_keeps_the_lower_tail(z):
+    """Far below the incumbent, Phi = 0.5 erfc(-Z / sqrt2) keeps EI and its
+    gradient alive in float32 (1 + erf(Z / sqrt2) cancels to 0 there): the
+    port agrees with a float64 evaluation of the same function at 2e-3,
+    and with the reference's erf form within its absolute tolerance."""
+    x, xb, am, al, ab, s2, rho, shift = _ei_inputs(np.random.default_rng(3))
+    wide = [torch.from_numpy(a.copy()).double() for a in (x, xb, am, al, ab)]
+    k = ref.matern52_gram(wide[0], wide[1], s2, rho) * wide[2]
+    gam = k @ wide[3] + shift
+    sig = torch.sqrt(s2 - torch.sum((k @ wide[4]) * k, dim=-1))
+    shift = float(shift - gam[0] + z * sig[0])        # row 0 sits at Z = z
+    ei, g = acq.ei_grad_torch(t(x), t(xb), t(am), t(al), t(ab), s2, rho, shift)
+    ei_d, g_d = acq.ei_grad_torch(*wide, s2, rho, shift)
+    assert float(ei[0]) > 0.0 and np.all(n(g[0]) != 0.0)
+    np.testing.assert_allclose(n(ei[0]), n(ei_d[0]), rtol=2e-3)
+    np.testing.assert_allclose(n(g[0]), n(g_d[0]), rtol=2e-3)
+    ei_w, g_w = jacq.ei_grad_jnp(j(x), j(xb), j(am), j(al), j(ab), s2, rho, shift)
+    np.testing.assert_allclose(n(ei), n(ei_w), **EI_TOL)
+    np.testing.assert_allclose(n(g), n(g_w), **EI_TOL)

@@ -1,6 +1,7 @@
 """The port's padded-state ops against `repro.kernels.ops` on shared
-buffers, single-study and batched at heterogeneous active counts, and the
-state conversion between the two packages."""
+buffers at heterogeneous active counts (the factor and the inverse also
+batched, as the lag refit runs them), and the state conversion between the
+two packages."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,25 +38,18 @@ def _params(states):
     return JParams(*(j(v) for v in vals)), KernelParams(*(t(v) for v in vals))
 
 
-@pytest.mark.parametrize("batched", [False, True])
-def test_masked_gram(states, batched):
-    if batched:
-        jp, tp = _params(states)
-        xb = _stack(states, "x_buf")
-        want = jops.masked_gram(j(xb), jnp.asarray(COUNTS), jmatern52, jp,
-                                implementation="pallas")
-        got = ops.masked_gram(t(xb), COUNTS, matern52, tp)
-    else:
-        js, ts = states[1]
-        want = jops.masked_gram(js.x_buf, js.n, jmatern52, js.params,
-                                implementation="pallas")
-        got = ops.masked_gram(ts.x_buf, ts.n, matern52, ts.params)
+@pytest.mark.parametrize("study", range(len(COUNTS)))
+def test_masked_gram(states, study):
+    js, ts = states[study]
+    want = jops.masked_gram(js.x_buf, js.n, jmatern52, js.params,
+                            implementation="pallas")
+    got = ops.masked_gram(ts.x_buf, ts.n, matern52, ts.params)
     np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("batched", [False, True])
 def test_padded_cholesky_and_tri_inverse(states, batched):
-    jp, tp = _params(states)
+    jp, _ = _params(states)
     xb = _stack(states, "x_buf")
     k = n(jops.masked_gram(j(xb), jnp.asarray(COUNTS), jmatern52, jp,
                            implementation="xla"))
@@ -84,32 +78,26 @@ def test_padded_trsv_on_padded_buffer():
         assert np.all(n(got)[13:] == 0.0)
 
 
-def _append_inputs(rng, states, batched):
-    """New point per study: its padded column, self-covariance, residual."""
-    out = []
-    for (js, _), cnt in zip(states, COUNTS):
-        x_new = rng.uniform(size=(DIM,)).astype(np.float32)
-        p = n(jmatern52(js.x_buf, j(x_new[None]), js.params))[:, 0]
-        p = np.where(np.arange(N_MAX) < cnt, p, 0.0).astype(np.float32)
-        c = np.float32(1.0 + float(n(js.params.noise2)))
-        y = n(js.y_buf).copy()
-        y[cnt] = 0.3
-        act = np.arange(N_MAX) <= cnt
-        resid = np.where(act, y - y[act].mean(), 0.0).astype(np.float32)
-        out.append((p, c, resid))
-    if not batched:
-        return [*(x for x in out[1]), COUNTS[1]]
-    return [np.stack([o[i] for o in out]) for i in range(3)] + [list(COUNTS)]
+def _append_inputs(rng, js, cnt):
+    """A new point for one study: its padded column, self-covariance and
+    residual."""
+    x_new = rng.uniform(size=(DIM,)).astype(np.float32)
+    p = n(jmatern52(js.x_buf, j(x_new[None]), js.params))[:, 0]
+    p = np.where(np.arange(N_MAX) < cnt, p, 0.0).astype(np.float32)
+    c = np.float32(1.0 + float(n(js.params.noise2)))
+    y = n(js.y_buf).copy()
+    y[cnt] = 0.3
+    act = np.arange(N_MAX) <= cnt
+    resid = np.where(act, y - y[act].mean(), 0.0).astype(np.float32)
+    return p, c, resid
 
 
-@pytest.mark.parametrize("batched", [False, True])
-def test_padded_append_row_and_lazy_append(states, batched):
+@pytest.mark.parametrize("study", range(len(COUNTS)))
+def test_padded_append_row_and_lazy_append(states, study):
     rng = np.random.default_rng(1)
-    p, c, resid, cnt = _append_inputs(rng, states, batched)
-    if batched:
-        l_buf, li_buf = _stack(states, "l_buf"), _stack(states, "li_buf")
-    else:
-        l_buf, li_buf = n(states[1][0].l_buf), n(states[1][0].li_buf)
+    js, cnt = states[study][0], COUNTS[study]
+    p, c, resid = _append_inputs(rng, js, cnt)
+    l_buf, li_buf = n(js.l_buf), n(js.li_buf)
     jcnt = jnp.asarray(cnt)
     want = jops.padded_append_row(j(l_buf), j(li_buf), j(p), j(c), jcnt)
     got = ops.padded_append_row(t(l_buf), t(li_buf), t(p), t(c), cnt)
@@ -123,34 +111,26 @@ def test_padded_append_row_and_lazy_append(states, batched):
     np.testing.assert_array_equal(n(t(l_buf)), l_buf)
 
 
-@pytest.mark.parametrize("batched", [False, True])
-def test_lazy_append_rows(states, batched):
+@pytest.mark.parametrize("study", range(len(COUNTS)))
+def test_lazy_append_rows(states, study):
     rng = np.random.default_rng(2)
     q = 3
-    sel = states if batched else states[:1]
-    cols, cs, resids = [], [], []
-    for (js, _), cnt in zip(sel, COUNTS):
-        xs = rng.uniform(size=(q, DIM)).astype(np.float32)
-        xb = n(js.x_buf).copy()
-        xb[cnt:cnt + q] = xs
-        p_all = n(jmatern52(j(xb), j(xs), js.params))
-        idx = np.arange(N_MAX)[:, None]
-        cols.append(np.where(idx < cnt + np.arange(q)[None], p_all, 0.0).T)
-        cs.append(np.full((q,), 1.0 + float(n(js.params.noise2)), np.float32))
-        y = n(js.y_buf).copy()
-        y[cnt:cnt + q] = rng.standard_normal(q)
-        act = np.arange(N_MAX) < cnt + q
-        resids.append(np.where(act, y - y[act].mean(), 0.0))
-    arrs = [np.asarray(a, np.float32) for a in (cols, cs, resids)]
-    bufs = [_stack(sel, "l_buf"), _stack(sel, "li_buf")]
-    counts = list(COUNTS[:len(sel)])
-    if not batched:
-        arrs = [a[0] for a in arrs]
-        bufs = [b[0] for b in bufs]
-        counts = counts[0]
-    want = jops.lazy_append_rows(*(j(a) for a in bufs + arrs),
-                                 jnp.asarray(counts))
-    got = ops.lazy_append_rows(*(t(a) for a in bufs + arrs), counts)
+    js, cnt = states[study][0], COUNTS[study]
+    xs = rng.uniform(size=(q, DIM)).astype(np.float32)
+    xb = n(js.x_buf).copy()
+    xb[cnt:cnt + q] = xs
+    p_all = n(jmatern52(j(xb), j(xs), js.params))
+    idx = np.arange(N_MAX)[:, None]
+    cols = np.where(idx < cnt + np.arange(q)[None], p_all, 0.0).T
+    cs = np.full((q,), 1.0 + float(n(js.params.noise2)), np.float32)
+    y = n(js.y_buf).copy()
+    y[cnt:cnt + q] = rng.standard_normal(q)
+    act = np.arange(N_MAX) < cnt + q
+    resid = np.where(act, y - y[act].mean(), 0.0)
+    arrs = [np.asarray(a, np.float32) for a in
+            (n(js.l_buf), n(js.li_buf), cols, cs, resid)]
+    want = jops.lazy_append_rows(*(j(a) for a in arrs), jnp.asarray(cnt))
+    got = ops.lazy_append_rows(*(t(a) for a in arrs), cnt)
     for g, w in zip(got, want):
         np.testing.assert_allclose(n(g), n(w), **TOL)
 
