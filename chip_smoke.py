@@ -6,16 +6,19 @@
 Phases, each printing one JSON line:
   1. device  — the card's name and power limit as nvidia-smi reports them;
                TF32 off for matmuls and convolutions (fp32 like the reference).
-  2. build   — nvcc builds the four kernels of `src/repro_torch/csrc/`, one
-               process per source, all started together.
+  2. build   — nvcc builds the five kernel libraries of
+               `src/repro_torch/csrc/` (six kernels: acq.cu holds the float
+               and the mixed fused EI), one process per source, all
+               started together.
   3. kernels — each kernel against its plain PyTorch version on the card,
                on the same inputs at the main path's shapes (the factor and
                the solve also as the lag refit's batch of 18 grid
                candidates, and the fused EI on raw as well as standardized
-               Levy values), with the tolerance stated; times from CUDA
-               events (median of 20) for the kernel, the plain version and,
-               where one PyTorch call computes the same function, that call
-               (timed only, never used by the port).
+               Levy values; the mixed gram and the mixed fused EI on the
+               mixed workload's space), with the tolerance stated; times
+               from CUDA events (median of 20) for the kernel, the plain
+               version and, where one PyTorch call computes the same
+               function, that call (timed only, never used by the port).
   4. main    — `run_bo` on Levy-5d at full width (n_max = 1024, 64 restarts
                x 25 ascent steps, 960 seed points, 48 rounds, lag 32).  Every
                launch counter is set to 0 just before and read just after;
@@ -24,8 +27,15 @@ Phases, each printing one JSON line:
                one suggestion with a positive EI (the count of those with
                EI 0 is printed), and the final factor and inverse
                consistent with the Gram.
-  5. profile — four more rounds under torch.profiler: device busy share and
-               device time by kernel.
+  5. mixed   — `run_bo(desc=...)` on the repository's mixed workload (the
+               space and objective of benchmarks/bench_mixed.py: Levy over
+               two floats and an Int, plus a 3-way Categorical offset;
+               encoded width 6) at the same full width, with its own exact
+               launch counts (the float Matérn gram and float EI 0), every
+               suggestion on the feasible lattice, and a recorded ascent
+               showing which coordinates the gradient steps move.
+  6. profile — four more rounds of each path under torch.profiler: device
+               busy share and device time by kernel.
 Then the `{"kernels": [...]}` line, the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
@@ -51,6 +61,7 @@ PEAK_BYTES_PER_S = 3.35e12
 REPS = 20
 
 DIM = 5
+MIXED_DIM = 6             # x1, x2, k, then the one-hot branch block
 N_MAX = 1024
 N_SEED = 960
 ITERATIONS = 48
@@ -58,6 +69,9 @@ LAG = 32
 RHO0, SIGMA2, NOISE2 = 0.25, 1.0, 1e-6
 GRID_RHO = (0.05, 0.1, 0.2, 0.4, 0.8, 1.6)     # gp.refit_params' grid
 GRID_SIGMA2 = (0.25, 1.0, 4.0)
+# The mixed workload's objective (benchmarks/bench_mixed.py:36-62): -Levy
+# over (x1, x2, k) plus an offset per branch; optimum at k = 1, branch b.
+BRANCH_OFFSET = {"a": -4.0, "b": 0.0, "c": -2.0}
 
 # Tolerances against the plain version on the same inputs.
 TOL_MATERN = dict(rtol=1e-5, atol=1e-6)    # elementwise, K <= sigma2 = 1
@@ -75,6 +89,49 @@ TOL_EI = dict(rtol=1e-4, atol=1e-5)        # tests/test_fused_acq.py:65,
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_counts() -> None:
+    """Set every launch counter to 0 (the mixed fused EI counts apart)."""
+    from repro_torch.kernels import KERNEL_MODULES, acq
+    for mod in KERNEL_MODULES:
+        mod.LAUNCHES = 0
+    acq.LAUNCHES_MIXED = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import KERNEL_MODULES, acq
+    counts = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+              for mod in KERNEL_MODULES}
+    counts["acq_mixed"] = acq.LAUNCHES_MIXED
+    return counts
+
+
+def mixed_space():
+    """The mixed workload's search space (benchmarks/bench_mixed.py:45)."""
+    from repro_torch.hpo.space import Categorical, Dim, Int, SearchSpace
+    return SearchSpace((
+        Dim("x1", -10.0, 10.0),
+        Dim("x2", -10.0, 10.0),
+        Int("k", -3, 3),                       # third Levy coordinate
+        Categorical("branch", ("a", "b", "c")),
+    ))
+
+
+def mixed_objective(space):
+    """The mixed workload's objective on encoded unit vectors (n, 6): each
+    row decoded with `to_hparams`, then -Levy(x1, x2, k) + the branch's
+    offset (benchmarks/bench_mixed.py:55)."""
+    from repro_torch.core.levy import neg_levy
+
+    def objective(u: np.ndarray) -> np.ndarray:
+        hps = [space.to_hparams(row) for row in np.atleast_2d(u)]
+        x = torch.tensor([[hp["x1"], hp["x2"], float(hp["k"])] for hp in hps],
+                         dtype=torch.float32)
+        off = np.asarray([BRANCH_OFFSET[hp["branch"]] for hp in hps])
+        return (neg_levy(x).numpy() + off).astype(np.float32)
+
+    return objective
 
 
 def median_ms(fn, reps: int = REPS) -> float:
@@ -199,10 +256,32 @@ def levy_state(dev, gen, standardize: bool = True):
     return dataclasses.replace(st, n=N_SEED), matern52
 
 
+def mixed_state(dev, gen, standardize: bool = True):
+    """A mixed-space refactor input: 960 points of the mixed workload's
+    space, drawn uniform and projected onto its lattice, in an n_max = 1024
+    buffer, and their state under the mixed kernel."""
+    from repro_torch.core import gp
+    from repro_torch.core.descriptor import project_units
+    space = mixed_space()
+    desc = space.descriptor().to(dev)
+    u = project_units(torch.rand((N_SEED, MIXED_DIM), generator=gen,
+                                 device=dev), desc)
+    y = torch.as_tensor(mixed_objective(space)(u.cpu().numpy()), device=dev)
+    if standardize:
+        y = (y - y.mean()) / y.std()
+    cfg = gp.GPConfig(n_max=N_MAX, dim=MIXED_DIM, noise2=NOISE2, rho0=RHO0,
+                      desc=desc, device=str(dev))
+    st = gp.init_state(cfg)
+    st.x_buf[:N_SEED] = u
+    st.y_buf[:N_SEED] = y
+    return dataclasses.replace(st, n=N_SEED), cfg.kernel_fn, desc
+
+
 def check_kernels(dev, gen) -> list[dict]:
     """Phase 3: each kernel against its plain version at main-path shapes."""
     from repro_torch.core import gp
-    from repro_torch.kernels import acq, chol, matern, ops, ref, trsv
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.kernels import acq, chol, matern, mixed, ops, ref, trsv
     rows = []
     eye = torch.eye(N_MAX, device=dev)
 
@@ -360,94 +439,263 @@ def check_kernels(dev, gen) -> list[dict]:
                      max_abs_err=max(v["max_abs_err"] for v in scales.values()),
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=None))
+
+    # --- 5. Mixed gram on the mixed workload's space (d = 6: x1, x2, k and
+    # the 3-way one-hot): the refactor's (1024, 6)^2 and the append column.
+    d6 = MIXED_DIM
+    desc = mixed_space().descriptor().to(dev)
+    cm, km = desc.cont_mask, desc.cat_mask
+    xm = project_units(torch.rand((N_MAX, d6), generator=gen, device=dev), desc)
+    shapes = {}
+    for tag, y in (("1024x1024", xm), ("1024x1", xm[7:8])):
+        got = mixed.mixed_gram_cuda(xm, y, s2, rho, cm, km)
+        want = ref.mixed_gram(xm, y, s2, rho, cm, km)
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        if not torch.allclose(got, want, **TOL_MATERN):
+            raise AssertionError(f"mixed gram {tag}: max abs err {err}")
+        n, m = xm.shape[0], y.shape[0]
+        b_ms, b_by = bound(n * m * (4 * d6 + 20),
+                           4 * (n * d6 + m * d6 + 2 * d6 + n * m))
+        shapes[tag] = dict(
+            max_abs_err=err,
+            ms=median_ms(lambda: mixed.mixed_gram_cuda(xm, y, s2, rho, cm, km)),
+            plain_ms=median_ms(lambda: ref.mixed_gram(xm, y, s2, rho, cm, km)),
+            bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "kernels", "kernel": "mixed_gram", "tol": TOL_MATERN,
+          "shapes": shapes})
+    rows.append(dict(name="mixed_gram", shape="(1024,6)x(1024,6)",
+                     **shapes["1024x1024"], library_ms=None))
+
+    # --- 6. Mixed fused EI at r = 64, n = 1024, d = 6 on a refactored
+    # mixed-space state, on standardized and on raw objective values, at
+    # candidates on the lattice (where the ascent evaluates it).  The plain
+    # version takes the split rows, as the reference's does; the kernel
+    # splits them as it loads them.
+    def mixed_plain(a):
+        xcc, xbc, xk, xbk = acq.split_rows(a[0], a[1], cm, km)
+        return acq.ei_grad_torch(xcc, xbc, *a[2:], xk=xk, xbk=xbk)
+
+    from repro_torch.core.kernels import KernelParams
+    xc = project_units(torch.rand((64, d6), generator=gen, device=dev), desc)
+    refit = KernelParams(sigma2=4.0, rho=0.05, noise2=NOISE2).to(dev)
+    scales = {}
+    # The initial length scale on standardized and on raw values, and the
+    # standardized values under the parameters the main path's lag refit
+    # picks (a better conditioned Gram).
+    for scale, standardize, params in (("standardized", True, None),
+                                       ("raw", False, None),
+                                       ("standardized, refit params", True,
+                                        refit)):
+        state, mkern, _ = mixed_state(dev, gen, standardize=standardize)
+        args = ei_args(gp.refactor(state, mkern, params), xc)
+        ei_k, g_k = acq.fused_ei_grad_mixed_cuda(*args, cm, km)
+        ei_p, g_p = mixed_plain(args)
+        ei_d, g_d = mixed_plain([a.double() for a in args])
+        torch.cuda.synchronize()
+        held = {name: held_to_plain(k, p, d, TOL_EI) for name, k, p, d in
+                (("ei", ei_k, ei_p, ei_d), ("grad", g_k, g_p, g_d))}
+        if not all(ok for ok, _ in held.values()):
+            raise AssertionError(f"mixed fused EI ({scale}): {held}")
+        cat_grad = float((g_k * km).abs().max())
+        if cat_grad != 0.0:
+            raise AssertionError(f"mixed fused EI ({scale}): gradient "
+                                 f"{cat_grad} on a categorical coordinate")
+        scales[scale] = dict(
+            max_abs_err=max(max_abs(ei_k, ei_p), max_abs(g_k, g_p)),
+            ei_max=float(ei_p.abs().max()), grad_max=float(g_p.abs().max()),
+            rows_ei_positive=int((ei_k > 0).sum()),
+            plain_rows_ei_positive=int((ei_p > 0).sum()),
+            rows_grad_zero=int((g_k.abs().sum(-1) == 0).sum()),
+            **{k: v for name, (_, d) in held.items()
+               for k, v in ((f"{name}_{key}", val) for key, val in d.items())})
+        if scale == "standardized":
+            ms = median_ms(lambda: acq.fused_ei_grad_mixed_cuda(*args, cm, km))
+            plain_ms = median_ms(lambda: mixed_plain(args))
+    r, n = xc.shape[0], N_MAX
+    b_ms, b_by = bound(r * (2.0 * n * n + n * (8 * d6 + 45)),
+                       4 * (r * d6 + n * d6 + 2 * d6 + 2 * n + n * n + r
+                            + r * d6))
+    emit({"phase": "kernels", "kernel": "fused_ei_grad_mixed", "tol": TOL_EI,
+          **scales, "ms": ms, "plain_ms": plain_ms})
+    rows.append(dict(name="fused_ei_grad_mixed", shape="r=64, n=1024, d=6",
+                     max_abs_err=max(v["max_abs_err"] for v in scales.values()),
+                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None))
     return rows
 
 
-def main_path(dev):
-    """Phase 4: the port's run_bo at full width.  Returns the launch counts,
-    the final state and the history."""
-    from repro_torch.core import run_bo
-    from repro_torch.core.acquisition import AcqConfig
-    from repro_torch.core.kernels import matern52
-    from repro_torch.kernels import KERNEL_MODULES, ops
-    from repro_torch.core.levy import levy_bounds, neg_levy
-    lo, hi = levy_bounds(DIM)
-    acq_cfg = AcqConfig()
-
-    def objective(x):
-        return neg_levy(x).numpy()
-
-    for mod in KERNEL_MODULES:
-        mod.LAUNCHES = 0
-    t0 = time.perf_counter()
-    state, hist = run_bo(objective, lo, hi, ITERATIONS, dim=DIM, lag=LAG,
-                         n_seed=N_SEED, n_max=N_MAX, acq=acq_cfg, device="cuda")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
-                for mod in KERNEL_MODULES}
-
-    # One refactor at the seed points; each lag event scores the 18 grid
-    # candidates as one batch (18 Grams, one factor, one solve), then
-    # refactors under the winner.  Each round's append builds one column.
+def expected_counts(acq_cfg, gram: str, ei: str) -> dict:
+    """Launches a full-width run must make: one refactor at the seed points;
+    each lag event scores the 18 grid candidates as one batch (18 Grams,
+    one factor, one solve), then refactors under the winner; each round's
+    append builds one column; each suggest is 25 ascent steps and one
+    final evaluation.  The other path's gram and EI kernels stay at 0."""
     lag_events = ITERATIONS // LAG
     grid = len(GRID_RHO) * len(GRID_SIGMA2)
-    expected = {"matern": 1 + lag_events * (grid + 1) + ITERATIONS,
-                "trsv": 1 + 2 * lag_events, "chol": 1 + 2 * lag_events,
-                "acq": ITERATIONS * (acq_cfg.ascent_steps + 1)}
+    counts = {"matern": 0, "mixed": 0, "acq": 0, "acq_mixed": 0,
+              "trsv": 1 + 2 * lag_events, "chol": 1 + 2 * lag_events}
+    counts[gram] = 1 + lag_events * (grid + 1) + ITERATIONS
+    counts[ei] = ITERATIONS * (acq_cfg.ascent_steps + 1)
+    return counts
+
+
+def drive(name: str, dev, run, expected: dict, kernel):
+    """Run one path with every counter set to 0 just before and read just
+    after; check the counts, the suggestions' EI, the best value and the
+    final factor, and emit the path's line.  Returns (counts, state, hist,
+    line)."""
+    from repro_torch.kernels import ops
+    reset_counts()
+    t0 = time.perf_counter()
+    state, hist = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
     if launches != expected:
-        raise AssertionError(f"launches {launches}, expected {expected}")
+        raise AssertionError(f"{name}: launches {launches}, expected {expected}")
     # EI of each suggestion: 0 means every restart ended where EI (and so
     # its gradient) is 0 in float32, and the pick fell to the first restart.
     # On raw Levy values that is common (PERF.md); an ascent that never had
     # any signal is a failure.
     zero_ei = [v == 0.0 for v in hist.acq_values]
     if all(zero_ei):
-        raise AssertionError(f"all {ITERATIONS} suggestions had EI 0")
-    xs = np.asarray(hist.xs[N_SEED:])
-    if not (np.all(xs >= -10.0) and np.all(xs <= 10.0)):
-        raise AssertionError("a suggestion left the box")
+        raise AssertionError(f"{name}: all {ITERATIONS} suggestions had EI 0")
     if not np.isfinite(hist.best_y[-1]) or state.n != N_SEED + ITERATIONS:
-        raise AssertionError(f"best_y {hist.best_y[-1]}, n {state.n}")
-    k_pad = ops.masked_gram(state.x_buf, state.n, matern52, state.params)
+        raise AssertionError(f"{name}: best_y {hist.best_y[-1]}, n {state.n}")
+    k_pad = ops.masked_gram(state.x_buf, state.n, kernel, state.params)
     recon = float((state.l_buf @ state.l_buf.T - k_pad).abs().max()
                   / k_pad.abs().max())
     inv_err = float((state.li_buf @ state.l_buf
                      - torch.eye(N_MAX, device=dev)).abs().max())
     if not (np.isfinite(recon) and np.isfinite(inv_err)):
-        raise AssertionError(f"factor health: recon {recon}, inverse {inv_err}")
-    emit({"phase": "main", "n_final": state.n, "launches": launches,
-          "seconds": seconds, "best_y": hist.best_y[-1],
-          "suggest_ms_mean": 1e3 * float(np.mean(hist.acq_seconds)),
-          "absorb_ms_mean": 1e3 * float(np.mean(hist.gp_seconds)),
-          "absorb_ms_max": 1e3 * float(np.max(hist.gp_seconds)),
-          "clamp_count": int(state.clamp_count),
-          "suggestions_with_zero_ei": sum(zero_ei),
-          "of_them_before_the_lag_refit": sum(zero_ei[:LAG]),
-          "ei_of_suggestions": {"min": float(np.min(hist.acq_values)),
-                                "median": float(np.median(hist.acq_values)),
-                                "max": float(np.max(hist.acq_values))},
-          "factor_recon_rel": recon, "inverse_err": inv_err,
-          "sigma2": float(state.params.sigma2), "rho": float(state.params.rho)})
-    return launches, state, hist
+        raise AssertionError(f"{name}: factor health: recon {recon}, "
+                             f"inverse {inv_err}")
+    line = {"phase": name, "n_final": state.n, "launches": launches,
+            "seconds": seconds, "best_y": hist.best_y[-1],
+            "suggest_ms_mean": 1e3 * float(np.mean(hist.acq_seconds)),
+            "absorb_ms_mean": 1e3 * float(np.mean(hist.gp_seconds)),
+            "absorb_ms_max": 1e3 * float(np.max(hist.gp_seconds)),
+            "clamp_count": int(state.clamp_count),
+            "suggestions_with_zero_ei": sum(zero_ei),
+            "of_them_before_the_lag_refit": sum(zero_ei[:LAG]),
+            "ei_of_suggestions": {"min": float(np.min(hist.acq_values)),
+                                  "median": float(np.median(hist.acq_values)),
+                                  "max": float(np.max(hist.acq_values))},
+            "factor_recon_rel": recon, "inverse_err": inv_err,
+            "sigma2": float(state.params.sigma2),
+            "rho": float(state.params.rho)}
+    return launches, state, hist, line
 
 
-def profile_steps(state, hist, steps: int = 4) -> None:
-    """Phase 5: a few more BO rounds (continuing the main path's state)
-    under torch.profiler: wall time, device busy time and its share, and
-    the device time by kernel.  Runs after the launch counts were read."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import BayesOpt, BOConfig
+def main_path(dev):
+    """Phase 4: the port's run_bo on Levy-5d at full width.  Returns the
+    launch counts, a driver of the same configuration with the objective,
+    the final state and the history."""
+    from repro_torch.core import BayesOpt, BOConfig, run_bo
+    from repro_torch.core.acquisition import AcqConfig
     from repro_torch.core.levy import levy_bounds, neg_levy
     lo, hi = levy_bounds(DIM)
-    opt = BayesOpt(BOConfig(dim=DIM, n_max=N_MAX, lag=LAG), lo, hi)
+    acq_cfg = AcqConfig()
+    opt = BayesOpt(BOConfig(dim=DIM, n_max=N_MAX, lag=LAG, acq=acq_cfg),
+                   lo, hi)
+
+    def objective(x):
+        return neg_levy(x).numpy()
+
+    launches, state, hist, line = drive(
+        "main", dev, lambda: run_bo(
+            objective, lo, hi, ITERATIONS, dim=DIM, lag=LAG, n_seed=N_SEED,
+            n_max=N_MAX, acq=acq_cfg, device="cuda"),
+        expected_counts(acq_cfg, "matern", "acq"), opt.kernel)
+    xs = np.asarray(hist.xs[N_SEED:])
+    if not (np.all(xs >= -10.0) and np.all(xs <= 10.0)):
+        raise AssertionError("a suggestion left the box")
+    emit(line)
+    return launches, (opt, objective), state, hist
+
+
+def mixed_path(dev):
+    """Phase 5: `run_bo(desc=...)` on the mixed workload at full width, on
+    the encoded unit cube (lo = 0, hi = 1).  Returns as `main_path`."""
+    from repro_torch.core import BayesOpt, BOConfig, gp, run_bo
+    from repro_torch.core.acquisition import AcqConfig
+    space = mixed_space()
+    objective = mixed_objective(space)
+    acq_cfg = AcqConfig()
+    lo, hi = np.zeros(space.dim), np.ones(space.dim)
+    desc = space.descriptor()
+    opt = BayesOpt(BOConfig(dim=space.dim, n_max=N_MAX, lag=LAG, acq=acq_cfg,
+                            desc=desc), lo, hi)
+    launches, state, hist, line = drive(
+        "mixed", dev, lambda: run_bo(
+            objective, lo, hi, ITERATIONS, dim=space.dim, lag=LAG,
+            n_seed=N_SEED, n_max=N_MAX, desc=desc, acq=acq_cfg,
+            device="cuda"),
+        expected_counts(acq_cfg, "mixed", "acq_mixed"), opt.kernel)
+    xs = np.asarray(hist.xs)
+    off = int((space.project(xs) != xs).any(axis=1).sum())
+    if off:
+        raise AssertionError(f"mixed: {off} points off the feasible lattice")
+    best = space.to_hparams(xs[int(np.argmax(hist.ys))])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    standardized, _, _ = mixed_state(dev, gen)
+    line.update(points_off_lattice=off, best_hparams=best, ascent={
+        "final_state": record_ascent(opt, state, space),
+        "standardized_state": record_ascent(
+            opt, gp.refactor(standardized, opt.kernel), space)})
+    emit(line)
+    return launches, (opt, objective), state, hist
+
+
+def record_ascent(opt, state, space) -> dict:
+    """One more suggest on a mixed-space state (run after the counts were
+    read) with every ascent iterate recorded: how many of the 64 restarts
+    moved off their projected seed on the int, the one-hot and the float
+    coordinates.  With lr * width = 0.05 below half the int's lattice step
+    (1/12), the int snaps back to its seed value every step, and the
+    one-hot block has no gradient.  Where EI underflows at every seed
+    (raw values), nothing moves at all, so a standardized state shows the
+    floats moving beside the ints that do not."""
+    from repro_torch.core import acquisition as acq_mod
+    from repro_torch.core import gp as gp_mod
+    from repro_torch.core.descriptor import project_units
+    iterates = []
+    eval_batch = acq_mod._make_eval_batch(
+        state, opt.kernel, opt.cfg.acq, True, acq_mod._f_best(state),
+        gp_mod._ymean(state))
+
+    def recording(x):
+        iterates.append(x.clone())
+        return eval_batch(x)
+
+    acq_mod.ascend_acquisition(
+        recording, opt._unit_lo, opt._unit_hi, opt.cfg.acq,
+        generator=opt.generator,
+        project=lambda u: project_units(u, opt.desc))
+    first, last = iterates[0], iterates[-1]
+    moved = (first != last).cpu()
+    desc = space.descriptor()
+    return {"restarts": int(first.shape[0]),
+            "int_moved": int(moved[:, desc.levels > 0].any(1).sum()),
+            "onehot_moved": int(moved[:, desc.cat_mask > 0].any(1).sum()),
+            "float_moved": int(moved[:, (desc.cont_mask > 0)
+                                     & (desc.levels == 0)].any(1).sum())}
+
+
+def profile_steps(name, driver, state, hist, steps: int = 4) -> None:
+    """Phase 6: a few more BO rounds of a path (continuing its state) under
+    torch.profiler: wall time, device busy time and its share, and the
+    device time by kernel.  Runs after the launch counts were read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    opt, objective = driver
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state = opt.step(state, lambda x: neg_levy(x).numpy(), hist)
+            state = opt.step(state, objective, hist)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel = {}
@@ -460,8 +708,9 @@ def profile_steps(state, hist, steps: int = 4) -> None:
         by_kernel[e.key] = (us / 1e3, e.count)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
-    emit({"phase": "profile", "steps": steps, "wall_ms": 1e3 * wall,
-          "device_busy_ms": busy_ms, "device_busy_share": busy_ms / (1e3 * wall),
+    emit({"phase": "profile", "path": name, "steps": steps,
+          "wall_ms": 1e3 * wall, "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / (1e3 * wall),
           "suggest_ms": [1e3 * t for t in hist.acq_seconds[-steps:]],
           "absorb_ms": [1e3 * t for t in hist.gp_seconds[-steps:]],
           "top_kernels": [{"name": k[:80], "ms": ms, "count": c}
@@ -477,6 +726,10 @@ SOURCES = {
              "src/repro/kernels/trsv.py:60"),
     "fused_ei_grad": ("acq", "src/repro_torch/csrc/acq.cu",
                       "src/repro/kernels/acq.py:141"),
+    "mixed_gram": ("mixed", "src/repro_torch/csrc/mixed.cu",
+                   "src/repro/kernels/mixed.py:33"),
+    "fused_ei_grad_mixed": ("acq_mixed", "src/repro_torch/csrc/acq.cu",
+                            "src/repro/kernels/acq.py:151"),
 }
 
 
@@ -505,14 +758,17 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = check_kernels(dev, gen)
-    launches, state, hist = main_path(dev)
-    profile_steps(state, hist)
+    paths = {"main": main_path(dev), "mixed": mixed_path(dev)}
+    for name, (_, driver, state, hist) in paths.items():
+        profile_steps(name, driver, state, hist)
 
     kernels = []
     for row in rows:
         mod, source, replaces = SOURCES[row["name"]]
+        by_path = {name: p[0][mod] for name, p in paths.items()}
         kernels.append(dict(name=row["name"], route="cuda", source=source,
-                            replaces=replaces, launches=launches[mod],
+                            replaces=replaces, launches=sum(by_path.values()),
+                            launches_by_path=by_path,
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"],

@@ -1,15 +1,18 @@
-"""Carry a `LazyGPState` between the two packages as numpy arrays.
+"""Carry a `LazyGPState` and a `TypeDescriptor` between the two packages as
+numpy arrays.
 
 The keys are the tree-path names under which the reference's checkpoint
 store writes a `LazyGPState` (`repro/checkpoint/store.py`,
-`_flatten_with_paths`), so a port checkpoint can later use the same names.
-The GP state and its kernel params are what weights are to a model.
+`_flatten_with_paths`) or a `TypeDescriptor`, so a port checkpoint can
+later use the same names.  The GP state and its kernel params are what
+weights are to a model.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.descriptor import TypeDescriptor
 from repro_torch.core.gp import LazyGPState, resolve_device
 from repro_torch.core.kernels import KernelParams
 
@@ -17,6 +20,9 @@ BUFFERS = (".x_buf", ".y_buf", ".l_buf", ".li_buf", ".alpha")
 COUNTERS = (".n", ".since_refit")
 PARAMS = (".params/.sigma2", ".params/.rho", ".params/.noise2")
 KEYS = BUFFERS + COUNTERS + (".clamp_count",) + PARAMS
+DESC_FLOATS = (".cont_mask", ".cat_mask", ".levels")
+DESC_INDICES = (".group", ".parent")
+DESC_KEYS = DESC_FLOATS + DESC_INDICES
 
 
 def state_to_numpy(state: LazyGPState) -> dict[str, np.ndarray]:
@@ -52,3 +58,30 @@ def state_from_numpy(leaves: dict[str, np.ndarray],
         n=int(leaves[".n"]), since_refit=int(leaves[".since_refit"]),
         clamp_count=t(".clamp_count").to(torch.int32),
         params=KernelParams(*(t(k) for k in PARAMS)))
+
+
+def descriptor_to_numpy(desc: TypeDescriptor) -> dict[str, np.ndarray]:
+    """The descriptor's fields under their reference leaf names (float32
+    masks and levels, int32 group and parent ids, as the reference keeps
+    them)."""
+    out = {k: getattr(desc, k[1:]).detach().cpu().numpy().astype(np.float32)
+           for k in DESC_FLOATS}
+    out.update({k: getattr(desc, k[1:]).detach().cpu().numpy()
+                .astype(np.int32) for k in DESC_INDICES})
+    return out
+
+
+def descriptor_from_numpy(leaves: dict[str, np.ndarray],
+                          device: str | torch.device = "cuda"
+                          ) -> TypeDescriptor:
+    """A port descriptor on `device` from reference leaves (group and
+    parent become int64, the port's index type)."""
+    missing = [k for k in DESC_KEYS if k not in leaves]
+    if missing:
+        raise KeyError(f"descriptor leaves missing: {missing}")
+    dev = resolve_device(device)
+    fields = {k[1:]: torch.as_tensor(np.array(leaves[k], np.float32),
+                                     device=dev) for k in DESC_FLOATS}
+    fields.update({k[1:]: torch.as_tensor(np.array(leaves[k], np.int64),
+                                          device=dev) for k in DESC_INDICES})
+    return TypeDescriptor(**fields)

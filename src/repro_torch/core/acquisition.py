@@ -1,10 +1,9 @@
 """Acquisition functions and their multi-start optimizer.
 
 Counterpart of `repro/core/acquisition.py` for one study (no restart
-sharding, no mixed-space projection, no q-fantasies yet).  Expected
-Improvement (paper Sec. 3.2.1) and a multi-start projected-gradient ascent
-that returns the argmax (sequential BO) or the top-t distinct local maxima
-(paper Sec. 3.4).
+sharding and no q-fantasies yet).  Expected Improvement (paper Sec. 3.2.1)
+and a multi-start projected-gradient ascent that returns the argmax
+(sequential BO) or the top-t distinct local maxima (paper Sec. 3.4).
 
 Each ascent step is one `ops.fused_ei_grad` call for the whole restart
 batch (the fused kernel on the card), with the loop invariants — f_best,
@@ -17,7 +16,10 @@ Random draws are explicit: the restart seeds come from a `torch.Generator`
 or are passed in as a tensor (the tests pass the JAX package's own seeds),
 and so does the jitter of the top-t backfill.  Restart selection
 quantizes the values (low-mantissa clearing) before the argmax / sort, so
-round-off never flips which restart wins a numerical tie.
+round-off never flips which restart wins a numerical tie.  On a mixed
+search space (`desc`) every iterate is projected back onto the feasible
+lattice (`descriptor.project_units`) after its gradient step, the seeds and
+the top-t backfill too.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import descriptor as desc_mod
 from repro_torch.core import gp as gp_mod
 from repro_torch.core.kernels import KernelFn
 from repro_torch.kernels import ops
@@ -124,19 +127,23 @@ def _make_eval_batch(state: gp_mod.LazyGPState, kernel: KernelFn,
 
     Fused: hoists the active mask, `A = li_buf^T li_buf` (one GEMM over
     every ascent step) and the scalar shift `ymean - f_best - xi`; each
-    step is then one `ops.fused_ei_grad` call.  Unfused: autodiff through
-    the posterior, with f_best / ymean still hoisted.
+    step is then one `ops.fused_ei_grad` call, in its mixed form when the
+    kernel is the mixed closure (its type masks).  Unfused: autodiff
+    through the posterior, with f_best / ymean still hoisted.
     """
     if fused:
         amask = (torch.arange(state.n_max, device=state.device)
                  < state.n).to(state.x_buf.dtype)
         a_buf = state.li_buf.T @ state.li_buf
         shift = ymean - f_best - cfg.xi
+        cont_mask = getattr(kernel, "cont_mask", None)
+        cat_mask = getattr(kernel, "cat_mask", None)
 
         def eval_batch(x):
             return ops.fused_ei_grad(x, state.x_buf, amask, state.alpha, a_buf,
                                      state.params.sigma2, state.params.rho,
-                                     shift)
+                                     shift, cont_mask=cont_mask,
+                                     cat_mask=cat_mask)
 
         return eval_batch
 
@@ -165,26 +172,32 @@ def ascend_acquisition(eval_batch, lo: Tensor, hi: Tensor, cfg: AcqConfig,
                        top_t: int = 1, *,
                        generator: torch.Generator | None = None,
                        seeds: Tensor | None = None,
-                       jitter: Tensor | None = None) -> tuple[Tensor, Tensor]:
+                       jitter: Tensor | None = None,
+                       project: Callable[[Tensor], Tensor] | None = None,
+                       ) -> tuple[Tensor, Tensor]:
     """Multi-start ascent + tie-break-stable selection, model-free.
 
     `eval_batch(X (r, d)) -> (vals (r,), grads (r, d))` is the acquisition
     oracle.  The restart seeds are `seeds (R, d)` when given, else
     `lo + (hi - lo) * U[0, 1)` drawn from `generator`; the top-t backfill
     jitter is `jitter (top_t, d)` standard normals when given, else drawn
-    from `generator`.  Returns (points (top_t, d), values (top_t,)).
+    from `generator`.  `project` (optional) repairs rows (..., d) onto a
+    feasible lattice: the seeds, every iterate after its gradient step and
+    the backfill (mixed spaces).  Returns (points (top_t, d), values
+    (top_t,)).
     """
     d = lo.shape[-1]
     width = hi - lo
+    project = project or (lambda u: u)
     if seeds is None:
         seeds = lo + width * torch.rand((cfg.restarts, d), generator=generator,
                                         dtype=lo.dtype, device=lo.device)
-    x = seeds.to(device=lo.device, dtype=lo.dtype)
+    x = project(seeds.to(device=lo.device, dtype=lo.dtype))
     for _ in range(cfg.ascent_steps):
         _, g = eval_batch(x)
         gn = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
         g = torch.where(gn > 0, g / torch.clamp(gn, min=1e-12), 0.0)
-        x = torch.clamp(x + cfg.lr * width * g, lo, hi)
+        x = project(torch.clamp(x + cfg.lr * width * g, lo, hi))
     vals, _ = eval_batch(x)
 
     # Selection runs on quantized values; the returned values are exact.
@@ -217,7 +230,8 @@ def ascend_acquisition(eval_batch, lo: Tensor, hi: Tensor, cfg: AcqConfig,
                        device=lo.device)
     points, pvals = finals[idx], svals[idx]
     filled = torch.arange(top_t, device=lo.device) < len(chosen)
-    fallback = torch.clamp(finals[chosen[0]] + 0.01 * width * jitter, lo, hi)
+    fallback = project(torch.clamp(finals[chosen[0]] + 0.01 * width * jitter,
+                                   lo, hi))
     points = torch.where(filled[:, None], points, fallback)
     return points, pvals
 
@@ -227,14 +241,20 @@ def optimize_acquisition(state: gp_mod.LazyGPState, kernel: KernelFn,
                          top_t: int = 1, *,
                          generator: torch.Generator | None = None,
                          seeds: Tensor | None = None,
-                         jitter: Tensor | None = None
+                         jitter: Tensor | None = None,
+                         desc: desc_mod.TypeDescriptor | None = None
                          ) -> tuple[Tensor, Tensor]:
     """Return (points (top_t, d), acquisition values (top_t,)), best first:
     top_t = 1 is sequential BO, top_t = t the paper's t best distinct
-    local maxima.  Draws as `ascend_acquisition`."""
+    local maxima.  Draws as `ascend_acquisition`.  `desc` (a mixed space's
+    descriptor, on the state's device) projects the ascent onto its
+    feasible lattice."""
     f_best = _f_best(state)
     ymean = gp_mod._ymean(state)
     eval_batch = _make_eval_batch(state, kernel, cfg, _use_fused(cfg, kernel),
                                   f_best, ymean)
+    project = ((lambda u: desc_mod.project_units(u, desc))
+               if desc is not None else None)
     return ascend_acquisition(eval_batch, lo, hi, cfg, top_t,
-                              generator=generator, seeds=seeds, jitter=jitter)
+                              generator=generator, seeds=seeds, jitter=jitter,
+                              project=project)

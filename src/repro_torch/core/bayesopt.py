@@ -14,6 +14,10 @@ unless the caller asks for the CPU; asking for CUDA without a card raises.
 Randomness comes from one `torch.Generator` seeded with `cfg.seed`: the seed
 points first, then each round's restart seeds.  Phase times are host
 clocks around work that ends in `torch.cuda.synchronize()` on the card.
+A mixed search space runs on its encoded unit cube:
+`desc=space.descriptor()` with `lo = 0`, `hi = 1`; the seed points, the
+ascent and every suggestion then lie on the space's feasible lattice
+(`SearchSpace.to_hparams` decodes them).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import acquisition as acq_mod
+from repro_torch.core import descriptor as desc_mod
 from repro_torch.core import gp as gp_mod
 
 Tensor = torch.Tensor
@@ -43,6 +48,8 @@ class BOConfig:
     batch_size: int = 1           # t parallel suggestions (paper Sec. 3.4)
     noise2: float = 1e-6
     rho0: float = 0.25            # initial length scale (unit box); paper: 1.0
+    desc: desc_mod.TypeDescriptor | None = None  # mixed-space descriptor
+    # (over the encoded unit cube: run with lo = 0, hi = 1)
     acq: acq_mod.AcqConfig = dataclasses.field(default_factory=acq_mod.AcqConfig)
     seed: int = 0
     device: str = "cuda"
@@ -99,10 +106,14 @@ class BayesOpt:
         self.hi = torch.as_tensor(hi, dtype=torch.float32, device=self.device)
         self._unit_lo = torch.zeros_like(self.lo)
         self._unit_hi = torch.ones_like(self.hi)
+        # The descriptor on this driver's device (a SearchSpace builds it on
+        # the CPU).
+        self.desc = cfg.desc.to(self.device) if cfg.desc is not None else None
         self.gp_cfg = gp_mod.GPConfig(
             n_max=cfg.n_max, dim=cfg.dim, kernel=cfg.kernel, lag=cfg.lag,
-            noise2=cfg.noise2, rho0=cfg.rho0, device=cfg.device)
-        self.kernel = self.gp_cfg.kernel_fn
+            noise2=cfg.noise2, rho0=cfg.rho0, desc=self.desc,
+            device=cfg.device)
+        self.kernel = self.gp_cfg.kernel_fn  # mixed closure if desc is discrete
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
 
@@ -150,7 +161,7 @@ class BayesOpt:
         us, vals = acq_mod.optimize_acquisition(
             state, self.kernel, self._unit_lo, self._unit_hi, self.cfg.acq,
             self.cfg.batch_size, generator=self.generator, seeds=seeds,
-            jitter=jitter)
+            jitter=jitter, desc=self.desc)
         xs = self._from_unit(us).cpu().numpy()
         vals = vals.cpu().numpy()
         t1 = time.perf_counter()
@@ -189,7 +200,13 @@ class BayesOpt:
         if x0 is None:
             u0 = torch.rand((n_seed, self.cfg.dim), generator=self.generator,
                             dtype=torch.float32, device=self.device)
-            x0 = self._from_unit(u0).cpu().numpy()
+            x0 = self._from_unit(u0)
+            if self.desc is not None:
+                # Mixed spaces: seed on the feasible lattice, like every
+                # later suggestion.
+                x0 = self._from_unit(desc_mod.project_units(
+                    self._to_unit(x0), self.desc))
+            x0 = x0.cpu().numpy()
             y0 = np.asarray(objective(x0), dtype=np.float32).reshape(-1)
         state = self.init(x0, y0)
         history = BOHistory()
@@ -203,10 +220,12 @@ def run_bo(objective: Callable[[np.ndarray], np.ndarray], lo, hi,
            iterations: int, *, dim: int, mode: str = "lazy", lag: int = 0,
            batch_size: int = 1, n_seed: int = 1, n_max: int = 1024,
            seed: int = 0, kernel: str = "matern52", rho0: float = 0.25,
+           desc: desc_mod.TypeDescriptor | None = None,
            acq: acq_mod.AcqConfig | None = None, device: str = "cuda",
            ) -> tuple[gp_mod.LazyGPState, BOHistory]:
-    """One-call functional API (used by examples, benchmarks, chip_smoke)."""
+    """One-call functional API (used by examples, benchmarks, chip_smoke).
+    A mixed space: `desc=space.descriptor()`, `lo=0`, `hi=1`."""
     cfg = BOConfig(dim=dim, n_max=n_max, kernel=kernel, mode=mode, lag=lag,
-                   batch_size=batch_size, seed=seed, rho0=rho0,
+                   batch_size=batch_size, seed=seed, rho0=rho0, desc=desc,
                    acq=acq or acq_mod.AcqConfig(), device=device)
     return BayesOpt(cfg, lo, hi).run(objective, iterations, n_seed=n_seed)

@@ -21,7 +21,9 @@ import math
 import torch
 
 from repro_torch.core import cholesky as chol
-from repro_torch.core.kernels import KERNELS, KernelFn, KernelParams
+from repro_torch.core import descriptor as desc_mod
+from repro_torch.core.kernels import (KERNELS, KernelFn, KernelParams,
+                                      make_mixed_kernel)
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -104,6 +106,10 @@ class GPConfig:
     noise2: float = 1e-6
     rho0: float = 0.25     # initial length scale on the unit box (the paper
     # fixes rho = 1; paper-repro benchmarks pass rho0 = 1.0 explicitly)
+    desc: desc_mod.TypeDescriptor | None = None  # mixed-space type
+    # descriptor (DESIGN.md §10): when it has discrete coordinates,
+    # `kernel_fn` is the mixed Matérn x categorical kernel over the encoded
+    # unit cube, closed over the descriptor's masks (on their device)
     dtype: torch.dtype = torch.float32
     device: str = "cuda"
 
@@ -111,9 +117,16 @@ class GPConfig:
         if self.kernel not in KERNELS:
             raise ValueError(f"unknown kernel {self.kernel!r}; expected one "
                              f"of {tuple(KERNELS)}")
+        if self.desc is not None and self.desc.has_discrete \
+                and self.kernel != "matern52":
+            raise ValueError(
+                f"mixed spaces require kernel='matern52' (the mixed kernel "
+                f"is its Matérn x categorical product), got {self.kernel!r}")
 
     @property
     def kernel_fn(self) -> KernelFn:
+        if self.desc is not None and self.desc.has_discrete:
+            return make_mixed_kernel(self.desc.cont_mask, self.desc.cat_mask)
         return KERNELS[self.kernel]
 
 
@@ -290,7 +303,7 @@ def refit_params(state: LazyGPState, kernel: KernelFn,
     """Grid LML maximization over (sigma2, rho): the 6 x 3 grid of the
     reference, each candidate scored by a full refactor of `state` (which
     stays untouched), all 18 in one batch.  The argmax stays on the
-    device."""
+    device and skips candidates whose LML is NaN."""
     dev, dt = state.device, state.x_buf.dtype
     if rho_grid is None:
         # Unit-box length scales (inputs are normalized by the BO driver).
@@ -301,7 +314,11 @@ def refit_params(state: LazyGPState, kernel: KernelFn,
     rr, ss = torch.meshgrid(rho_grid, sigma2_grid, indexing="ij")
     cand = torch.stack([ss.ravel(), rr.ravel()], dim=-1)  # (G, 2) [sigma2, rho]
     lmls = _lml_grid(state, kernel, cand)
-    best = torch.argmax(lmls)
+    # A candidate whose float32 factor broke down (a Gram the diagonal
+    # clamp could not factor, so its LML is NaN) never wins.  The
+    # reference's jnp.argmax returns the first NaN instead, which hands
+    # the lag refit a non-finite factor (ROADMAP queue 3).
+    best = torch.argmax(torch.where(torch.isnan(lmls), -torch.inf, lmls))
     return KernelParams(sigma2=cand[best, 0], rho=cand[best, 1],
                         noise2=state.params.noise2)
 

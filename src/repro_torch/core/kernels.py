@@ -1,8 +1,8 @@
 """Covariance kernel functions for the lazy Gaussian process.
 
-Counterpart of `repro/core/kernels.py` (the mixed-space kernels come with
-the mixed-space slice).  Matérn-1.5/2.5 and squared-exponential, each a
-pairwise-distance computation |x|^2 + |y|^2 - 2 x.y^T over torch tensors.
+Counterpart of `repro/core/kernels.py`.  Matérn-1.5/2.5, squared-exponential
+and the mixed-space Matérn x categorical kernel, each a pairwise-distance
+computation |x|^2 + |y|^2 - 2 x.y^T over torch tensors.
 All kernels take `KernelParams(sigma2, rho, noise2)` so that the lag
 policy can refit them as a unit.
 """
@@ -76,6 +76,38 @@ KERNELS: dict[str, KernelFn] = {
     "matern32": matern32,
     "rbf": rbf,
 }
+
+
+# --- mixed (continuous x categorical) spaces, DESIGN.md §10 ----------------
+
+def mixed_matern52(x: Tensor, y: Tensor, params: KernelParams,
+                   cont_mask: Tensor, cat_mask: Tensor) -> Tensor:
+    """Mixed-space kernel: Matérn-2.5 over the continuous (float + int)
+    coordinates times `exp(-d2_cat / 2 rho)` over the one-hot block (on
+    feasible one-hot encodings the Hamming kernel exp(-h / rho)).  The
+    categorical factor carries no gradient (`detach`, the reference's
+    stop_gradient): the ascent moves one-hot coordinates by round-and-repair
+    projection, never by gradient steps."""
+    xc, yc = x * cont_mask, y * cont_mask
+    d = torch.sqrt(pairwise_sqdist(xc, yc) + 1e-36)
+    z = SQRT5 * d / params.rho
+    sqk = pairwise_sqdist(x * cat_mask, y * cat_mask)
+    cat = torch.exp(-0.5 * sqk / params.rho).detach()
+    return params.sigma2 * (1.0 + z + z * z / 3.0) * torch.exp(-z) * cat
+
+
+def make_mixed_kernel(cont_mask: Tensor, cat_mask: Tensor) -> KernelFn:
+    """Close a `KernelFn` over a space's type masks (from its
+    `TypeDescriptor`, on the device of the points).  The tag
+    `gram_kernel = "mixed"` routes gram builds to the mixed kernel, and the
+    closure carries the masks for it and for the fused EI ascent."""
+    def mixed(x: Tensor, y: Tensor, params: KernelParams) -> Tensor:
+        return mixed_matern52(x, y, params, cont_mask, cat_mask)
+
+    mixed.gram_kernel = "mixed"
+    mixed.cont_mask = cont_mask
+    mixed.cat_mask = cat_mask
+    return mixed
 
 
 def gram(kernel: KernelFn, x: Tensor, params: KernelParams) -> Tensor:

@@ -1,5 +1,7 @@
 // Fused EI value and gradient for a batch of r candidates (one ascent step
-// of the multi-start EI optimizer), with an optional leading batch axis:
+// of the multi-start EI optimizer), with an optional leading batch axis, in
+// two forms: the float form below and the mixed form (kMixed, further down).
+// The float form:
 //   K     = kern(X, x_buf) * amask                 (r, n)
 //   gamma = K alpha + shift                        (r)
 //   U     = K A,  A = li_buf^T li_buf (hoisted)    (r, n)
@@ -9,7 +11,19 @@
 // with dvar = phi / 2 sigma zeroed where the variance clamp binds.
 //
 // Replaces: src/repro/kernels/acq.py:_acq_tile_kernel (float form of
-// fused_ei_grad_pallas; the math is _fused_ei_grad_math).
+// fused_ei_grad_pallas; the math is _fused_ei_grad_math) and, as the kMixed
+// instantiation, src/repro/kernels/acq.py:_acq_mixed_tile_kernel.
+//
+// The mixed form (search spaces with categorical coordinates) takes the two
+// (d,) 0/1 type masks and splits each row while loading it: xc = x * cont,
+// xk = x * cat.  K and the gradient's radial factor s carry
+//   cat = exp(-0.5 |xk - xbk|^2 / rho)
+// (divided by rho, the reference's definition), which is never
+// differentiated, and the distance z and the gradient use the continuous
+// block only, so the gradient is exactly 0 on categorical coordinates.
+// Phase 3 recomputes cat beside z, as it recomputes z, which costs d flops
+// per entry and no shared memory; the row split adds a (kRb, d) block for
+// the candidates' categorical rows and 2 d floats for the masks.
 //
 // What bounds it on the H100: the 2 r n^2 flops of U = K A (r = 64,
 // n = 1024 on the main path); A is 4 MB and is read from L2 by every CTA.
@@ -26,11 +40,12 @@
 //   4. rowsum(w) and w x_buf, one warp per (row, feature) pair.
 // A CTA holds kRb candidate rows, 2 kRb n floats of shared memory (64 KB at
 // kRb = 8, n = 1024, opted in above 48 KB); the C entry picks the largest
-// kRb in {8, 4, 2, 1} that fits, so any n up to about 29000 runs.  r = 64
-// gives 8 CTAs: slow on 132 SMs, but right.  erfcf / expf / sqrtf are the
-// accurate forms (no fast math), as the parity with the reference needs;
-// Phi is 0.5 erfc(-Z / sqrt2), which keeps its lower tail where
-// 1 + erf(Z / sqrt2) cancels to 0 and drops the gradient's mean term.
+// kRb in {8, 4, 2, 1} that fits (for the form asked), so any n up to
+// about 29000 runs.  r = 64 gives 8 CTAs: slow on 132 SMs, but right.
+// erfcf / expf / sqrtf are the accurate forms (no fast math), as the
+// parity with the reference needs; Phi is 0.5 erfc(-Z / sqrt2), which
+// keeps its lower tail where 1 + erf(Z / sqrt2) cancels to 0 and drops
+// the gradient's mean term.
 #include "common.cuh"
 
 namespace {
@@ -52,12 +67,48 @@ __device__ __forceinline__ float matern_z(const float* xi, float xxi,
   return repro::kSqrt5 * dist / rho;
 }
 
-template <int kRb>
+// Mixed form: z over the continuous block (xci is the candidate's masked
+// row) and the categorical factor over the one-hot block, for the train
+// row xbj split by the masks cm / km as it is read.
+__device__ __forceinline__ float mixed_z(const float* xci, const float* xki,
+                                         float xxi, float kki,
+                                         const float* xbj, float yy, float ll,
+                                         const float* cm, const float* km,
+                                         int d, float rho, float* cat) {
+  float cross = 0.f, crossk = 0.f;
+  for (int c = 0; c < d; ++c) {
+    cross += xci[c] * (xbj[c] * cm[c]);
+    crossk += xki[c] * (xbj[c] * km[c]);
+  }
+  const float sq = fmaxf(xxi + yy - 2.f * cross, 0.f);
+  const float dist = sqrtf(sq + 1e-36f);
+  const float sqk = fmaxf(kki + ll - 2.f * crossk, 0.f);
+  *cat = expf(-0.5f * sqk / rho);
+  return repro::kSqrt5 * dist / rho;
+}
+
+// |xbc_j|^2 and |xbk_j|^2 of train row j (the mixed form's row norms).
+__device__ __forceinline__ void mixed_norms(const float* xbj, const float* cm,
+                                            const float* km, int d, float* yy,
+                                            float* ll) {
+  float a = 0.f, b = 0.f;
+  for (int c = 0; c < d; ++c) {
+    const float vc = xbj[c] * cm[c], vk = xbj[c] * km[c];
+    a += vc * vc;
+    b += vk * vk;
+  }
+  *yy = a;
+  *ll = b;
+}
+
+template <int kRb, bool kMixed>
 __global__ void __launch_bounds__(kThreads)
 fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
                      const float* __restrict__ amask,
                      const float* __restrict__ alpha,
                      const float* __restrict__ abuf,
+                     const float* __restrict__ cont_mask,
+                     const float* __restrict__ cat_mask,
                      const float* __restrict__ sigma2_p,
                      const float* __restrict__ rho_p,
                      const float* __restrict__ shift_p,
@@ -66,10 +117,14 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
   extern __shared__ float smem[];
   float* ks = smem;               // (kRb, n): K, later w
   float* us = ks + kRb * n;       // (kRb, n): U
-  float* xs = us + kRb * n;       // (kRb, d)
+  float* xs = us + kRb * n;       // (kRb, d): candidates (mixed: xc)
   float* gs = xs + kRb * d;       // (kRb, d + 1): w x_buf and rowsum(w)
+  float* xks = gs + kRb * (d + 1);  // mixed only, (kRb, d): xk
+  float* cms = xks + kRb * d;       // mixed only, (d,): cont_mask
+  float* kms = cms + d;             // mixed only, (d,): cat_mask
   __shared__ float red[kWarps][kRb];
   __shared__ float xx_s[kRb], gam_s[kRb], cdf_s[kRb], dvar_s[kRb];
+  __shared__ float kk_s[kRb];       // mixed only: |xk_i|^2
 
   const int b = blockIdx.y;
   x += (size_t)b * r * d;
@@ -83,13 +138,31 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int i0 = blockIdx.x * kRb;
-  for (int e = tid; e < kRb * d; e += kThreads)
-    xs[e] = (i0 + e / d < r) ? x[(size_t)i0 * d + e] : 0.f;
+  if constexpr (kMixed) {
+    for (int c = tid; c < d; c += kThreads) {
+      cms[c] = cont_mask[c];
+      kms[c] = cat_mask[c];
+    }
+    __syncthreads();
+    for (int e = tid; e < kRb * d; e += kThreads) {
+      const float v = (i0 + e / d < r) ? x[(size_t)i0 * d + e] : 0.f;
+      xs[e] = v * cms[e % d];
+      xks[e] = v * kms[e % d];
+    }
+  } else {
+    for (int e = tid; e < kRb * d; e += kThreads)
+      xs[e] = (i0 + e / d < r) ? x[(size_t)i0 * d + e] : 0.f;
+  }
   __syncthreads();
   if (tid < kRb) {
     float acc = 0.f;
     for (int c = 0; c < d; ++c) acc += xs[tid * d + c] * xs[tid * d + c];
     xx_s[tid] = acc;
+    if constexpr (kMixed) {
+      float acck = 0.f;
+      for (int c = 0; c < d; ++c) acck += xks[tid * d + c] * xks[tid * d + c];
+      kk_s[tid] = acck;
+    }
   }
   __syncthreads();
 
@@ -99,16 +172,33 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
   for (int i = 0; i < kRb; ++i) part[i] = 0.f;
   for (int j = tid; j < n; j += kThreads) {
     const float* xbj = xb + (size_t)j * d;
-    float yy = 0.f;
-    for (int c = 0; c < d; ++c) yy += xbj[c] * xbj[c];
-    const float am = amask[j], al = alpha[j];
+    if constexpr (kMixed) {
+      float yy, ll;
+      mixed_norms(xbj, cms, kms, d, &yy, &ll);
+      const float am = amask[j], al = alpha[j];
 #pragma unroll
-    for (int i = 0; i < kRb; ++i) {
-      const float z = matern_z(xs + i * d, xx_s[i], xbj, yy, d, rho);
-      const float k = sigma2 * (1.f + z + z * z / 3.f) * expf(-z);
-      const float km = k * am;
-      ks[i * n + j] = km;
-      part[i] += km * al;
+      for (int i = 0; i < kRb; ++i) {
+        float cat;
+        const float z = mixed_z(xs + i * d, xks + i * d, xx_s[i], kk_s[i],
+                                xbj, yy, ll, cms, kms, d, rho, &cat);
+        float k = sigma2 * (1.f + z + z * z / 3.f) * expf(-z);
+        k = k * cat;
+        const float km = k * am;
+        ks[i * n + j] = km;
+        part[i] += km * al;
+      }
+    } else {
+      float yy = 0.f;
+      for (int c = 0; c < d; ++c) yy += xbj[c] * xbj[c];
+      const float am = amask[j], al = alpha[j];
+#pragma unroll
+      for (int i = 0; i < kRb; ++i) {
+        const float z = matern_z(xs + i * d, xx_s[i], xbj, yy, d, rho);
+        const float k = sigma2 * (1.f + z + z * z / 3.f) * expf(-z);
+        const float km = k * am;
+        ks[i * n + j] = km;
+        part[i] += km * al;
+      }
     }
   }
 #pragma unroll
@@ -186,26 +276,51 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
   const float sfac = -sigma2 * (5.f / (3.f * rho * rho));
   for (int j = tid; j < n; j += kThreads) {
     const float* xbj = xb + (size_t)j * d;
-    float yy = 0.f;
-    for (int c = 0; c < d; ++c) yy += xbj[c] * xbj[c];
-    const float am = amask[j], al = alpha[j];
+    if constexpr (kMixed) {
+      float yy, ll;
+      mixed_norms(xbj, cms, kms, d, &yy, &ll);
+      const float am = amask[j], al = alpha[j];
 #pragma unroll
-    for (int i = 0; i < kRb; ++i) {
-      const float z = matern_z(xs + i * d, xx_s[i], xbj, yy, d, rho);
-      const float s = sfac * (1.f + z) * expf(-z);
-      const float c = cdf_s[i] * (al * am) - 2.f * dvar_s[i] * us[i * n + j];
-      ks[i * n + j] = c * s * am;
+      for (int i = 0; i < kRb; ++i) {
+        float cat;
+        const float z = mixed_z(xs + i * d, xks + i * d, xx_s[i], kk_s[i],
+                                xbj, yy, ll, cms, kms, d, rho, &cat);
+        const float s = sfac * (1.f + z) * expf(-z) * cat;
+        const float c = cdf_s[i] * (al * am) - 2.f * dvar_s[i] * us[i * n + j];
+        ks[i * n + j] = c * s * am;
+      }
+    } else {
+      float yy = 0.f;
+      for (int c = 0; c < d; ++c) yy += xbj[c] * xbj[c];
+      const float am = amask[j], al = alpha[j];
+#pragma unroll
+      for (int i = 0; i < kRb; ++i) {
+        const float z = matern_z(xs + i * d, xx_s[i], xbj, yy, d, rho);
+        const float s = sfac * (1.f + z) * expf(-z);
+        const float c = cdf_s[i] * (al * am) - 2.f * dvar_s[i] * us[i * n + j];
+        ks[i * n + j] = c * s * am;
+      }
     }
   }
   __syncthreads();
 
-  // 4. Gradient: pair p = (row i, feature c); c == d is rowsum(w).
+  // 4. Gradient: pair p = (row i, feature c); c == d is rowsum(w).  The
+  // mixed form takes w xbc (the train rows' continuous block) and xc, so
+  // its gradient is 0 on the categorical coordinates.
   for (int p = w; p < kRb * (d + 1); p += kWarps) {
     const int i = p / (d + 1), c = p % (d + 1);
     float acc = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float wv = ks[i * n + j];
-      acc += (c < d) ? wv * xb[(size_t)j * d + c] : wv;
+    if constexpr (kMixed) {
+      const float cmc = c < d ? cms[c] : 1.f;
+      for (int j = lane; j < n; j += 32) {
+        const float wv = ks[i * n + j];
+        acc += (c < d) ? wv * (xb[(size_t)j * d + c] * cmc) : wv;
+      }
+    } else {
+      for (int j = lane; j < n; j += 32) {
+        const float wv = ks[i * n + j];
+        acc += (c < d) ? wv * xb[(size_t)j * d + c] : wv;
+      }
     }
     acc = repro::warp_sum(acc);
     if (lane == 0) gs[p] = acc;
@@ -220,41 +335,61 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
 }
 
 template <int kRb>
-size_t smem_bytes(int n, int d) {
+size_t smem_bytes(int n, int d, bool mixed) {
   return sizeof(float) * ((size_t)2 * kRb * n + (size_t)kRb * d +
-                          (size_t)kRb * (d + 1));
+                          (size_t)kRb * (d + 1) +
+                          (mixed ? (size_t)kRb * d + 2 * (size_t)d : 0));
 }
 
-template <int kRb>
+template <int kRb, bool kMixed>
 int launch(const float* x, const float* xb, const float* amask,
-           const float* alpha, const float* abuf, const float* sigma2,
-           const float* rho, const float* shift, float* ei, float* grad,
-           int batch, int r, int n, int d, cudaStream_t st) {
-  const size_t bytes = smem_bytes<kRb>(n, d);
+           const float* alpha, const float* abuf, const float* cont_mask,
+           const float* cat_mask, const float* sigma2, const float* rho,
+           const float* shift, float* ei, float* grad, int batch, int r,
+           int n, int d, cudaStream_t st) {
+  const size_t bytes = smem_bytes<kRb>(n, d, kMixed);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_ei_grad_kernel<kRb>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      fused_ei_grad_kernel<kRb, kMixed>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((r + kRb - 1) / kRb, batch);
-  fused_ei_grad_kernel<kRb><<<grid, kThreads, bytes, st>>>(
-      x, xb, amask, alpha, abuf, sigma2, rho, shift, ei, grad, r, n, d);
+  fused_ei_grad_kernel<kRb, kMixed><<<grid, kThreads, bytes, st>>>(
+      x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho, shift, ei,
+      grad, r, n, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMixed>
+int launch_rows(const float* x, const float* xb, const float* amask,
+                const float* alpha, const float* abuf, const float* cont_mask,
+                const float* cat_mask, const float* sigma2, const float* rho,
+                const float* shift, float* ei, float* grad, int batch, int r,
+                int n, int d, int rows, cudaStream_t st) {
+  switch (rows) {
+    case 8: return launch<8, kMixed>(x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
+    case 4: return launch<4, kMixed>(x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
+    case 2: return launch<2, kMixed>(x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
+    case 1: return launch<1, kMixed>(x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// Candidate rows per CTA for (n, d): 8, 4, 2 or 1, or 0 if none fits.
-REPRO_EXPORT int repro_fused_ei_rows(int n, int d) {
+// Candidate rows per CTA for (n, d) and the form (mixed != 0: the mixed
+// form's larger shared memory): 8, 4, 2 or 1, or 0 if none fits.
+REPRO_EXPORT int repro_fused_ei_rows(int n, int d, int mixed) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) != cudaSuccess)
     return 0;
   const size_t limit = static_cast<size_t>(optin) - 1024;  // static smem
-  if (smem_bytes<8>(n, d) <= limit) return 8;
-  if (smem_bytes<4>(n, d) <= limit) return 4;
-  if (smem_bytes<2>(n, d) <= limit) return 2;
-  if (smem_bytes<1>(n, d) <= limit) return 1;
+  const bool mx = mixed != 0;
+  if (smem_bytes<8>(n, d, mx) <= limit) return 8;
+  if (smem_bytes<4>(n, d, mx) <= limit) return 4;
+  if (smem_bytes<2>(n, d, mx) <= limit) return 2;
+  if (smem_bytes<1>(n, d, mx) <= limit) return 1;
   return 0;
 }
 
@@ -265,12 +400,21 @@ REPRO_EXPORT int repro_fused_ei_grad(const float* x, const float* xb,
                                      float* ei, float* grad, int batch, int r,
                                      int n, int d, int rows, void* stream) {
   if (batch == 0 || r == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 8: return launch<8>(x, xb, amask, alpha, abuf, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
-    case 4: return launch<4>(x, xb, amask, alpha, abuf, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
-    case 2: return launch<2>(x, xb, amask, alpha, abuf, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
-    case 1: return launch<1>(x, xb, amask, alpha, abuf, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_rows<false>(x, xb, amask, alpha, abuf, nullptr, nullptr,
+                            sigma2, rho, shift, ei, grad, batch, r, n, d, rows,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The mixed form: as repro_fused_ei_grad, plus the (d,) type masks shared
+// by every study of the batch.
+REPRO_EXPORT int repro_fused_ei_grad_mixed(
+    const float* x, const float* xb, const float* cont_mask,
+    const float* cat_mask, const float* amask, const float* alpha,
+    const float* abuf, const float* sigma2, const float* rho,
+    const float* shift, float* ei, float* grad, int batch, int r, int n,
+    int d, int rows, void* stream) {
+  if (batch == 0 || r == 0) return 0;
+  return launch_rows<true>(x, xb, amask, alpha, abuf, cont_mask, cat_mask,
+                           sigma2, rho, shift, ei, grad, batch, r, n, d, rows,
+                           static_cast<cudaStream_t>(stream));
 }

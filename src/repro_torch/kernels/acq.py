@@ -1,8 +1,7 @@
 """Fused EI value + gradient for the acquisition ascent: `csrc/acq.cu`.
 
-Counterpart of `repro/kernels/acq.py` (float form; the mixed form waits for
-the mixed-space slice).  One ascent iteration for the whole (r, d) restart
-batch:
+Counterpart of `repro/kernels/acq.py`, in its float and its mixed form.
+One ascent iteration for the whole (r, d) restart batch:
 
     K       = kern(X, x_buf) * amask          (r, n)   cross-gram
     gamma   = K alpha + shift                 (r,)     shift = ymean - f_best - xi
@@ -11,10 +10,19 @@ batch:
     EI      = gamma Phi(Z) + sigma phi(Z),    Z = gamma / sigma
     dEI/dx  = analytic, with dEI/dvar zeroed where var hit VAR_FLOOR
 
+The mixed form (a search space with categorical coordinates) splits each
+row by the space's (d,) 0/1 type masks, xc = x * cont_mask and
+xk = x * cat_mask, takes K and the gradient over xc, and multiplies K and
+the gradient's radial factor by cat = exp(-|xk - xbk|^2 / 2 rho), which is
+never differentiated: the gradient is zero on the categorical coordinates.
+
 `ei_grad_torch` is the plain version, a line-for-line port of the
-reference's `_fused_ei_grad_math`; `fused_ei_grad` runs the CUDA kernel for
-CUDA tensors and `ei_grad_torch` for CPU tensors.  Not differentiable: the
-gradient is an output.
+reference's `_fused_ei_grad_math` (pre-split operands, `xk` / `xbk` for the
+mixed form); `fused_ei_grad` runs a CUDA kernel for CUDA tensors (the
+float or the mixed instantiation of `csrc/acq.cu`, each with its own
+launch counter; the mixed kernel splits the rows as it loads them) and
+`ei_grad_torch` for CPU tensors.  Not differentiable: the gradient is an
+output.
 """
 from __future__ import annotations
 
@@ -25,11 +33,14 @@ from repro_torch.kernels import _build
 Tensor = torch.Tensor
 
 SOURCE = "acq"
-LAUNCHES = 0      # kernel launches since the caller last set it to 0
+LAUNCHES = 0        # float-form launches since the caller last set it to 0
+LAUNCHES_MIXED = 0  # mixed-form launches, counted apart
 _SIGNATURES = {
     "repro_fused_ei_grad": (_build.ptr,) * 10 + (_build.cint,) * 5
     + (_build.ptr,),
-    "repro_fused_ei_rows": (_build.cint,) * 2,
+    "repro_fused_ei_grad_mixed": (_build.ptr,) * 12 + (_build.cint,) * 5
+    + (_build.ptr,),
+    "repro_fused_ei_rows": (_build.cint,) * 3,
 }
 
 # Variance clamp shared with `gp.posterior`: the fused gradient mirrors
@@ -46,12 +57,15 @@ def _col(v: Tensor) -> Tensor:
 
 
 def ei_grad_torch(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
-                  a_buf: Tensor, sigma2, rho, shift) -> tuple[Tensor, Tensor]:
+                  a_buf: Tensor, sigma2, rho, shift, xk: Tensor | None = None,
+                  xbk: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """Fused EI value + gradient in plain torch.
 
     x (..., r, d), x_buf (..., n, d), amask / alpha (..., n),
     a_buf (..., n, n); sigma2, rho, shift scalars or (...,) tensors.
-    Returns (ei (..., r), grad (..., r, d)).
+    Mixed form: x / x_buf are the continuous blocks and xk (..., r, d) /
+    xbk (..., n, d) the categorical blocks (`split_rows`).
+    Returns (ei (..., r), grad (..., r, d)), the gradient with respect to x.
     """
     like = x_buf[..., 0, 0]
     sigma2, rho, shift = (_col(torch.as_tensor(v, dtype=x.dtype, device=x.device)
@@ -64,6 +78,15 @@ def ei_grad_torch(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
     z = _SQRT5 * dist / rho
     ez = torch.exp(-z)
     k = sigma2 * (1.0 + z + z * z / 3.0) * ez
+    if xk is not None:
+        ak = torch.sum(xk * xk, dim=-1)[..., :, None]
+        bk = torch.sum(xbk * xbk, dim=-1)[..., None, :]
+        sqk = torch.clamp(ak + bk - 2.0 * (xk @ xbk.transpose(-1, -2)),
+                          min=0.0)
+        cat = torch.exp(-0.5 * sqk / rho)
+        k = k * cat
+    else:
+        cat = 1.0
     km = k * amask                                             # (r, n)
     gam = km @ alpha.transpose(-1, -2) + shift                 # (r, 1)
     u = km @ a_buf                                             # (r, n)
@@ -81,19 +104,26 @@ def ei_grad_torch(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
     dvar = torch.where(raw_var > VAR_FLOOR, pdf / (2.0 * sig),
                        torch.zeros_like(sig))
     c = cdf * (alpha * amask) - 2.0 * dvar * u                 # dEI/dK (r, n)
-    s = (-sigma2 * (5.0 / (3.0 * rho * rho))) * (1.0 + z) * ez
+    s = (-sigma2 * (5.0 / (3.0 * rho * rho))) * (1.0 + z) * ez * cat
     w = c * s * amask                                          # (r, n)
     grad = torch.sum(w, dim=-1)[..., None] * x - w @ x_buf
     return ei[..., 0], grad
 
 
-def fused_ei_grad_cuda(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
-                       a_buf: Tensor, sigma2, rho, shift
-                       ) -> tuple[Tensor, Tensor]:
-    """Launch the kernel; shapes as `ei_grad_torch`, float32 CUDA."""
-    global LAUNCHES
+def split_rows(x: Tensor, x_buf: Tensor, cont_mask: Tensor,
+               cat_mask: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The mixed form's operands (xc, xbc, xk, xbk) for `ei_grad_torch`."""
+    cm, km = cont_mask.to(x.dtype), cat_mask.to(x.dtype)
+    return x * cm, x_buf * cm, x * km, x_buf * km
+
+
+def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
+            alpha: Tensor, a_buf: Tensor, sigma2, rho, shift,
+            masks: tuple[Tensor, ...]) -> tuple[Tensor, Tensor]:
+    """Check the operands and launch C entry `entry` (the masks, if any,
+    go right after x_buf)."""
     dev = x.device
-    ops_ = (x, x_buf, amask, alpha, a_buf)
+    ops_ = (x, x_buf, amask, alpha, a_buf, *masks)
     if dev.type != "cuda" or any(t.device != dev for t in ops_):
         raise ValueError("fused EI kernel needs CUDA tensors on one device")
     if any(t.dtype != torch.float32 for t in ops_):
@@ -103,40 +133,76 @@ def fused_ei_grad_cuda(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
     n = x_buf.shape[-2]
     if (x.shape[:-2] != lead or x_buf.shape[-1] != d
             or amask.shape != (*lead, n) or alpha.shape != (*lead, n)
-            or a_buf.shape != (*lead, n, n) or n < 1 or d < 1):
+            or a_buf.shape != (*lead, n, n) or n < 1 or d < 1
+            or any(m.shape != (d,) for m in masks)):
         raise ValueError(
             f"fused EI kernel shapes: x {tuple(x.shape)}, x_buf "
             f"{tuple(x_buf.shape)}, amask {tuple(amask.shape)}, alpha "
-            f"{tuple(alpha.shape)}, a_buf {tuple(a_buf.shape)}")
+            f"{tuple(alpha.shape)}, a_buf {tuple(a_buf.shape)}, masks "
+            f"{[tuple(m.shape) for m in masks]}")
     batch = x_buf[..., 0, 0].numel()
     if batch > 65535:
         raise ValueError(f"fused EI kernel takes at most 65535 studies, got {batch}")
     lib = _build.load(SOURCE, _SIGNATURES)
-    rows = lib.repro_fused_ei_rows(n, d)
+    rows = lib.repro_fused_ei_rows(n, d, int(bool(masks)))
     if rows == 0:
         raise ValueError(f"fused EI kernel: n={n}, d={d} exceeds shared memory")
     scal = [torch.as_tensor(v, dtype=torch.float32, device=dev)
             .expand(lead).contiguous() for v in (sigma2, rho, shift)]
-    x, x_buf, amask, alpha, a_buf = (t.contiguous() for t in ops_)
+    x, x_buf, amask, alpha, a_buf, *masks = (t.contiguous() for t in ops_)
     ei = torch.empty((*lead, r), dtype=torch.float32, device=dev)
     grad = torch.empty((*lead, r, d), dtype=torch.float32, device=dev)
-    status = lib.repro_fused_ei_grad(
-        x.data_ptr(), x_buf.data_ptr(), amask.data_ptr(), alpha.data_ptr(),
-        a_buf.data_ptr(), *(s.data_ptr() for s in scal), ei.data_ptr(),
-        grad.data_ptr(), batch, r, n, d, rows,
-        torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES += 1
-    _build.check(lib, status, "fused_ei_grad")
+    status = getattr(lib, entry)(
+        x.data_ptr(), x_buf.data_ptr(), *(m.data_ptr() for m in masks),
+        amask.data_ptr(), alpha.data_ptr(), a_buf.data_ptr(),
+        *(s.data_ptr() for s in scal), ei.data_ptr(), grad.data_ptr(),
+        batch, r, n, d, rows, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, status, entry)
     return ei, grad
 
 
+def fused_ei_grad_cuda(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
+                       a_buf: Tensor, sigma2, rho, shift
+                       ) -> tuple[Tensor, Tensor]:
+    """Launch the float form; shapes as `ei_grad_torch`, float32 CUDA."""
+    global LAUNCHES
+    out = _launch("repro_fused_ei_grad", x, x_buf, amask, alpha, a_buf,
+                  sigma2, rho, shift, ())
+    LAUNCHES += 1
+    return out
+
+
+def fused_ei_grad_mixed_cuda(x: Tensor, x_buf: Tensor, amask: Tensor,
+                             alpha: Tensor, a_buf: Tensor, sigma2, rho, shift,
+                             cont_mask: Tensor, cat_mask: Tensor
+                             ) -> tuple[Tensor, Tensor]:
+    """Launch the mixed form on the unsplit x (r, d) / x_buf (n, d) and the
+    (d,) type masks; float32 CUDA.  Computes `ei_grad_torch` of
+    `split_rows(x, x_buf, cont_mask, cat_mask)`."""
+    global LAUNCHES_MIXED
+    out = _launch("repro_fused_ei_grad_mixed", x, x_buf, amask, alpha, a_buf,
+                  sigma2, rho, shift, (cont_mask, cat_mask))
+    LAUNCHES_MIXED += 1
+    return out
+
+
 def fused_ei_grad(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
-                  a_buf: Tensor, sigma2, rho, shift) -> tuple[Tensor, Tensor]:
-    """Fused EI value + gradient: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if x.device.type == "cuda":
-        return fused_ei_grad_cuda(x, x_buf, amask, alpha, a_buf, sigma2, rho,
-                                  shift)
-    if x.device.type == "cpu":
+                  a_buf: Tensor, sigma2, rho, shift, *,
+                  cont_mask: Tensor | None = None,
+                  cat_mask: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Fused EI value + gradient: a kernel for CUDA tensors, the plain
+    version for CPU tensors; the mixed form when the type masks are given."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fused EI for device {x.device}")
+    if cont_mask is None:
+        if x.device.type == "cuda":
+            return fused_ei_grad_cuda(x, x_buf, amask, alpha, a_buf, sigma2,
+                                      rho, shift)
         return ei_grad_torch(x, x_buf, amask, alpha, a_buf, sigma2, rho, shift)
-    raise ValueError(f"no fused EI for device {x.device}")
+    if x.device.type == "cuda":
+        return fused_ei_grad_mixed_cuda(x, x_buf, amask, alpha, a_buf, sigma2,
+                                        rho, shift, cont_mask.to(x.dtype),
+                                        cat_mask.to(x.dtype))
+    xc, xbc, xk, xbk = split_rows(x, x_buf, cont_mask, cat_mask)
+    return ei_grad_torch(xc, xbc, amask, alpha, a_buf, sigma2, rho, shift,
+                         xk=xk, xbk=xbk)

@@ -10,12 +10,13 @@ no size envelopes: a kernel takes any n, or its wrapper raises.
   op                 | shape contract    | CUDA kernel       | batched
   -------------------|-------------------|-------------------|--------
   matern52_gram      | (n,d)x(m,d) exact | csrc/matern.cu    | via gram
+  mixed_gram         | (n,d)x(m,d) exact | csrc/mixed.cu     | via gram
   trsv               | (n,n),(n[,r])     | csrc/trsv.cu      | yes
   cholesky           | (n,n)             | csrc/chol.cu      | yes
   chol_append        | active factor     | trsv              | no
   gp_posterior_solve | active factor     | trsv              | no
-  kernel_gram        | any kernel fn     | matern52 if tagged| no
-  masked_gram        | padded buffers    | matern52 if tagged| no
+  kernel_gram        | any kernel fn     | gram if tagged    | no
+  masked_gram        | padded buffers    | gram if tagged    | no
   padded_trsv        | padded buffers    | csrc/trsv.cu      | yes
   padded_cholesky    | padded buffers    | csrc/chol.cu      | yes
   padded_tri_inverse | padded buffers    | csrc/trsv.cu      | yes
@@ -23,6 +24,7 @@ no size envelopes: a kernel takes any n, or its wrapper raises.
   lazy_append        | padded buffers    | ‡                 | no
   lazy_append_rows   | padded buffers    | ‡                 | no
   fused_ei_grad      | (r,d) + padded    | csrc/acq.cu       | yes
+                     |  + (d,) masks     | (mixed form)      | yes
 
   ‡  matmul-only against the maintained inverse factor (`torch.matmul`,
      as the reference leaves them to XLA): no kernel below the entry point.
@@ -51,9 +53,11 @@ from repro_torch.kernels import acq as acq_kernels
 from repro_torch.kernels import ref
 # The active-shape entry points are the kernel modules' own functions:
 # matern52_gram (n,d)x(m,d), trsv (..., n, n) with b (..., n[, r]), and
-# cholesky (..., n, n) with the reference's diagonal clamp.
+# cholesky (..., n, n) with the reference's diagonal clamp, and
+# mixed_gram (n,d)x(m,d) under the (d,) type masks of a mixed space.
 from repro_torch.kernels.chol import cholesky
 from repro_torch.kernels.matern import matern52_gram
+from repro_torch.kernels.mixed import mixed_gram
 from repro_torch.kernels.trsv import trsv
 
 Tensor = torch.Tensor
@@ -66,6 +70,7 @@ CLAMP_EPS = ref.CLAMP_EPS
 __all__ = ["CLAMP_EPS", "chol_append", "cholesky", "fused_ei_grad",
            "fused_supported", "gp_posterior_solve", "kernel_gram",
            "lazy_append", "lazy_append_rows", "masked_gram", "matern52_gram",
+           "mixed_gram",
            "padded_append_row", "padded_cholesky", "padded_tri_inverse",
            "padded_trsv", "trsv", "write_append_row"]
 
@@ -112,13 +117,19 @@ def padded_cholesky(k_pad: Tensor) -> Tensor:
 def kernel_gram(kernel_fn, x: Tensor, y: Tensor, params) -> Tensor:
     """Covariance build through the substrate.
 
-    A kernel function opts into the Matérn-2.5 kernel by carrying the tag
-    `gram_kernel = "matern52"` (set in `repro_torch.core.kernels`; the
-    reference calls the same tag `pallas_gram`).  Anything else uses the
-    kernel's own torch formulation.  `params` needs `.sigma2` and `.rho`.
+    A kernel function opts into a gram kernel by carrying the tag
+    `gram_kernel` (set in `repro_torch.core.kernels`; the reference calls
+    the same tag `pallas_gram`): "matern52" for the Matérn-2.5 kernel,
+    "mixed" for the mixed kernel, whose closure also carries its
+    `cont_mask` / `cat_mask`.  Anything else uses the kernel's own torch
+    formulation.  `params` needs `.sigma2` and `.rho`.
     """
-    if getattr(kernel_fn, "gram_kernel", None) == "matern52":
+    tag = getattr(kernel_fn, "gram_kernel", None)
+    if tag == "matern52":
         return matern52_gram(x, y, params.sigma2, params.rho)
+    if tag == "mixed":
+        return mixed_gram(x, y, params.sigma2, params.rho, kernel_fn.cont_mask,
+                          kernel_fn.cat_mask)
     return kernel_fn(x, y, params)
 
 
@@ -230,13 +241,16 @@ def lazy_append_rows(l_buf: Tensor, li_buf: Tensor, p_pads: Tensor, cs: Tensor,
 
 def fused_supported(kernel_fn, acq_name: str) -> bool:
     """True iff the fused kernel covers this (kernel, acquisition) pair: EI
-    over the Matérn-2.5 kernel.  Anything else takes the autodiff ascent."""
+    over the Matérn-2.5 or the mixed kernel.  Anything else takes the
+    autodiff ascent."""
     return acq_name == "ei" and \
-        getattr(kernel_fn, "gram_kernel", None) == "matern52"
+        getattr(kernel_fn, "gram_kernel", None) in ("matern52", "mixed")
 
 
 def fused_ei_grad(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
-                  a_buf: Tensor, sigma2, rho, shift) -> tuple[Tensor, Tensor]:
+                  a_buf: Tensor, sigma2, rho, shift, *,
+                  cont_mask: Tensor | None = None,
+                  cat_mask: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """Fused EI value + gradient for a whole (r, d) candidate batch.
 
     Args:
@@ -246,9 +260,15 @@ def fused_ei_grad(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
       alpha: (n_max,) padded weights, zero beyond the active block.
       a_buf: (n_max, n_max) hoisted A = li_buf^T li_buf.
       sigma2, rho: kernel hyper-parameters; shift = ymean - f_best - xi.
+      cont_mask/cat_mask: (d,) type masks of a mixed space (None = float).
 
-    Returns (ei (r,), grad (r, d)).  Batched: a leading axis on every
-    tensor and (G,) scalars, one launch.
+    Returns (ei (r,), grad (r, d)).  For a mixed space the rows split by
+    the masks (in the kernel's loads on the card, in `acq.split_rows` on
+    the CPU) and the gradient is taken on the continuous block, so it is
+    zero on the categorical coordinates by construction.  Batched: a
+    leading axis on every tensor and (G,) scalars, one launch (the masks
+    stay (d,), shared by the batch).
     """
     return acq_kernels.fused_ei_grad(x, x_buf, amask.to(x.dtype), alpha,
-                                     a_buf, sigma2, rho, shift)
+                                     a_buf, sigma2, rho, shift,
+                                     cont_mask=cont_mask, cat_mask=cat_mask)

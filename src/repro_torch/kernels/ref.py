@@ -119,3 +119,25 @@ def gp_posterior_solve(l: Tensor, resid: Tensor, k_star: Tensor,
     mean = k_star.T @ alpha
     var = torch.clamp(k_ss_diag - torch.sum(v * v, dim=0), min=1e-12)
     return mean, var
+
+
+def mixed_gram(x: Tensor, y: Tensor, sigma2, rho, cont_mask: Tensor,
+               cat_mask: Tensor) -> Tensor:
+    """Mixed-space covariance: Matérn-2.5 over the continuous (float + int)
+    coordinates times the factor `exp(-d2_cat / 2 rho)` over the one-hot
+    coordinates (divided by rho, not rho^2, as the reference defines it).
+    On feasible one-hot blocks d2_cat is twice the number of differing
+    groups, so the factor is the Hamming kernel exp(-h / rho).  The factor
+    carries no gradient (`detach`, the reference's stop_gradient)."""
+    xc, yc = x * cont_mask, y * cont_mask
+    xx = torch.sum(xc * xc, dim=-1)[:, None]
+    yy = torch.sum(yc * yc, dim=-1)[None, :]
+    sq = torch.clamp(xx + yy - 2.0 * (xc @ yc.T), min=0.0)
+    d = torch.sqrt(sq + 1e-36)
+    z = SQRT5 * d / rho
+    xk, yk = x * cat_mask, y * cat_mask
+    kk = torch.sum(xk * xk, dim=-1)[:, None]
+    ll = torch.sum(yk * yk, dim=-1)[None, :]
+    sqk = torch.clamp(kk + ll - 2.0 * (xk @ yk.T), min=0.0)
+    cat = torch.exp(-0.5 * sqk / rho).detach()
+    return sigma2 * (1.0 + z + z * z / 3.0) * torch.exp(-z) * cat

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.core import BayesOpt, BOConfig, GPConfig, init_state, run_bo
 from repro_torch.core.levy import levy_bounds, neg_levy
+from repro_torch.hpo.space import MIXED_DEMO_SPACE
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -21,7 +22,7 @@ FORBIDDEN = re.compile(
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.convert\n"
+            "repro_torch.convert, repro_torch.hpo.space\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -40,6 +41,8 @@ def test_no_jax_or_repro_import_in_source(path):
 
 def test_entry_points_default_to_cuda():
     assert BOConfig(dim=2).device == "cuda"
+    assert BOConfig(dim=MIXED_DEMO_SPACE.dim,
+                    desc=MIXED_DEMO_SPACE.descriptor()).device == "cuda"
     assert GPConfig().device == "cuda"
     assert run_bo.__kwdefaults__["device"] == "cuda"
 
@@ -49,6 +52,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
     lo, hi = levy_bounds(2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BayesOpt(BOConfig(dim=2), lo, hi)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BayesOpt(BOConfig(dim=MIXED_DEMO_SPACE.dim,
+                          desc=MIXED_DEMO_SPACE.descriptor()),
+                 [0.0] * MIXED_DEMO_SPACE.dim, [1.0] * MIXED_DEMO_SPACE.dim)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_state(GPConfig(n_max=8, dim=2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
