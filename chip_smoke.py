@@ -19,6 +19,9 @@ Phases, each printing one JSON line:
                from CUDA events (median of 20) for the kernel, the plain
                version and, where one PyTorch call computes the same
                function, that call (timed only, never used by the port).
+               The Cholesky also on a matrix that is not positive definite,
+               ragged n = 1000, a batch of 3 at n = 97 and n = 1, and
+               ptxas's registers and shared memory.
   4. main    — `run_bo` on Levy-5d at full width (n_max = 1024, 64 restarts
                x 25 ascent steps, 960 seed points, 48 rounds, lag 32).  Every
                launch counter is set to 0 just before and read just after;
@@ -35,7 +38,11 @@ Phases, each printing one JSON line:
                suggestion on the feasible lattice, and a recorded ascent
                showing which coordinates the gradient steps move.
   6. profile — four more rounds of each path under torch.profiler: device
-               busy share and device time by kernel.
+               busy share and device time by kernel; then one Cholesky
+               call at n = 1024 and one on the lag refit's batch, each of
+               which must be one device kernel (beside the wrapper's copy
+               and the scratch memset), with the launch plan.  Nothing is
+               profiled before the paths' timings are taken.
 Then the `{"kernels": [...]}` line, the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
@@ -107,6 +114,25 @@ def read_counts() -> dict:
     return counts
 
 
+def spd(rng: np.random.Generator, size: int, batch=()) -> np.ndarray:
+    """Well-conditioned SPD matrices, float32 (tests/_torch_port.py:40)."""
+    a = rng.standard_normal((*batch, size, size)).astype(np.float32)
+    eye = np.eye(size, dtype=np.float32)
+    return (a @ np.swapaxes(a, -1, -2) / size + 2.0 * eye).astype(np.float32)
+
+
+def non_pd_matrix() -> np.ndarray:
+    """The 48 x 48 matrix of tests/test_torch_kernels.py:123 that is not
+    positive definite: an exact zero pivot at 31 and a negative one at 32."""
+    rng = np.random.default_rng(5)
+    k = np.zeros((48, 48), np.float32)
+    k[:30, :30] = spd(rng, 30)
+    k[30:32, 30:32] = [[4.0, 2.0], [2.0, 1.0]]
+    k[32, 32] = -1.0
+    k[33:, 33:] = spd(rng, 15)
+    return k
+
+
 def mixed_space():
     """The mixed workload's search space (benchmarks/bench_mixed.py:45)."""
     from repro_torch.hpo.space import Categorical, Dim, Int, SearchSpace
@@ -147,6 +173,35 @@ def median_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_split(fn) -> dict:
+    """One call of `fn` under torch.profiler: each device kernel, copy and
+    memset by name with its count and device ms, the span from the first
+    start to the last end, and the idle ms inside that span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("torch.profiler recorded no device activity")
+    by_name, busy, reach = {}, 0.0, spans[0][0]
+    for start, end, name in spans:
+        count, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (count + 1, us + end - start)
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    span = reach - spans[0][0]
+    return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "idle_ms": (span - busy) / 1e3,
+            "by_name": [{"name": k[:80], "count": c, "ms": us / 1e3}
+                        for k, (c, us) in sorted(by_name.items(),
+                                                 key=lambda kv: -kv[1][1])]}
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -281,7 +336,7 @@ def check_kernels(dev, gen) -> list[dict]:
     """Phase 3: each kernel against its plain version at main-path shapes."""
     from repro_torch.core import gp
     from repro_torch.core.descriptor import project_units
-    from repro_torch.kernels import acq, chol, matern, mixed, ops, ref, trsv
+    from repro_torch.kernels import _build, acq, chol, matern, mixed, ops, ref, trsv
     rows = []
     eye = torch.eye(N_MAX, device=dev)
 
@@ -340,11 +395,36 @@ def check_kernels(dev, gen) -> list[dict]:
         plain_ms=median_ms(lambda: ref.cholesky(k_grid)),
         library_ms=median_ms(lambda: torch.linalg.cholesky_ex(k_grid)),
         bound_ms=gb_ms, bound_by=gb_by)
+    # Ragged and degenerate shapes against the plain version on the card.
+    edges = {}
+    cases = {"non-PD 48": torch.from_numpy(non_pd_matrix()),
+             f"n={n - 24}": k_pad[:n - 24, :n - 24],
+             "3 x n=97": torch.from_numpy(spd(np.random.default_rng(97), 97, (3,))),
+             "n=1": torch.tensor([[4.0]])}
+    for tag, kk in cases.items():
+        kk = kk.to(dev).contiguous()
+        got, want = chol.cholesky_cuda(kk), ref.cholesky(kk)
+        torch.cuda.synchronize()
+        edge = {"rel_err_vs_plain": float(rel_err(got, want).max()),
+                "finite": bool(torch.isfinite(got).all()),
+                "upper_zero": bool((torch.triu(got, 1) == 0).all())}
+        ok = edge["finite"] and edge["upper_zero"] and edge["rel_err_vs_plain"] <= TOL_CHOL_PLAIN
+        if tag == "non-PD 48":    # the clamp: sqrt(1e-12) at the zero pivot
+            edge["l_31_31"] = float(got[31, 31])
+            ok = ok and got[31, 31] == want[31, 31] and abs(edge["l_31_31"] - 1e-6) <= 1e-12
+        else:
+            edge["recon_rel"] = float(rel_err(got @ got.mT, kk).max())
+            ok = ok and edge["recon_rel"] <= TOL_CHOL_RECON
+        if not ok:
+            raise AssertionError(f"cholesky {tag}: {edge}")
+        edges[tag] = edge
+    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("chol", "").splitlines()
+             if "Used" in ln or "spill" in ln]
     emit({"phase": "kernels", "kernel": "cholesky", "n": n, "recon_rel": recon,
           "tol_recon": TOL_CHOL_RECON, "rel_err_vs_plain": rel,
           "tol_plain": TOL_CHOL_PLAIN, "max_abs_err": max_abs(l_k, l_p),
           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-          "batched": batched})
+          "batched": batched, "edges": edges, "ptxas": ptxas})
     rows.append(dict(name="cholesky", shape="(1024,1024)",
                      max_abs_err=max_abs(l_k, l_p), ms=ms, plain_ms=plain_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -684,6 +764,32 @@ def record_ascent(opt, state, space) -> dict:
                                      & (desc.levels == 0)].any(1).sum())}
 
 
+def cholesky_launches(dev) -> None:
+    """Phase 6: the factor of the main path's refactor input and of the lag
+    refit's batch, one call each under torch.profiler, must each be one
+    device kernel (beside the wrapper's copy and the memset of the barrier
+    counters); prints the launch plan.  Runs after the paths, since a
+    profiling session leaves host overhead on later launches."""
+    from repro_torch.kernels import chol, ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    st, kern = levy_state(dev, gen)
+    k_pad = ops.masked_gram(st.x_buf, st.n, kern, st.params)
+    k_grid = grid_grams(st, kern)
+    resident = chol.resident_ctas(dev)
+    launch = {}
+    for tag, kk in ((f"n={N_MAX}", k_pad), (f"{k_grid.shape[0]} x n={N_MAX}", k_grid)):
+        split = device_split(lambda: chol.cholesky_cuda(kk))
+        kernels = [e for e in split["by_name"]
+                   if not e["name"].startswith(("Memcpy", "Memset"))]
+        if len(kernels) != 1 or kernels[0]["count"] != 1 or "chol" not in kernels[0]["name"]:
+            raise AssertionError(f"cholesky {tag}: device activity {split['by_name']}")
+        groups, ctas = chol.launch_plan(kk[..., 0, 0].numel(), resident)
+        launch[tag] = dict(groups=groups, ctas_per_group=ctas, **split)
+    emit({"phase": "profile", "kernel": "cholesky", "resident_ctas": resident,
+          "launch": launch})
+
+
 def profile_steps(name, driver, state, hist, steps: int = 4) -> None:
     """Phase 6: a few more BO rounds of a path (continuing its state) under
     torch.profiler: wall time, device busy time and its share, and the
@@ -761,6 +867,7 @@ def main() -> int:
     paths = {"main": main_path(dev), "mixed": mixed_path(dev)}
     for name, (_, driver, state, hist) in paths.items():
         profile_steps(name, driver, state, hist)
+    cholesky_launches(dev)
 
     kernels = []
     for row in rows:
