@@ -21,7 +21,12 @@ Phases, each printing one JSON line:
                function, that call (timed only, never used by the port).
                The Cholesky also on a matrix that is not positive definite,
                ragged n = 1000, a batch of 3 at n = 97 and n = 1, and
-               ptxas's registers and shared memory.
+               ptxas's registers and shared memory.  L X = I (the main
+               path's solve, `tri_inverse_cuda`) on every one of those
+               factors and on n = 1024 and the lag refit's batch: bit for
+               bit the general kernel `trsv_cuda(L, I)` and held to the
+               plain version; a digest of X's bits (-0 read as +0) for the
+               single and the batched call, and ptxas's report for trsv.
   4. main    — `run_bo` on Levy-5d at full width (n_max = 1024, 64 restarts
                x 25 ascent steps, 960 seed points, 48 rounds, lag 32).  Every
                launch counter is set to 0 just before and read just after;
@@ -41,8 +46,10 @@ Phases, each printing one JSON line:
                busy share and device time by kernel; then one Cholesky
                call at n = 1024 and one on the lag refit's batch, each of
                which must be one device kernel (beside the wrapper's copy
-               and the scratch memset), with the launch plan.  Nothing is
-               profiled before the paths' timings are taken.
+               and the scratch memset), with the launch plan; one L X = I
+               call of each shape, each exactly one device kernel; one
+               lag event on the Levy-5d state by device time per kernel.
+               Nothing is profiled before the paths' timings are taken.
 Then the `{"kernels": [...]}` line, the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
@@ -51,6 +58,7 @@ before printing a result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -260,6 +268,62 @@ def compact(batched: dict) -> dict:
     return {k: v for k, v in batched.items() if not isinstance(v, list)}
 
 
+def held_inverse(tag, l) -> dict:
+    """X = L^{-1} from `tri_inverse_cuda` against the general kernel at
+    B = I (the same arithmetic: bitwise equal) and against the plain
+    version: residual |L X - I| within the tolerance and X within the
+    plain tolerance, or, where float32 itself misses them (a clamped
+    pivot), within twice the plain version's own residual and float64
+    error."""
+    from repro_torch.kernels import ref, trsv
+    eye = torch.eye(l.shape[-1], device=l.device).expand_as(l).contiguous()
+    got, general = trsv.tri_inverse_cuda(l), trsv.trsv_cuda(l, eye)
+    plain = ref.tri_inverse(l)
+    exact = ref.tri_inverse(l.double())
+    torch.cuda.synchronize()
+    resid = (l @ got - eye).abs().amax((-2, -1))
+    plain_resid = (l @ plain - eye).abs().amax((-2, -1))
+    rel, plain_rel = rel_err(got, plain), rel_err(plain.double(), exact)
+    line = {"equal_to_general": bool(torch.equal(got, general)),
+            "finite": bool(torch.isfinite(got).all()),
+            "resid_max": float(resid.max()),
+            "plain_resid_max": float(plain_resid.max()),
+            "rel_err_vs_plain": float(rel.max()),
+            "plain_rel_err_vs_f64": float(plain_rel.max()),
+            "rel_err_vs_f64": float(rel_err(got.double(), exact).max())}
+    resid_ok = resid <= torch.clamp(2.0 * plain_resid, min=TOL_TRSV_RESID)
+    rel_ok = (rel <= TOL_TRSV_PLAIN) | ((plain_rel > TOL_TRSV_PLAIN) & (
+        rel_err(got.double(), exact) <= 2.0 * plain_rel))
+    if not (line["equal_to_general"] and line["finite"] and bool(resid_ok.all())
+            and bool(rel_ok.all())):
+        raise AssertionError(f"tri_inverse {tag}: {line}")
+    return line
+
+
+def digest(x) -> str:
+    """sha256 of X's bits with -0 read as +0 (the skipped terms of L X = I
+    may change only the sign of a zero)."""
+    return hashlib.sha256(torch.where(x == 0, 0.0, x).cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def inverse_digests(dev) -> dict:
+    """`ops.padded_tri_inverse` on the kernels phase's factors (the same
+    draws from a generator seeded 0: the Matérn phase's points, then the
+    Levy-5d state), single and as the lag refit's batch, as digests.  Uses
+    only entry points the parent tree also has, so the same call on an
+    unpacked parent shows whether X's bits moved."""
+    from repro_torch.kernels import chol, ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.rand((N_MAX, DIM), generator=gen, device=dev)
+    st, kern = levy_state(dev, gen)
+    l_fac = chol.cholesky_cuda(ops.masked_gram(st.x_buf, st.n, kern, st.params))
+    l_grid = chol.cholesky_cuda(grid_grams(st, kern))
+    return {"single": digest(ops.padded_tri_inverse(l_fac)),
+            "batch": digest(ops.padded_tri_inverse(l_grid))}
+
+
 def grid_grams(st, kern):
     """The lag refit's batch (`gp._lml_grid`): the padded Gram of `st` under
     each of the 18 grid candidates, (18, n_max, n_max)."""
@@ -396,7 +460,7 @@ def check_kernels(dev, gen) -> list[dict]:
         library_ms=median_ms(lambda: torch.linalg.cholesky_ex(k_grid)),
         bound_ms=gb_ms, bound_by=gb_by)
     # Ragged and degenerate shapes against the plain version on the card.
-    edges = {}
+    edges, factors = {}, {}
     cases = {"non-PD 48": torch.from_numpy(non_pd_matrix()),
              f"n={n - 24}": k_pad[:n - 24, :n - 24],
              "3 x n=97": torch.from_numpy(spd(np.random.default_rng(97), 97, (3,))),
@@ -418,6 +482,7 @@ def check_kernels(dev, gen) -> list[dict]:
         if not ok:
             raise AssertionError(f"cholesky {tag}: {edge}")
         edges[tag] = edge
+        factors[tag] = got
     ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("chol", "").splitlines()
              if "Used" in ln or "spill" in ln]
     emit({"phase": "kernels", "kernel": "cholesky", "n": n, "recon_rel": recon,
@@ -430,7 +495,10 @@ def check_kernels(dev, gen) -> list[dict]:
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                      batched=compact(batched)))
 
-    # --- 3. trsv on that factor: L X = I both ways, and a vector RHS.
+    # --- 3. trsv.  L X = I, the main path's solve, on its own kernel
+    # (tri_inverse_cuda) on every factor above: bit for bit the general
+    # kernel at B = I, and held to the plain version.  The general kernel
+    # also both ways and on a vector right-hand side.
     l_fac = l_k
     detail = {}
     for trans in (False, True):
@@ -442,8 +510,8 @@ def check_kernels(dev, gen) -> list[dict]:
         rel = float(rel_err(x_k, x_p))
         if not (resid <= TOL_TRSV_RESID and rel <= TOL_TRSV_PLAIN):
             raise AssertionError(f"trsv trans={trans}: resid {resid}, rel {rel}")
-        detail[f"trans={trans}"] = dict(resid=resid, rel_err_vs_plain=rel,
-                                        max_abs_err=max_abs(x_k, x_p))
+        detail[f"general trans={trans}"] = dict(
+            resid=resid, rel_err_vs_plain=rel, max_abs_err=max_abs(x_k, x_p))
     vec = torch.randn((N_MAX, 1), generator=gen, device=dev)
     for trans in (False, True):
         q_k = trsv.trsv_cuda(l_fac, vec, trans=trans)
@@ -453,36 +521,59 @@ def check_kernels(dev, gen) -> list[dict]:
         if rel > TOL_TRSV_PLAIN:
             raise AssertionError(f"trsv vector trans={trans}: rel {rel}")
         detail[f"vector trans={trans}"] = dict(rel_err_vs_plain=rel)
-    x_k = trsv.trsv_cuda(l_fac, eye)
-    x_p = ref.trsv(l_fac, eye)
-    b_ms, b_by = bound(float(n) * n * n, 4 * 3 * n * n)
-    ms = median_ms(lambda: trsv.trsv_cuda(l_fac, eye))
-    plain_ms = median_ms(lambda: ref.trsv(l_fac, eye))
+    inverses = {tag: held_inverse(tag, lf) for tag, lf in
+                {f"n={n}": l_fac, f"{g} x n={n}": l_grid, **factors}.items()}
+    x_k = trsv.tri_inverse_cuda(l_fac)
+    x_p = ref.tri_inverse(l_fac)
+    # L X = I needs n^3 / 3 flops (column c of X is zero above row c) and
+    # reads L's lower half and writes X.
+    b_ms, b_by = bound(n ** 3 / 3, 4 * (n * (n + 1) / 2 + n * n))
+    ms = median_ms(lambda: trsv.tri_inverse_cuda(l_fac))
+    general_ms = median_ms(lambda: trsv.trsv_cuda(l_fac, eye))
+    plain_ms = median_ms(lambda: ref.tri_inverse(l_fac))
     lib_ms = median_ms(lambda: torch.linalg.solve_triangular(l_fac, eye, upper=False))
+    # The general solve's count, at r = 1: n^2 flops, L, b and q once.
     vec_ms = median_ms(lambda: trsv.trsv_cuda(l_fac, vec))
-    # The lag refit's batch: L X = I on each of the 18 grid factors.
+    vec_b_ms, vec_b_by = bound(float(n) * n, 4 * (n * n + 2 * n))
+    # The lag refit's batch: L X = I on each of the 18 grid factors.  The
+    # identity is built here for the general kernel and the library call.
     eye_g = eye.expand(g, n, n).contiguous()
-    x_grid = trsv.trsv_cuda(l_grid, eye_g)
-    x_grid_p = ref.trsv(l_grid, eye_g)
+    x_grid = trsv.tri_inverse_cuda(l_grid)
+    x_grid_p = ref.tri_inverse(l_grid)
     batched = held_as_batch(
-        "trsv", x_grid, torch.stack([trsv.trsv_cuda(lg, eye) for lg in l_grid]),
+        "tri_inverse", x_grid,
+        torch.stack([trsv.tri_inverse_cuda(lg) for lg in l_grid]),
         (l_grid @ x_grid - eye).abs().amax((-2, -1)),
         (l_grid @ x_grid_p - eye).abs().amax((-2, -1)), TOL_TRSV_RESID)
-    gb_ms, gb_by = bound(g * float(n) * n * n, g * 4 * 3 * n * n)
+    gb_ms, gb_by = bound(g * n ** 3 / 3, g * 4 * (n * (n + 1) / 2 + n * n))
     batched.update(
         shape=f"L X = I, ({g},{n},{n})", max_abs_err=max_abs(x_grid, x_grid_p),
-        ms=median_ms(lambda: trsv.trsv_cuda(l_grid, eye_g)),
-        plain_ms=median_ms(lambda: ref.trsv(l_grid, eye_g)),
+        ms=median_ms(lambda: trsv.tri_inverse_cuda(l_grid)),
+        general_ms=median_ms(lambda: trsv.trsv_cuda(l_grid, eye_g)),
+        plain_ms=median_ms(lambda: ref.tri_inverse(l_grid)),
         library_ms=median_ms(
             lambda: torch.linalg.solve_triangular(l_grid, eye_g, upper=False)),
         bound_ms=gb_ms, bound_by=gb_by)
+    # The same factors rebuilt from the seed and inverted through the main
+    # path's entry point give the same bits.
+    digests = inverse_digests(dev)
+    if digests != {"single": digest(x_k), "batch": digest(x_grid)}:
+        raise AssertionError(f"tri_inverse digests: {digests} through "
+                             f"ops.padded_tri_inverse, {digest(x_k)} / "
+                             f"{digest(x_grid)} here")
+    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("trsv", "").splitlines()
+             if "Used" in ln or "spill" in ln]
     emit({"phase": "kernels", "kernel": "trsv", "tol_resid": TOL_TRSV_RESID,
-          "tol_plain": TOL_TRSV_PLAIN, **detail, "ms": ms, "vector_ms": vec_ms,
-          "plain_ms": plain_ms, "library_ms": lib_ms, "batched": batched})
+          "tol_plain": TOL_TRSV_PLAIN, **detail, "inverses": inverses,
+          "digest": digests,
+          "ms": ms, "general_ms": general_ms, "plain_ms": plain_ms,
+          "library_ms": lib_ms, "vector_ms": vec_ms,
+          "vector_bound_ms": vec_b_ms, "vector_bound_by": vec_b_by,
+          "batched": batched, "ptxas": ptxas})
     rows.append(dict(name="trsv", shape="L X = I, (1024,1024)",
-                     max_abs_err=max_abs(x_k, x_p), ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                     batched=compact(batched)))
+                     max_abs_err=max_abs(x_k, x_p), ms=ms, general_ms=general_ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms, batched=compact(batched)))
 
     # --- 4. Fused EI at r = 64, n = 1024, d = 5 on the refactored state, on
     # standardized values and on the raw Levy values the main path sees.
@@ -790,6 +881,46 @@ def cholesky_launches(dev) -> None:
           "launch": launch})
 
 
+def tri_inverse_launches(dev) -> None:
+    """Phase 6: L X = I on the main path's refactor factor and on the lag
+    refit's batch, one call each under torch.profiler, must each be one
+    device kernel and nothing else (no identity built or copied); then
+    one lag event by device time (`lag_event_split`)."""
+    from repro_torch.kernels import chol, ops, trsv
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    st, kern = levy_state(dev, gen)
+    l_fac = chol.cholesky_cuda(ops.masked_gram(st.x_buf, st.n, kern, st.params))
+    l_grid = chol.cholesky_cuda(grid_grams(st, kern))
+    launch = {}
+    for tag, lf in ((f"n={N_MAX}", l_fac), (f"{l_grid.shape[0]} x n={N_MAX}", l_grid)):
+        split = device_split(lambda: trsv.tri_inverse_cuda(lf))
+        names = [(e["name"], e["count"]) for e in split["by_name"]]
+        if len(names) != 1 or names[0][1] != 1 or "tri_inverse" not in names[0][0]:
+            raise AssertionError(f"tri_inverse {tag}: device activity {split['by_name']}")
+        launch[tag] = split
+    emit({"phase": "profile", "kernel": "trsv", "launch": launch,
+          "lag_event": lag_event_split(dev)})
+
+
+def lag_event_split(dev) -> dict:
+    """One lag event (`gp.refit_params`, then `gp.refactor`) on the Levy-5d
+    refactor input under torch.profiler: device ms by kernel, so the
+    solve's share of the lag round is read from device time, not from the
+    host clock.  Uses only entry points the parent tree also has."""
+    from repro_torch.core import gp
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    st, kern = levy_state(dev, gen)
+    lag = device_split(lambda: gp.refactor(st, kern, gp.refit_params(st, kern)))
+    solve_ms = sum(e["ms"] for e in lag["by_name"]
+                   if "tri_inverse" in e["name"] or "trsv" in e["name"])
+    return {"n": st.n, "solve_ms": solve_ms,
+            "solve_share_of_busy": solve_ms / lag["busy_ms"],
+            "span_ms": lag["span_ms"], "busy_ms": lag["busy_ms"],
+            "idle_ms": lag["idle_ms"], "by_name": lag["by_name"][:10]}
+
+
 def profile_steps(name, driver, state, hist, steps: int = 4) -> None:
     """Phase 6: a few more BO rounds of a path (continuing its state) under
     torch.profiler: wall time, device busy time and its share, and the
@@ -868,6 +999,7 @@ def main() -> int:
     for name, (_, driver, state, hist) in paths.items():
         profile_steps(name, driver, state, hist)
     cholesky_launches(dev)
+    tri_inverse_launches(dev)
 
     kernels = []
     for row in rows:
@@ -880,8 +1012,8 @@ def main() -> int:
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"],
                             library_ms=row["library_ms"], shape=row["shape"],
-                            **({"batched": row["batched"]} if "batched" in row
-                               else {})))
+                            **{k: row[k] for k in ("general_ms", "batched")
+                               if k in row}))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,6 +19,7 @@ no size envelopes: a kernel takes any n, or its wrapper raises.
   masked_gram        | padded buffers    | gram if tagged    | no
   padded_trsv        | padded buffers    | csrc/trsv.cu      | yes
   padded_cholesky    | padded buffers    | csrc/chol.cu      | yes
+  tri_inverse        | (n,n)             | csrc/trsv.cu      | yes
   padded_tri_inverse | padded buffers    | csrc/trsv.cu      | yes
   padded_append_row  | padded buffers    | ‡                 | no
   lazy_append        | padded buffers    | ‡                 | no
@@ -52,13 +53,14 @@ import torch
 from repro_torch.kernels import acq as acq_kernels
 from repro_torch.kernels import ref
 # The active-shape entry points are the kernel modules' own functions:
-# matern52_gram (n,d)x(m,d), trsv (..., n, n) with b (..., n[, r]), and
-# cholesky (..., n, n) with the reference's diagonal clamp, and
-# mixed_gram (n,d)x(m,d) under the (d,) type masks of a mixed space.
+# matern52_gram (n,d)x(m,d), trsv (..., n, n) with b (..., n[, r]),
+# tri_inverse (..., n, n), cholesky (..., n, n) with the reference's
+# diagonal clamp, and mixed_gram (n,d)x(m,d) under the (d,) type masks of
+# a mixed space.
 from repro_torch.kernels.chol import cholesky
 from repro_torch.kernels.matern import matern52_gram
 from repro_torch.kernels.mixed import mixed_gram
-from repro_torch.kernels.trsv import trsv
+from repro_torch.kernels.trsv import tri_inverse, trsv
 
 Tensor = torch.Tensor
 
@@ -72,7 +74,7 @@ __all__ = ["CLAMP_EPS", "chol_append", "cholesky", "fused_ei_grad",
            "lazy_append", "lazy_append_rows", "masked_gram", "matern52_gram",
            "mixed_gram",
            "padded_append_row", "padded_cholesky", "padded_tri_inverse",
-           "padded_trsv", "trsv", "write_append_row"]
+           "padded_trsv", "tri_inverse", "trsv", "write_append_row"]
 
 
 def chol_append(l: Tensor, p: Tensor, c) -> tuple[Tensor, Tensor]:
@@ -160,8 +162,7 @@ def padded_tri_inverse(l_buf: Tensor) -> Tensor:
     """Identity-padded inverse `L^{-1}` of the identity-padded factor, by
     solving `L X = I` (the identity block is self-inverse).  Runs only at
     refactor events.  Batched form: (G, n_max, n_max)."""
-    eye = torch.eye(l_buf.shape[-1], dtype=l_buf.dtype, device=l_buf.device)
-    return padded_trsv(l_buf, eye.expand_as(l_buf))
+    return tri_inverse(l_buf)
 
 
 def padded_append_row(l_buf: Tensor, li_buf: Tensor, p_pad: Tensor, c,

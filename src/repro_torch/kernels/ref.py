@@ -65,6 +65,12 @@ def trsv(l: Tensor, b: Tensor, *, trans: bool = False) -> Tensor:
     return q
 
 
+def tri_inverse(l: Tensor) -> Tensor:
+    """L^{-1} of a lower-triangular L (..., n, n), as `trsv(l, I)`."""
+    eye = torch.eye(l.shape[-1], dtype=l.dtype, device=l.device)
+    return trsv(l, eye.expand_as(l))
+
+
 def _chol_unblocked(a: Tensor) -> Tensor:
     """Crout column loop on a (B, B) block with the diagonal clamp."""
     b = a.shape[-1]
