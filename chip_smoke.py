@@ -27,6 +27,13 @@ Phases, each printing one JSON line:
                bit the general kernel `trsv_cuda(L, I)` and held to the
                plain version; a digest of X's bits (-0 read as +0) for the
                single and the batched call, and ptxas's report for trsv.
+               Both fused-EI forms also at ragged n = 1000, at n = 4096 and
+               on a batch of 3 studies (held to the plain version, two
+               calls torch.equal, the launch plan, ptxas's report for every
+               instantiation); the mixed form's accuracy spread over
+               seeds (informational); L X = I at n = 6144 through
+               `trsv.tri_inverse`, past the L X = I kernel's limit, on the
+               general kernel, within TOL_TRSV_RESID.
   4. main    — `run_bo` on Levy-5d at full width (n_max = 1024, 64 restarts
                x 25 ascent steps, 960 seed points, 48 rounds, lag 32).  Every
                launch counter is set to 0 just before and read just after;
@@ -48,7 +55,9 @@ Phases, each printing one JSON line:
                which must be one device kernel (beside the wrapper's copy
                and the scratch memset), with the launch plan; one L X = I
                call of each shape, each exactly one device kernel; one
-               lag event on the Levy-5d state by device time per kernel.
+               lag event on the Levy-5d state by device time per kernel;
+               one call of each fused-EI form, each exactly one device
+               kernel, whose device ms go beside its event ms.
                Nothing is profiled before the paths' timings are taken.
 Then the `{"kernels": [...]}` line, the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
@@ -60,6 +69,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -340,7 +350,7 @@ def grid_grams(st, kern):
 def ei_args(st, xc):
     """The fused EI kernel's operands for candidates xc on state st, as the
     ascent hoists them."""
-    amask = (torch.arange(N_MAX, device=xc.device) < st.n).float()
+    amask = (torch.arange(st.n_max, device=xc.device) < st.n).float()
     a_buf = st.li_buf.T @ st.li_buf
     ymean = torch.sum(torch.where(amask > 0, st.y_buf, 0.0)) / st.n
     shift = ymean - torch.max(torch.where(amask > 0, st.y_buf, -torch.inf)) - 0.01
@@ -355,45 +365,51 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def levy_state(dev, gen, standardize: bool = True):
+def levy_state(dev, gen, standardize: bool = True, n_max: int | None = None,
+               n_seed: int | None = None):
     """The main path's refactor input: 960 uniform unit-box points (the
-    normalized Levy-5d seeds) in an n_max = 1024 buffer, and their state.
-    Standardized values keep EI away from its tail; the main path itself
-    runs on the raw values."""
+    normalized Levy-5d seeds) in an n_max = 1024 buffer, and their state
+    (other sizes for the fused EI's extra shapes).  Standardized values
+    keep EI away from its tail; the main path itself runs on the raw
+    values."""
     from repro_torch.core import gp
     from repro_torch.core.kernels import matern52
     from repro_torch.core.levy import levy_bounds, neg_levy
-    u = torch.rand((N_SEED, DIM), generator=gen, device=dev)
+    n_max, n_seed = n_max or N_MAX, n_seed or N_SEED
+    u = torch.rand((n_seed, DIM), generator=gen, device=dev)
     lo, hi = (t.to(dev) for t in levy_bounds(DIM))
     y = neg_levy(lo + u * (hi - lo))
     if standardize:
         y = (y - y.mean()) / y.std()
-    st = gp.init_state(gp.GPConfig(n_max=N_MAX, dim=DIM, noise2=NOISE2,
+    st = gp.init_state(gp.GPConfig(n_max=n_max, dim=DIM, noise2=NOISE2,
                                    rho0=RHO0, device=str(dev)))
-    st.x_buf[:N_SEED] = u
-    st.y_buf[:N_SEED] = y
-    return dataclasses.replace(st, n=N_SEED), matern52
+    st.x_buf[:n_seed] = u
+    st.y_buf[:n_seed] = y
+    return dataclasses.replace(st, n=n_seed), matern52
 
 
-def mixed_state(dev, gen, standardize: bool = True):
+def mixed_state(dev, gen, standardize: bool = True, n_max: int | None = None,
+                n_seed: int | None = None):
     """A mixed-space refactor input: 960 points of the mixed workload's
     space, drawn uniform and projected onto its lattice, in an n_max = 1024
-    buffer, and their state under the mixed kernel."""
+    buffer (other sizes for the fused EI's extra shapes), and their state
+    under the mixed kernel."""
     from repro_torch.core import gp
     from repro_torch.core.descriptor import project_units
+    n_max, n_seed = n_max or N_MAX, n_seed or N_SEED
     space = mixed_space()
     desc = space.descriptor().to(dev)
-    u = project_units(torch.rand((N_SEED, MIXED_DIM), generator=gen,
+    u = project_units(torch.rand((n_seed, MIXED_DIM), generator=gen,
                                  device=dev), desc)
     y = torch.as_tensor(mixed_objective(space)(u.cpu().numpy()), device=dev)
     if standardize:
         y = (y - y.mean()) / y.std()
-    cfg = gp.GPConfig(n_max=N_MAX, dim=MIXED_DIM, noise2=NOISE2, rho0=RHO0,
+    cfg = gp.GPConfig(n_max=n_max, dim=MIXED_DIM, noise2=NOISE2, rho0=RHO0,
                       desc=desc, device=str(dev))
     st = gp.init_state(cfg)
-    st.x_buf[:N_SEED] = u
-    st.y_buf[:N_SEED] = y
-    return dataclasses.replace(st, n=N_SEED), cfg.kernel_fn, desc
+    st.x_buf[:n_seed] = u
+    st.y_buf[:n_seed] = y
+    return dataclasses.replace(st, n=n_seed), cfg.kernel_fn, desc
 
 
 def check_kernels(dev, gen) -> list[dict]:
@@ -696,6 +712,191 @@ def check_kernels(dev, gen) -> list[dict]:
     return rows
 
 
+def acq_ptxas() -> dict:
+    """ptxas's registers, spills and shared memory for every instantiation
+    of csrc/acq.cu, by tile rows and form."""
+    import re
+    from repro_torch.kernels import _build
+    out, name = {}, None
+    for ln in _build.BUILD_LOG.get("acq", "").splitlines():
+        m = re.search(r"fused_ei_grad_kernelILi(\d+)ELb([01])E", ln)
+        if m:
+            name = f"R={m.group(1)} {'mixed' if m.group(2) == '1' else 'float'}"
+        elif name and ("Used" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def held_ei(tag, launch, plain, args, cat_mask=None) -> dict:
+    """A fused-EI form against its plain version, twice on the same inputs
+    (the two results must be torch.equal), and, for the mixed form, a
+    gradient of exactly 0 on the categorical coordinates.  Each output must
+    be within TOL_EI of the plain version or, where it is not, no further
+    from a float64 evaluation than twice the plain version's own error:
+    `held_to_plain`'s float64 rule, applied also where the plain version
+    meets TOL_EI against float64 while the kernel, closer to float64, is
+    outside TOL_EI of the plain version (a cancelling gradient sum)."""
+    ei_k, g_k = launch(args)
+    ei_k2, g_k2 = launch(args)
+    ei_p, g_p = plain(args)
+    ei_d, g_d = plain([a.double() for a in args])
+    torch.cuda.synchronize()
+    held = {}
+    for name, k, p, d in (("ei", ei_k, ei_p, ei_d), ("grad", g_k, g_p, g_d)):
+        ok, line = held_to_plain(k, p, d, TOL_EI)
+        held[name] = (ok or line["kernel_err_vs_f64"]
+                      <= 2.0 * line["plain_err_vs_f64"], line)
+    same = bool(torch.equal(ei_k, ei_k2) and torch.equal(g_k, g_k2))
+    cat_grad = 0.0 if cat_mask is None else float((g_k * cat_mask).abs().max())
+    if not (all(ok for ok, _ in held.values()) and same and cat_grad == 0.0):
+        raise AssertionError(f"fused EI {tag}: repeat equal {same}, "
+                             f"categorical grad {cat_grad}, {held}")
+    return {"repeat_equal": same, "rows_ei_positive": int((ei_k > 0).sum()),
+            **{f"{name}_{key}": val for name, (_, d) in held.items()
+               for key, val in d.items()
+               if key in ("max_abs_err", "within_tol", "kernel_err_vs_f64",
+                          "plain_err_vs_f64")}}
+
+
+def ei_shapes(dev) -> dict:
+    """Phase 3, after the main-path checks (own generator, so their draws
+    are unchanged): both fused-EI forms at ragged n = 1000, at n = 4096 and
+    on a batch of 3 studies at n = 1024, each held to its plain version by
+    `held_ei`, with the launch plan of each; ptxas's report for every
+    instantiation.  States: standardized Levy-5d values (float form);
+    standardized mixed-workload values under the initial parameters, and
+    at n = 4096, where float32 cannot factor that Gram (the plain version
+    gives NaN too), under the parameters the main path's lag refit picks
+    (mixed form)."""
+    from repro_torch.core import gp
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.core.kernels import KernelParams
+    from repro_torch.kernels import acq
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    desc = mixed_space().descriptor().to(dev)
+    cm, km = desc.cont_mask, desc.cat_mask
+    refit = KernelParams(sigma2=4.0, rho=0.05, noise2=NOISE2).to(dev)
+
+    def float_args(n_max, n_seed):
+        st, kern = levy_state(dev, gen, n_max=n_max, n_seed=n_seed)
+        xc = torch.rand((64, DIM), generator=gen, device=dev)
+        return ei_args(gp.refactor(st, kern), xc)
+
+    def mixed_args(n_max, n_seed):
+        st, mkern, _ = mixed_state(dev, gen, n_max=n_max, n_seed=n_seed)
+        xc = project_units(torch.rand((64, MIXED_DIM), generator=gen,
+                                      device=dev), desc)
+        return ei_args(gp.refactor(st, mkern, refit if n_max > N_MAX else None),
+                       xc)
+
+    def stack(cases):
+        return [torch.stack([torch.as_tensor(a[i], device=dev) for a in cases])
+                for i in range(len(cases[0]))]
+
+    def mixed_plain(a):
+        xcc, xbc, xk, xbk = acq.split_rows(a[0], a[1], cm, km)
+        return acq.ei_grad_torch(xcc, xbc, *a[2:], xk=xk, xbk=xbk)
+
+    forms = {
+        "float": (float_args, lambda a: acq.fused_ei_grad_cuda(*a),
+                  lambda a: acq.ei_grad_torch(*a), None),
+        "mixed": (mixed_args,
+                  lambda a: acq.fused_ei_grad_mixed_cuda(*a, cm, km),
+                  mixed_plain, km),
+    }
+    out = {}
+    for form, (make, launch, plain, cat) in forms.items():
+        cases = {"n=1000": make(1000, 936), "n=4096": make(4096, 4000),
+                 "3 x n=1024": stack([make(N_MAX, N_SEED) for _ in range(3)])}
+        for tag, args in cases.items():
+            lead = args[1].shape[:-2]
+            plan = acq.launch_plan(math.prod(lead), args[0].shape[-2],
+                                   args[1].shape[-2], args[0].shape[-1],
+                                   form == "mixed")
+            out[f"{form} {tag}"] = dict(held_ei(f"{form} {tag}", launch, plain,
+                                               args, cat),
+                                        plan=dataclasses.asdict(plan))
+    return {"phase": "kernels", "kernel": "fused_ei_grad shapes", "tol": TOL_EI,
+            **out, "ptxas": acq_ptxas()}
+
+
+def ei_accuracy_spread(dev, seeds=range(1, 7)) -> dict:
+    """Informational (raises nothing): the mixed form on mixed-workload
+    states of the checks' kinds, standardized, at n = 1000 and 1024, under
+    the initial parameters and under the lag refit's (sigma2 4, rho 0.05),
+    one state per seed; for each, the kernel's float64 error over the
+    plain version's, for EI and gradient, and whether `held_to_plain`
+    holds.  Uses only entry points the parent tree also has, so the same
+    call on an unpacked parent shows the parent kernel's spread."""
+    from repro_torch.core import gp
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.core.kernels import KernelParams
+    from repro_torch.kernels import acq
+    desc = mixed_space().descriptor().to(dev)
+    cm, km = desc.cont_mask, desc.cat_mask
+    refit = KernelParams(sigma2=4.0, rho=0.05, noise2=NOISE2).to(dev)
+    out = {}
+    for kind, params in (("initial", None), ("refit", refit)):
+        rows = []
+        for seed in seeds:
+            for n_max, n_seed in ((1000, 936), (N_MAX, N_SEED)):
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(seed)
+                st, mkern, _ = mixed_state(dev, gen, n_max=n_max, n_seed=n_seed)
+                xc = project_units(torch.rand((64, MIXED_DIM), generator=gen,
+                                              device=dev), desc)
+                args = ei_args(gp.refactor(st, mkern, params), xc)
+                got = acq.fused_ei_grad_mixed_cuda(*args, cm, km)
+                sp = acq.split_rows(args[0], args[1], cm, km)
+                plain = acq.ei_grad_torch(*sp[:2], *args[2:], xk=sp[2], xbk=sp[3])
+                wide = [a.double() for a in args]
+                sp = acq.split_rows(wide[0], wide[1], cm, km)
+                exact = acq.ei_grad_torch(*sp[:2], *wide[2:], xk=sp[2], xbk=sp[3])
+                torch.cuda.synchronize()
+                row = {"seed": seed, "n": n_max}
+                for name, k, p, d in zip(("ei", "grad"), got, plain, exact):
+                    ok, line = held_to_plain(k, p, d, TOL_EI)
+                    row[f"{name}_ratio"] = (line["kernel_err_vs_f64"]
+                                            / max(line["plain_err_vs_f64"], 1e-30))
+                    row[f"{name}_held"] = ok
+                rows.append(row)
+        ratios = sorted(max(r["ei_ratio"], r["grad_ratio"]) for r in rows)
+        out[kind] = {"held": sum(r["ei_held"] and r["grad_held"] for r in rows),
+                     "of": len(rows), "worst_ratio_median": ratios[len(ratios) // 2],
+                     "worst_ratio_max": ratios[-1], "cases": rows}
+    return out
+
+
+def tri_inverse_beyond_limit(dev, n: int = 6144) -> dict:
+    """L X = I past the L X = I kernel's shared-memory limit (`trsv.MAX_N`),
+    through `trsv.tri_inverse` on the card: it must take the general kernel
+    (`trsv.inverse_entry`), launch once, and hold ||L X - I||_max (in
+    float64) within TOL_TRSV_RESID.  L is the port's Cholesky factor of a
+    well-conditioned SPD matrix."""
+    from repro_torch.kernels import chol, trsv
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    a = torch.randn((n, n), generator=gen, device=dev) / n ** 0.5
+    eye = torch.eye(n, device=dev)
+    l = chol.cholesky_cuda(a @ a.T + 2.0 * eye)
+    before = trsv.LAUNCHES
+    t0 = time.perf_counter()
+    x = trsv.tri_inverse(l)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    resid = float((l.double() @ x.double() - eye.double()).abs().max())
+    line = {"n": n, "max_n_of_tri_inverse_kernel": trsv.MAX_N,
+            "route": trsv.inverse_entry(n),
+            "launches": trsv.LAUNCHES - before, "resid": resid,
+            "tol_resid": TOL_TRSV_RESID, "finite": bool(torch.isfinite(x).all()),
+            "seconds": seconds}
+    if not (line["route"] == "trsv" and line["launches"] == 1 and line["finite"]
+            and resid <= TOL_TRSV_RESID):
+        raise AssertionError(f"tri_inverse n={n}: {line}")
+    return {"phase": "kernels", "kernel": "trsv beyond the L X = I limit", **line}
+
+
 def expected_counts(acq_cfg, gram: str, ei: str) -> dict:
     """Launches a full-width run must make: one refactor at the seed points;
     each lag event scores the 18 grid candidates as one batch (18 Grams,
@@ -903,6 +1104,39 @@ def tri_inverse_launches(dev) -> None:
           "lag_event": lag_event_split(dev)})
 
 
+def ei_launches(dev) -> dict:
+    """Phase 6: one call of each fused-EI form at r = 64, n = 1024 (the
+    standardized states of the kernels phase's kind) under torch.profiler
+    must be exactly one device kernel and nothing else: no copy, no memset
+    (the scratch is kept across calls); its device ms, with the plan."""
+    from repro_torch.core import gp
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.kernels import acq
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    st, kern = levy_state(dev, gen)
+    fargs = ei_args(gp.refactor(st, kern),
+                    torch.rand((64, DIM), generator=gen, device=dev))
+    mst, mkern, desc = mixed_state(dev, gen)
+    margs = ei_args(gp.refactor(mst, mkern), project_units(
+        torch.rand((64, MIXED_DIM), generator=gen, device=dev), desc))
+    out = {}
+    for form, fn, args in (
+            ("fused_ei_grad", lambda: acq.fused_ei_grad_cuda(*fargs), fargs),
+            ("fused_ei_grad_mixed", lambda: acq.fused_ei_grad_mixed_cuda(
+                *margs, desc.cont_mask, desc.cat_mask), margs)):
+        split = device_split(fn)
+        names = [(e["name"], e["count"]) for e in split["by_name"]]
+        if len(names) != 1 or names[0][1] != 1 or "fused_ei" not in names[0][0]:
+            raise AssertionError(f"{form}: device activity {split['by_name']}")
+        plan = acq.launch_plan(1, 64, N_MAX, args[0].shape[-1],
+                               form.endswith("mixed"))
+        out[form] = {"device_ms": split["busy_ms"], "kernel": names[0][0],
+                     "plan": dataclasses.asdict(plan)}
+    emit({"phase": "profile", "kernel": "fused_ei_grad", "launch": out})
+    return out
+
+
 def lag_event_split(dev) -> dict:
     """One lag event (`gp.refit_params`, then `gp.refactor`) on the Levy-5d
     refactor input under torch.profiler: device ms by kernel, so the
@@ -995,11 +1229,22 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = check_kernels(dev, gen)
+    emit(ei_shapes(dev))
+    emit({"phase": "kernels", "kernel": "fused_ei_grad_mixed accuracy spread",
+          **ei_accuracy_spread(dev)})
+    emit(tri_inverse_beyond_limit(dev))
     paths = {"main": main_path(dev), "mixed": mixed_path(dev)}
     for name, (_, driver, state, hist) in paths.items():
         profile_steps(name, driver, state, hist)
     cholesky_launches(dev)
     tri_inverse_launches(dev)
+    ei_device = ei_launches(dev)
+    # The fused EI's device time beside its event time from the kernels
+    # phase: the difference is the wrapper's host work while the card idles.
+    for row in rows:
+        if row["name"] in ei_device:
+            row["device_ms"] = ei_device[row["name"]]["device_ms"]
+            row["host_gap_ms"] = row["ms"] - row["device_ms"]
 
     kernels = []
     for row in rows:
@@ -1012,7 +1257,8 @@ def main() -> int:
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"],
                             library_ms=row["library_ms"], shape=row["shape"],
-                            **{k: row[k] for k in ("general_ms", "batched")
+                            **{k: row[k] for k in ("general_ms", "batched",
+                                                   "device_ms", "host_gap_ms")
                                if k in row}))
     emit({"kernels": kernels})
     print(smi, flush=True)

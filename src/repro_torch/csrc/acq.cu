@@ -21,41 +21,124 @@
 // (divided by rho, the reference's definition), which is never
 // differentiated, and the distance z and the gradient use the continuous
 // block only, so the gradient is exactly 0 on categorical coordinates.
-// Phase 3 recomputes cat beside z, as it recomputes z, which costs d flops
-// per entry and no shared memory; the row split adds a (kRb, d) block for
-// the candidates' categorical rows and 2 d floats for the masks.
 //
-// What bounds it on the H100: the 2 r n^2 flops of U = K A (r = 64,
-// n = 1024 on the main path); A is 4 MB and is read from L2 by every CTA.
+// What bounds it on the H100: the 2 r n^2 flops of U = K A (2 us at r = 64,
+// n = 1024 at the fp32 peak); A is 4 MB and stays in L2.  What stands in
+// the way is latency and occupancy: U needs every row of A, and the
+// gradient weights U by dvar, which needs the finished row sum of U o K.
+// The earlier design (one CTA per 8 candidate rows: 8 CTAs on 132 SMs,
+// each reading A row by row straight from L2) took 0.35 ms of device time.
 //
-// Design: Pallas keeps A whole in VMEM; a Hopper block has 227 KB of shared
-// memory, so here A streams from L2 while each CTA keeps the rows of its
-// own candidates whole in shared memory.  The gradient weights U by dvar,
-// and dvar needs the finished row sum of U o K, so the CTA works in phases:
-//   1. K rows (masked) for all n into shared memory, gamma by block reduce;
-//   2. U = K A, thread t owning columns t, t + 256, ...: each A row is read
-//      once per CTA, coalesced, against K values broadcast from shared
-//      memory; U goes to shared memory and rowsum(U o K) is reduced;
-//   3. var, EI and dvar per row; w overwrites K in shared memory;
-//   4. rowsum(w) and w x_buf, one warp per (row, feature) pair.
-// A CTA holds kRb candidate rows, 2 kRb n floats of shared memory (64 KB at
-// kRb = 8, n = 1024, opted in above 48 KB); the C entry picks the largest
-// kRb in {8, 4, 2, 1} that fits (for the form asked), so any n up to
-// about 29000 runs.  r = 64 gives 8 CTAs: slow on 132 SMs, but right.
+// Design: one launch.  Each CTA owns a tile of R candidate rows x C columns
+// of U (R C = 512, 128 threads, a thread 4 rows x 1 column) and one slice
+// of k, for one study: grid (k-slices x n / C, r / R, batch).  The plan
+// (`kernels/acq.launch_plan`) splits k until the grid has about 512 CTAs:
+// R = 8, C = 64 and 4 slices of 256 rows at r = 64, n = 1024.  The kernel
+// is a template on R; one tile is compiled, the one a sweep of R = 4, 8,
+// 16 against 1-8 slices chose on the H100 (PERF.md, section 6).
+//   * A streams, nothing n-long is held: a CTA walks its k-slice in tiles
+//     of 32 rows; cp.async stages A[k-tile, its C columns], x_buf[k-tile]
+//     and amask four stages deep (16-byte copies of A where n % 4 is 0).
+//     From the staged x_buf rows the CTA computes K[its R rows, k-tile]
+//     (masked; mixed: with cat) into shared memory, one warp per 4 rows
+//     and one lane per k, and each thread adds the tile's 32 terms of its
+//     U entries (FMAs, k ascending) to its registers.  Two barriers a
+//     k-tile; no load waits on an unstaged L2 read.
+//   * Local sums: everything before dvar is linear in U, and the gradient
+//     is linear in the per-entry weight w = cdf a1 - 2 dvar a2, with
+//     a1 = alpha amask s amask and a2 = U s amask.  So over its C columns
+//     the CTA forms, per row, q = sum U K, S2 = sum a2 and V2 = sum a2
+//     x_buf (its slice's part of U) and, in slice 0 only, S1 = sum a1,
+//     V1 = sum a1 x_buf and gamma = sum K alpha (mixed: x_buf's continuous
+//     block): 2 d + 4 floats, by warp shuffles in a fixed order, then
+//     across the row group's warps in warp order.  U never leaves
+//     registers.  K and s of the CTA's own columns are recomputed there.
+//   * Two-level sum without float atomics: each CTA writes its partials to
+//     scratch, fences, and takes a ticket on the integer counter of its
+//     (study, row block).  The CTA that arrives last sums the partials of
+//     every (slice, column block) in a fixed tree order (`tree_sum`, so
+//     the result is the same on every run), then computes var, sigma, Z,
+//     EI, cdf and dvar, writes ei and grad = (cdf S1 - 2 dvar S2) x -
+//     (cdf V1 - 2 dvar V2), and sets the counter back to 0, so the
+//     scratch is ready for the next call on the stream.  No grid-wide
+//     barrier: any batch runs.
+// Shared memory is 36-40 KB a CTA whatever n is (four stages of the tile
+// and the reduction buffers), so any n that device memory holds runs.  The
+// tile (R), the k-tiles per slice and the shared bytes come from the plan;
+// the entry checks the bytes against `layout`.  Rounding differs from the
+// earlier design (shorter sums: 32-term chains of U, trees across CTAs),
+// not the math.
 // erfcf / expf / sqrtf are the accurate forms (no fast math), as the
 // parity with the reference needs; Phi is 0.5 erfc(-Z / sqrt2), which
 // keeps its lower tail where 1 + erf(Z / sqrt2) cancels to 0 and drops
 // the gradient's mean term.
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kColsPerPass = 4;  // U columns per thread per pass
+constexpr int kTileOutputs = 512;   // R x C outputs of U per CTA
+constexpr int kRows = 8;            // R of the compiled tile (C = 64)
+constexpr int kTk = 32;             // rows of A per staged k-tile
+constexpr int kStages = 4;          // cp.async ring depth
+constexpr int kMaxDynamic = 232448 - 1024;   // opt-in limit less static smem
+constexpr int kMaxDevices = 64;
 constexpr float kVarFloor = 1e-12f;
 constexpr float kSqrt2 = 1.4142135623730951f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+
+// Offsets (in floats) of the dynamic shared memory of one CTA; each block
+// starts on a 16-byte boundary.  Mirrored by kernels/acq.shared_bytes.
+struct Layout {
+  int as, xbs, ams, ks, xs, xks, cms, kms, ws, tot, total;
+};
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
+__host__ __device__ inline Layout layout(int rows, int cols, int d,
+                                         bool mixed) {
+  const int p = 2 * d + 4;
+  Layout l{};
+  int o = 0;
+  l.as = o;  o += kStages * kTk * cols;          // A tiles
+  l.xbs = o; o += kStages * round4(kTk * d);     // x_buf tiles
+  l.ams = o; o += kStages * kTk;                 // amask tiles
+  l.ks = o;  o += rows * kTk;                    // K[R, k-tile]
+  l.xs = o;  o += round4(rows * d);              // candidates (mixed: xc)
+  l.xks = o; o += mixed ? round4(rows * d) : 0;  // mixed: xk
+  l.cms = o; o += mixed ? round4(d) : 0;         // mixed: cont_mask
+  l.kms = o; o += mixed ? round4(d) : 0;         // mixed: cat_mask
+  l.ws = o;  o += kWarps * 4 * p;                // per-warp row sums
+  l.tot = o; o += rows * p;                      // the CTA's partials / totals
+  l.total = o;
+  return l;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
 
 __device__ __forceinline__ float matern_z(const float* xi, float xxi,
                                           const float* xbj, float yy, int d,
@@ -101,7 +184,57 @@ __device__ __forceinline__ void mixed_norms(const float* xbj, const float* cm,
   *ll = b;
 }
 
-template <int kRb, bool kMixed>
+// z (and, mixed, cat) of candidate row i against train row xbj.
+template <bool kMixed>
+__device__ __forceinline__ float entry_z(const float* xs, const float* xks,
+                                         const float* xx_s, const float* kk_s,
+                                         int i, const float* xbj, float yy,
+                                         float ll, const float* cms,
+                                         const float* kms, int d, float rho,
+                                         float* cat) {
+  if constexpr (kMixed) {
+    return mixed_z(xs + i * d, xks + i * d, xx_s[i], kk_s[i], xbj, yy, ll,
+                   cms, kms, d, rho, cat);
+  } else {
+    *cat = 1.f;
+    return matern_z(xs + i * d, xx_s[i], xbj, yy, d, rho);
+  }
+}
+
+template <bool kMixed>
+__device__ __forceinline__ void row_norms(const float* xbj, const float* cms,
+                                          const float* kms, int d, float* yy,
+                                          float* ll) {
+  if constexpr (kMixed) {
+    mixed_norms(xbj, cms, kms, d, yy, ll);
+  } else {
+    float a = 0.f;
+    for (int c = 0; c < d; ++c) a += xbj[c] * xbj[c];
+    *yy = a;
+    *ll = 0.f;
+  }
+}
+
+// Sum of v[0], v[stride], ..., v[(m - 1) stride] as a balanced binary tree
+// over runs of 4, in a fixed order (the same bits on every run; error
+// growing with log m, not m).  Loads bypass L1: the values come from
+// other CTAs of this launch.
+__device__ float tree_sum(const float* v, int m, size_t stride) {
+  float stack[32];
+  int top = 0;
+  for (int blk = 0; blk * 4 < m; ++blk) {
+    const int e1 = min(m, blk * 4 + 4);
+    float s = __ldcg(v + (size_t)blk * 4 * stride);
+    for (int e = blk * 4 + 1; e < e1; ++e) s += __ldcg(v + (size_t)e * stride);
+    for (int c = blk; c & 1; c >>= 1) s = stack[--top] + s;
+    stack[top++] = s;
+  }
+  float s = stack[--top];
+  while (top > 0) s = stack[--top] + s;
+  return s;
+}
+
+template <int R, bool kMixed>
 __global__ void __launch_bounds__(kThreads)
 fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
                      const float* __restrict__ amask,
@@ -113,20 +246,33 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
                      const float* __restrict__ rho_p,
                      const float* __restrict__ shift_p,
                      float* __restrict__ ei_out, float* __restrict__ grad_out,
-                     int r, int n, int d) {
-  extern __shared__ float smem[];
-  float* ks = smem;               // (kRb, n): K, later w
-  float* us = ks + kRb * n;       // (kRb, n): U
-  float* xs = us + kRb * n;       // (kRb, d): candidates (mixed: xc)
-  float* gs = xs + kRb * d;       // (kRb, d + 1): w x_buf and rowsum(w)
-  float* xks = gs + kRb * (d + 1);  // mixed only, (kRb, d): xk
-  float* cms = xks + kRb * d;       // mixed only, (d,): cont_mask
-  float* kms = cms + d;             // mixed only, (d,): cat_mask
-  __shared__ float red[kWarps][kRb];
-  __shared__ float xx_s[kRb], gam_s[kRb], cdf_s[kRb], dvar_s[kRb];
-  __shared__ float kk_s[kRb];       // mixed only: |xk_i|^2
+                     float* __restrict__ part, int* __restrict__ counters,
+                     int r, int n, int d, int tps, int vec) {
+  constexpr int C = kTileOutputs / R;
+  constexpr int kGroupWarps = C / 32;      // warps sharing a row group
+  static_assert(C % 32 == 0 && (R / 4) * C == kThreads, "tile");
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float xx_s[R], kk_s[R];
+  __shared__ int last_s;
+  const Layout lay = layout(R, C, d, kMixed);
+  float* as = smem + lay.as;
+  float* xbs = smem + lay.xbs;
+  float* ams = smem + lay.ams;
+  float* ks = smem + lay.ks;
+  float* xs = smem + lay.xs;
+  float* xks = smem + lay.xks;
+  float* cms = smem + lay.cms;
+  float* kms = smem + lay.kms;
+  float* ws = smem + lay.ws;
+  float* tot = smem + lay.tot;
+  const int xb_stride = round4(kTk * d);
+  const int P = 2 * d + 4;   // q, S1, S2, gamma, V1[d], V2[d]
 
-  const int b = blockIdx.y;
+  // blockIdx.x = k-slice * column blocks + column block.
+  const int ncb = (n + C - 1) / C, nk = (n + kTk - 1) / kTk;
+  const int cb = blockIdx.x % ncb, ksl = blockIdx.x / ncb;
+  const int rb = blockIdx.y, b = blockIdx.z;
+  const int nrb = gridDim.y, nparts = gridDim.x;
   x += (size_t)b * r * d;
   xb += (size_t)b * n * d;
   amask += (size_t)b * n;
@@ -136,25 +282,30 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
   grad_out += (size_t)b * r * d;
   const float sigma2 = sigma2_p[b], rho = rho_p[b], shift = shift_p[b];
 
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int i0 = blockIdx.x * kRb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i0 = rb * R, j0 = cb * C;
+  const int col = tid % C, rg = tid / C;   // U: rows 4 rg .. 4 rg + 3
+  const int t0 = ksl * tps, t1 = min(nk, t0 + tps);
+
+  // Candidate rows (mixed: split by the masks) and their norms.
   if constexpr (kMixed) {
     for (int c = tid; c < d; c += kThreads) {
       cms[c] = cont_mask[c];
       kms[c] = cat_mask[c];
     }
     __syncthreads();
-    for (int e = tid; e < kRb * d; e += kThreads) {
-      const float v = (i0 + e / d < r) ? x[(size_t)i0 * d + e] : 0.f;
+  }
+  for (int e = tid; e < R * d; e += kThreads) {
+    const float v = (i0 + e / d < r) ? x[(size_t)i0 * d + e] : 0.f;
+    if constexpr (kMixed) {
       xs[e] = v * cms[e % d];
       xks[e] = v * kms[e % d];
+    } else {
+      xs[e] = v;
     }
-  } else {
-    for (int e = tid; e < kRb * d; e += kThreads)
-      xs[e] = (i0 + e / d < r) ? x[(size_t)i0 * d + e] : 0.f;
   }
   __syncthreads();
-  if (tid < kRb) {
+  if (tid < R) {
     float acc = 0.f;
     for (int c = 0; c < d; ++c) acc += xs[tid * d + c] * xs[tid * d + c];
     xx_s[tid] = acc;
@@ -164,245 +315,247 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
       kk_s[tid] = acck;
     }
   }
-  __syncthreads();
 
-  // 1. K rows and gamma.
-  float part[kRb];
-#pragma unroll
-  for (int i = 0; i < kRb; ++i) part[i] = 0.f;
-  for (int j = tid; j < n; j += kThreads) {
-    const float* xbj = xb + (size_t)j * d;
-    if constexpr (kMixed) {
-      float yy, ll;
-      mixed_norms(xbj, cms, kms, d, &yy, &ll);
-      const float am = amask[j], al = alpha[j];
-#pragma unroll
-      for (int i = 0; i < kRb; ++i) {
-        float cat;
-        const float z = mixed_z(xs + i * d, xks + i * d, xx_s[i], kk_s[i],
-                                xbj, yy, ll, cms, kms, d, rho, &cat);
-        float k = sigma2 * (1.f + z + z * z / 3.f) * expf(-z);
-        k = k * cat;
-        const float km = k * am;
-        ks[i * n + j] = km;
-        part[i] += km * al;
+  // Stage k-tile t: A[k-tile, j0 .. j0 + C), x_buf and amask rows;
+  // zero-filled past n.
+  auto issue = [&](int t) {
+    const int s = (t - t0) % kStages, k0 = t * kTk;
+    float* at = as + s * kTk * C;
+    if (vec) {
+      for (int e = tid; e < kTk * C / 4; e += kThreads) {
+        const int kk = e / (C / 4), c4 = (e % (C / 4)) * 4;
+        const int k = k0 + kk, j = j0 + c4;
+        const bool ok = k < n && j < n;
+        cp_async16(at + kk * C + c4, ok ? abuf + (size_t)k * n + j : abuf,
+                   ok ? 16 : 0);
       }
     } else {
-      float yy = 0.f;
-      for (int c = 0; c < d; ++c) yy += xbj[c] * xbj[c];
-      const float am = amask[j], al = alpha[j];
-#pragma unroll
-      for (int i = 0; i < kRb; ++i) {
-        const float z = matern_z(xs + i * d, xx_s[i], xbj, yy, d, rho);
-        const float k = sigma2 * (1.f + z + z * z / 3.f) * expf(-z);
-        const float km = k * am;
-        ks[i * n + j] = km;
-        part[i] += km * al;
+      for (int e = tid; e < kTk * C; e += kThreads) {
+        const int k = k0 + e / C, j = j0 + e % C;
+        const bool ok = k < n && j < n;
+        cp_async4(at + e, ok ? abuf + (size_t)k * n + j : abuf, ok ? 4 : 0);
       }
     }
-  }
-#pragma unroll
-  for (int i = 0; i < kRb; ++i) {
-    const float v = repro::warp_sum(part[i]);
-    if (lane == 0) red[w][i] = v;
-  }
-  __syncthreads();
-  if (tid < kRb) {
-    float g = 0.f;
-    for (int q = 0; q < kWarps; ++q) g += red[q][tid];
-    gam_s[tid] = g + shift;
-  }
-  __syncthreads();
+    float* xt = xbs + s * xb_stride;
+    const size_t lim = (size_t)n * d;
+    for (int e = tid; e < kTk * d; e += kThreads) {
+      const size_t idx = (size_t)k0 * d + e;
+      cp_async4(xt + e, idx < lim ? xb + idx : xb, idx < lim ? 4 : 0);
+    }
+    if (tid < kTk) {
+      const int k = k0 + tid;
+      cp_async4(ams + s * kTk + tid, k < n ? amask + k : amask, k < n ? 4 : 0);
+    }
+  };
 
-  // 2. U = K A and rowsum(U o K).
+  for (int t = t0; t < t0 + kStages - 1; ++t) {
+    if (t < t1) issue(t);
+    cp_async_commit();
+  }
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};   // this slice's U[4 rg + q, j0 + col]
+  for (int t = t0; t < t1; ++t) {
+    const int s = (t - t0) % kStages;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // tile t landed; every thread is done with t - 1
+    if (t + kStages - 1 < t1) issue(t + kStages - 1);
+    cp_async_commit();
+    {  // K[R, k-tile]: lane = k, warp w takes rows w, w + 4, ...
+      const float* xbk = xbs + s * xb_stride + lane * d;
+      const float am = ams[s * kTk + lane];
+      float yy, ll;
+      row_norms<kMixed>(xbk, cms, kms, d, &yy, &ll);
 #pragma unroll
-  for (int i = 0; i < kRb; ++i) part[i] = 0.f;
-  for (int jb = 0; jb < n; jb += kThreads * kColsPerPass) {
-    float acc[kColsPerPass][kRb];
+      for (int m = 0; m < R / 4; ++m) {
+        const int i = warp + 4 * m;
+        float cat;
+        const float z = entry_z<kMixed>(xs, xks, xx_s, kk_s, i, xbk, yy, ll,
+                                        cms, kms, d, rho, &cat);
+        float k = sigma2 * (1.f + z + z * z / 3.f) * expf(-z);
+        if constexpr (kMixed) k = k * cat;
+        ks[i * kTk + lane] = k * am;
+      }
+    }
+    __syncthreads();
+    const float* at = as + s * kTk * C + col;
+    const float* kr = ks + 4 * rg * kTk;
+    float u[4] = {0.f, 0.f, 0.f, 0.f};   // this k-tile's terms
 #pragma unroll
-    for (int q = 0; q < kColsPerPass; ++q)
+    for (int kk = 0; kk < kTk; kk += 4) {
+      float a[4];
 #pragma unroll
-      for (int i = 0; i < kRb; ++i) acc[q][i] = 0.f;
-    for (int k = 0; k < n; ++k) {
-      const float* arow = abuf + (size_t)k * n + jb + tid;
-      float av[kColsPerPass];
+      for (int e = 0; e < 4; ++e) a[e] = at[(kk + e) * C];
 #pragma unroll
-      for (int q = 0; q < kColsPerPass; ++q)
-        av[q] = (jb + tid + q * kThreads < n) ? arow[q * kThreads] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kRb; ++i) {
-        const float kv = ks[i * n + k];
-#pragma unroll
-        for (int q = 0; q < kColsPerPass; ++q) acc[q][i] += kv * av[q];
+      for (int q = 0; q < 4; ++q) {
+        const float4 kv = *reinterpret_cast<const float4*>(kr + q * kTk + kk);
+        u[q] = fmaf(kv.x, a[0], u[q]);
+        u[q] = fmaf(kv.y, a[1], u[q]);
+        u[q] = fmaf(kv.z, a[2], u[q]);
+        u[q] = fmaf(kv.w, a[3], u[q]);
       }
     }
 #pragma unroll
-    for (int q = 0; q < kColsPerPass; ++q) {
-      const int j = jb + tid + q * kThreads;
-      if (j < n) {
+    for (int q = 0; q < 4; ++q) acc[q] += u[q];
+  }
+
+  // Local sums over this CTA's columns.  Column j's K and s are recomputed
+  // from x_buf[j] (the same arithmetic as the streamed K).  The terms that
+  // do not depend on U (S1, V1, gamma) come from k-slice 0 only.
+  const int j = j0 + col;
+  const bool jv = j < n, first = ksl == 0;
+  const float amj = jv ? amask[j] : 0.f;
+  const float alj = jv && first ? alpha[j] : 0.f;
+  const float* xbj = xb + (size_t)(jv ? j : 0) * d;
+  const float sfac = -sigma2 * (5.f / (3.f * rho * rho));
+  float yy, ll;
+  row_norms<kMixed>(xbj, cms, kms, d, &yy, &ll);
+  float q[4], a1[4], a2[4], g[4];
 #pragma unroll
-        for (int i = 0; i < kRb; ++i) {
-          us[i * n + j] = acc[q][i];
-          part[i] += acc[q][i] * ks[i * n + j];
-        }
-      }
+  for (int e = 0; e < 4; ++e) {
+    float cat;
+    const float z = entry_z<kMixed>(xs, xks, xx_s, kk_s, 4 * rg + e, xbj, yy,
+                                    ll, cms, kms, d, rho, &cat);
+    float k = sigma2 * (1.f + z + z * z / 3.f) * expf(-z);
+    if constexpr (kMixed) k = k * cat;
+    const float km = k * amj;
+    const float s_am = sfac * (1.f + z) * expf(-z) * cat * amj;
+    q[e] = acc[e] * km;
+    a1[e] = (alj * amj) * s_am;
+    a2[e] = acc[e] * s_am;
+    g[e] = km * alj;
+  }
+  float* wrow = ws + warp * 4 * P;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float vq = repro::warp_sum(q[e]);
+    const float v1 = repro::warp_sum(a1[e]);
+    const float v2 = repro::warp_sum(a2[e]);
+    const float vg = repro::warp_sum(g[e]);
+    if (lane == 0) {
+      wrow[e * P] = vq;
+      wrow[e * P + 1] = v1;
+      wrow[e * P + 2] = v2;
+      wrow[e * P + 3] = vg;
     }
   }
+  for (int c = 0; c < d; ++c) {
+    float xv = xbj[c];
+    if constexpr (kMixed) xv = xv * cms[c];
 #pragma unroll
-  for (int i = 0; i < kRb; ++i) {
-    const float v = repro::warp_sum(part[i]);
-    if (lane == 0) red[w][i] = v;
+    for (int e = 0; e < 4; ++e) {
+      const float v1 = repro::warp_sum(a1[e] * xv);
+      const float v2 = repro::warp_sum(a2[e] * xv);
+      if (lane == 0) {
+        wrow[e * P + 4 + c] = v1;
+        wrow[e * P + 4 + d + c] = v2;
+      }
+    }
   }
   __syncthreads();
+  // Partials in (study, row block, k-slice, column block) order.
+  float* prow = part + (size_t)(b * nrb + rb) * nparts * R * P;
+  float* pcta = prow + (size_t)blockIdx.x * R * P;
+  for (int e = tid; e < R * P; e += kThreads) {
+    const int i = e / P, p = e % P;
+    const float* w0 = ws + ((i / 4) * kGroupWarps * 4 + i % 4) * P + p;
+    float v = w0[0];
+    for (int w2 = 1; w2 < kGroupWarps; ++w2) v += w0[w2 * 4 * P];
+    pcta[e] = v;
+  }
 
-  // 3. var, EI, dvar per row.
-  if (tid < kRb) {
-    float quad = 0.f;
-    for (int q = 0; q < kWarps; ++q) quad += red[q][tid];
-    const float raw_var = sigma2 - quad;
+  // Ticket: the last CTA of the (study, row block) finishes its rows.
+  __threadfence();
+  __syncthreads();
+  int* counter = counters + b * nrb + rb;
+  if (tid == 0) last_s = atomicAdd(counter, 1) == nparts - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  for (int e = tid; e < R * P; e += kThreads)
+    tot[e] = tree_sum(prow + e, nparts, (size_t)R * P);
+  __syncthreads();
+  if (tid < R && i0 + tid < r) {
+    const float* tr = tot + tid * P;
+    const float raw_var = sigma2 - tr[0];
     const float var = fmaxf(raw_var, kVarFloor);
     const float sig = sqrtf(var);
-    const float gam = gam_s[tid];
+    const float gam = tr[3] + shift;
     const float zs = gam / fmaxf(sig, 1e-12f);
     const float cdf = 0.5f * erfcf(-zs / kSqrt2);  // accurate lower tail
     const float pdf = expf(-0.5f * zs * zs) * kInvSqrt2Pi;
-    if (i0 + tid < r) ei_out[i0 + tid] = fmaxf(gam * cdf + sig * pdf, 0.f);
-    cdf_s[tid] = cdf;
-    dvar_s[tid] = raw_var > kVarFloor ? pdf / (2.f * sig) : 0.f;
+    ei_out[i0 + tid] = fmaxf(gam * cdf + sig * pdf, 0.f);
+    const float dvar = raw_var > kVarFloor ? pdf / (2.f * sig) : 0.f;
+    const float rs = cdf * tr[1] - 2.f * dvar * tr[2];
+    for (int c = 0; c < d; ++c)
+      grad_out[(size_t)(i0 + tid) * d + c] =
+          rs * xs[tid * d + c] - (cdf * tr[4 + c] - 2.f * dvar * tr[4 + d + c]);
   }
-  __syncthreads();
-
-  // w = (cdf alpha amask - 2 dvar U) s amask, into the K rows.
-  const float sfac = -sigma2 * (5.f / (3.f * rho * rho));
-  for (int j = tid; j < n; j += kThreads) {
-    const float* xbj = xb + (size_t)j * d;
-    if constexpr (kMixed) {
-      float yy, ll;
-      mixed_norms(xbj, cms, kms, d, &yy, &ll);
-      const float am = amask[j], al = alpha[j];
-#pragma unroll
-      for (int i = 0; i < kRb; ++i) {
-        float cat;
-        const float z = mixed_z(xs + i * d, xks + i * d, xx_s[i], kk_s[i],
-                                xbj, yy, ll, cms, kms, d, rho, &cat);
-        const float s = sfac * (1.f + z) * expf(-z) * cat;
-        const float c = cdf_s[i] * (al * am) - 2.f * dvar_s[i] * us[i * n + j];
-        ks[i * n + j] = c * s * am;
-      }
-    } else {
-      float yy = 0.f;
-      for (int c = 0; c < d; ++c) yy += xbj[c] * xbj[c];
-      const float am = amask[j], al = alpha[j];
-#pragma unroll
-      for (int i = 0; i < kRb; ++i) {
-        const float z = matern_z(xs + i * d, xx_s[i], xbj, yy, d, rho);
-        const float s = sfac * (1.f + z) * expf(-z);
-        const float c = cdf_s[i] * (al * am) - 2.f * dvar_s[i] * us[i * n + j];
-        ks[i * n + j] = c * s * am;
-      }
-    }
-  }
-  __syncthreads();
-
-  // 4. Gradient: pair p = (row i, feature c); c == d is rowsum(w).  The
-  // mixed form takes w xbc (the train rows' continuous block) and xc, so
-  // its gradient is 0 on the categorical coordinates.
-  for (int p = w; p < kRb * (d + 1); p += kWarps) {
-    const int i = p / (d + 1), c = p % (d + 1);
-    float acc = 0.f;
-    if constexpr (kMixed) {
-      const float cmc = c < d ? cms[c] : 1.f;
-      for (int j = lane; j < n; j += 32) {
-        const float wv = ks[i * n + j];
-        acc += (c < d) ? wv * (xb[(size_t)j * d + c] * cmc) : wv;
-      }
-    } else {
-      for (int j = lane; j < n; j += 32) {
-        const float wv = ks[i * n + j];
-        acc += (c < d) ? wv * xb[(size_t)j * d + c] : wv;
-      }
-    }
-    acc = repro::warp_sum(acc);
-    if (lane == 0) gs[p] = acc;
-  }
-  __syncthreads();
-  for (int e = tid; e < kRb * d; e += kThreads) {
-    const int i = e / d, c = e % d;
-    if (i0 + i < r)
-      grad_out[(size_t)(i0 + i) * d + c] =
-          gs[i * (d + 1) + d] * xs[e] - gs[i * (d + 1) + c];
-  }
+  if (tid == 0) *counter = 0;
 }
 
-template <int kRb>
-size_t smem_bytes(int n, int d, bool mixed) {
-  return sizeof(float) * ((size_t)2 * kRb * n + (size_t)kRb * d +
-                          (size_t)kRb * (d + 1) +
-                          (mixed ? (size_t)kRb * d + 2 * (size_t)d : 0));
-}
+struct Args {
+  const float *x, *xb, *amask, *alpha, *abuf, *cont_mask, *cat_mask;
+  const float *sigma2, *rho, *shift;
+  float *ei, *grad, *part;
+  int* counters;
+  int batch, r, n, d, tps, shared;
+};
 
-template <int kRb, bool kMixed>
-int launch(const float* x, const float* xb, const float* amask,
-           const float* alpha, const float* abuf, const float* cont_mask,
-           const float* cat_mask, const float* sigma2, const float* rho,
-           const float* shift, float* ei, float* grad, int batch, int r,
-           int n, int d, cudaStream_t st) {
-  const size_t bytes = smem_bytes<kRb>(n, d, kMixed);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ei_grad_kernel<kRb, kMixed>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+template <int R, bool kMixed>
+int launch(const Args& a, cudaStream_t st) {
+  // The opt-in shared memory limit, set once per device.
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((r + kRb - 1) / kRb, batch);
-  fused_ei_grad_kernel<kRb, kMixed><<<grid, kThreads, bytes, st>>>(
-      x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho, shift, ei,
-      grad, r, n, d);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(fused_ei_grad_kernel<R, kMixed>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxDynamic);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set[dev] = true;
+  }
+  constexpr int C = kTileOutputs / R;
+  const int nk = (a.n + kTk - 1) / kTk;
+  const dim3 grid((a.n + C - 1) / C * ((nk + a.tps - 1) / a.tps),
+                  (a.r + R - 1) / R, a.batch);
+  const int vec = a.n % 4 == 0 && reinterpret_cast<uintptr_t>(a.abuf) % 16 == 0;
+  fused_ei_grad_kernel<R, kMixed><<<grid, kThreads, a.shared, st>>>(
+      a.x, a.xb, a.amask, a.alpha, a.abuf, a.cont_mask, a.cat_mask, a.sigma2,
+      a.rho, a.shift, a.ei, a.grad, a.part, a.counters, a.r, a.n, a.d, a.tps,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kMixed>
-int launch_rows(const float* x, const float* xb, const float* amask,
-                const float* alpha, const float* abuf, const float* cont_mask,
-                const float* cat_mask, const float* sigma2, const float* rho,
-                const float* shift, float* ei, float* grad, int batch, int r,
-                int n, int d, int rows, cudaStream_t st) {
-  switch (rows) {
-    case 8: return launch<8, kMixed>(x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
-    case 4: return launch<4, kMixed>(x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
-    case 2: return launch<2, kMixed>(x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
-    case 1: return launch<1, kMixed>(x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho, shift, ei, grad, batch, r, n, d, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch_rows(const Args& a, int rows, cudaStream_t st) {
+  if (a.batch == 0 || a.r == 0) return 0;
+  if (rows != kRows) return static_cast<int>(cudaErrorInvalidValue);
+  const int want = static_cast<int>(
+      sizeof(float) * layout(rows, kTileOutputs / rows, a.d, kMixed).total);
+  if (a.n < 1 || a.d < 1 || a.tps < 1 || a.batch > 65535 ||
+      (a.r + rows - 1) / rows > 65535 || a.shared != want ||
+      a.shared > kMaxDynamic)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<kRows, kMixed>(a, st);
 }
 
 }  // namespace
 
-// Candidate rows per CTA for (n, d) and the form (mixed != 0: the mixed
-// form's larger shared memory): 8, 4, 2 or 1, or 0 if none fits.
-REPRO_EXPORT int repro_fused_ei_rows(int n, int d, int mixed) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  const size_t limit = static_cast<size_t>(optin) - 1024;  // static smem
-  const bool mx = mixed != 0;
-  if (smem_bytes<8>(n, d, mx) <= limit) return 8;
-  if (smem_bytes<4>(n, d, mx) <= limit) return 4;
-  if (smem_bytes<2>(n, d, mx) <= limit) return 2;
-  if (smem_bytes<1>(n, d, mx) <= limit) return 1;
-  return 0;
-}
-
-REPRO_EXPORT int repro_fused_ei_grad(const float* x, const float* xb,
-                                     const float* amask, const float* alpha,
-                                     const float* abuf, const float* sigma2,
-                                     const float* rho, const float* shift,
-                                     float* ei, float* grad, int batch, int r,
-                                     int n, int d, int rows, void* stream) {
-  if (batch == 0 || r == 0) return 0;
-  return launch_rows<false>(x, xb, amask, alpha, abuf, nullptr, nullptr,
-                            sigma2, rho, shift, ei, grad, batch, r, n, d, rows,
-                            static_cast<cudaStream_t>(stream));
+// The float form.  `rows` is the tile's candidate rows (the compiled
+// kRows; the tile has 512 / rows columns), `tps` the k-tiles a CTA walks
+// and `shared` its dynamic shared bytes, all from kernels/acq.launch_plan;
+// `part` and `counters` are the call's scratch (partials of every CTA;
+// one int per (study, row block), 0 on entry and left 0).
+REPRO_EXPORT int repro_fused_ei_grad(
+    const float* x, const float* xb, const float* amask, const float* alpha,
+    const float* abuf, const float* sigma2, const float* rho,
+    const float* shift, float* ei, float* grad, float* part, int* counters,
+    int batch, int r, int n, int d, int rows, int tps, int shared,
+    void* stream) {
+  const Args a{x, xb, amask, alpha, abuf, nullptr, nullptr, sigma2, rho,
+               shift, ei, grad, part, counters, batch, r, n, d, tps, shared};
+  return launch_rows<false>(a, rows, static_cast<cudaStream_t>(stream));
 }
 
 // The mixed form: as repro_fused_ei_grad, plus the (d,) type masks shared
@@ -411,10 +564,10 @@ REPRO_EXPORT int repro_fused_ei_grad_mixed(
     const float* x, const float* xb, const float* cont_mask,
     const float* cat_mask, const float* amask, const float* alpha,
     const float* abuf, const float* sigma2, const float* rho,
-    const float* shift, float* ei, float* grad, int batch, int r, int n,
-    int d, int rows, void* stream) {
-  if (batch == 0 || r == 0) return 0;
-  return launch_rows<true>(x, xb, amask, alpha, abuf, cont_mask, cat_mask,
-                           sigma2, rho, shift, ei, grad, batch, r, n, d, rows,
-                           static_cast<cudaStream_t>(stream));
+    const float* shift, float* ei, float* grad, float* part, int* counters,
+    int batch, int r, int n, int d, int rows, int tps, int shared,
+    void* stream) {
+  const Args a{x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho,
+               shift, ei, grad, part, counters, batch, r, n, d, tps, shared};
+  return launch_rows<true>(a, rows, static_cast<cudaStream_t>(stream));
 }

@@ -23,8 +23,20 @@ float or the mixed instantiation of `csrc/acq.cu`, each with its own
 launch counter; the mixed kernel splits the rows as it loads them) and
 `ei_grad_torch` for CPU tensors.  Not differentiable: the gradient is an
 output.
+
+On the card a call is one launch: each CTA owns a tile of 8 candidate rows
+x 64 columns of U and a slice of k for one study (`launch_plan`), writes
+its partial row sums to scratch, and the last CTA of each row block sums
+them in a fixed order and finishes the rows.  The scratch (partials and one
+ticket counter per row block) is kept per device and stream and grows as
+needed; the kernel leaves the counters at 0, so a call allocates nothing
+but its outputs.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
+import math
 
 import torch
 
@@ -36,12 +48,21 @@ SOURCE = "acq"
 LAUNCHES = 0        # float-form launches since the caller last set it to 0
 LAUNCHES_MIXED = 0  # mixed-form launches, counted apart
 _SIGNATURES = {
-    "repro_fused_ei_grad": (_build.ptr,) * 10 + (_build.cint,) * 5
+    "repro_fused_ei_grad": (_build.ptr,) * 12 + (_build.cint,) * 7
     + (_build.ptr,),
-    "repro_fused_ei_grad_mixed": (_build.ptr,) * 12 + (_build.cint,) * 5
+    "repro_fused_ei_grad_mixed": (_build.ptr,) * 14 + (_build.cint,) * 7
     + (_build.ptr,),
-    "repro_fused_ei_rows": (_build.cint,) * 3,
 }
+# csrc/acq.cu: a CTA of 128 threads owns ROWS candidate rows x 512 / ROWS
+# columns of U (the compiled tile, kRows) and walks its k-slice in tiles of
+# 32 rows, staged 4 deep.
+WARPS, TILE_OUTPUTS, TK, STAGES = 4, 512, 32, 4
+ROWS = 8
+TARGET_CTAS = 512          # about 4 CTAs an SM on an H100's 132
+MIN_SLICE_TILES = 4
+MAX_SHARED = 232448 - 1024     # opt-in shared memory less the static part
+# (device index, stream) -> (partials, counters), kept across calls.
+_SCRATCH: dict[tuple[int, int], tuple[Tensor, Tensor]] = {}
 
 # Variance clamp shared with `gp.posterior`: the fused gradient mirrors
 # autodiff of this exact floor.
@@ -117,17 +138,103 @@ def split_rows(x: Tensor, x_buf: Tensor, cont_mask: Tensor,
     return x * cm, x_buf * cm, x * km, x_buf * km
 
 
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call of `csrc/acq.cu` is cut: each CTA owns `rows` candidate
+    rows x `cols` columns of U for one study and a slice of
+    `tiles_per_slice` k-tiles of 32 rows."""
+    rows: int                      # R, candidate rows per CTA
+    cols: int                      # C = TILE_OUTPUTS / R, columns of U per CTA
+    tiles_per_slice: int           # k-tiles a CTA walks
+    slices: int                    # k-slices per column block
+    grid: tuple[int, int, int]     # (slices x column blocks, row blocks, studies)
+    shared_bytes: int              # dynamic shared memory of one CTA
+    partial_floats: int            # scratch: every CTA's (R, 2 d + 4) sums
+    counters: int                  # scratch: one int per (study, row block)
+
+
+def shared_bytes(d: int, mixed: bool) -> int:
+    """Dynamic shared memory of one CTA: `layout` in `csrc/acq.cu` (each
+    block rounded up to 16 bytes).  Independent of n."""
+    def r4(v):
+        return -(-v // 4) * 4
+    p = 2 * d + 4
+    floats = (STAGES * TK * (TILE_OUTPUTS // ROWS) + STAGES * r4(TK * d)
+              + STAGES * TK + ROWS * TK + r4(ROWS * d)
+              + (r4(ROWS * d) + 2 * r4(d) if mixed else 0)
+              + WARPS * 4 * p + ROWS * p)
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(batch: int, r: int, n: int, d: int, mixed: bool) -> LaunchPlan:
+    """The tile, grid, shared bytes and scratch of one call on `batch`
+    studies of r candidates against n train rows of width d: the single
+    source of these numbers for the wrapper and the C entry.  k is split
+    until the grid has about `TARGET_CTAS` CTAs, with at least
+    `MIN_SLICE_TILES` k-tiles a slice."""
+    if min(batch, r, n, d) < 1:
+        raise ValueError(f"fused EI launch plan needs batch, r, n, d >= 1, "
+                         f"got {batch}, {r}, {n}, {d}")
+    rows, cols = ROWS, TILE_OUTPUTS // ROWS
+    col_blocks, row_blocks, k_tiles = -(-n // cols), -(-r // rows), -(-n // TK)
+    if row_blocks > 65535 or batch > 65535:
+        raise ValueError(f"fused EI kernel: r = {r} in tiles of {rows} rows and "
+                         f"{batch} studies exceed the grid")
+    slices = min(-(-TARGET_CTAS // (col_blocks * row_blocks * batch)),
+                 max(1, k_tiles // MIN_SLICE_TILES))
+    tps = -(-k_tiles // slices)
+    slices = -(-k_tiles // tps)          # no empty slice
+    smem = shared_bytes(d, mixed)
+    if smem > MAX_SHARED:
+        raise ValueError(f"fused EI kernel: d = {d} needs {smem} bytes of "
+                         f"shared memory, more than {MAX_SHARED}")
+    grid = (slices * col_blocks, row_blocks, batch)
+    return LaunchPlan(rows=rows, cols=cols, tiles_per_slice=tps, slices=slices,
+                      grid=grid, shared_bytes=smem,
+                      partial_floats=grid[0] * row_blocks * batch * rows * (2 * d + 4),
+                      counters=row_blocks * batch)
+
+
+def _scratch(dev: torch.device, stream: int, plan: LaunchPlan
+             ) -> tuple[Tensor, Tensor]:
+    """This device and stream's scratch (partials, counters), grown to the
+    plan's size.  The counters are zeroed when they are allocated and the
+    kernel leaves them 0, so calls in stream order share them."""
+    key = (dev.index, stream)
+    part, counters = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < plan.partial_floats:
+        part = torch.empty(plan.partial_floats, dtype=torch.float32, device=dev)
+    if counters is None or counters.numel() < plan.counters:
+        counters = torch.zeros(plan.counters, dtype=torch.int32, device=dev)
+    _SCRATCH[key] = (part, counters)
+    return part, counters
+
+
+def _scalar(v, lead: tuple, dev: torch.device) -> Tensor:
+    """A per-study scalar operand as a contiguous float32 (*lead) tensor on
+    `dev`: a device tensor of that shape is used as it is (no copy)."""
+    if isinstance(v, Tensor) and v.device == dev:
+        if v.dtype == torch.float32 and v.shape == lead and v.is_contiguous():
+            return v
+        return v.to(torch.float32).expand(lead).contiguous()
+    if isinstance(v, Tensor):
+        return v.to(dev, torch.float32).expand(lead).contiguous()
+    return torch.full(lead, float(v), dtype=torch.float32, device=dev)
+
+
 def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
             alpha: Tensor, a_buf: Tensor, sigma2, rho, shift,
-            masks: tuple[Tensor, ...]) -> tuple[Tensor, Tensor]:
+            masks: tuple[Tensor, ...]) -> tuple[tuple[Tensor, Tensor], bool]:
     """Check the operands and launch C entry `entry` (the masks, if any,
-    go right after x_buf)."""
+    go right after x_buf).  Returns ((ei, grad), whether it launched)."""
     dev = x.device
     ops_ = (x, x_buf, amask, alpha, a_buf, *masks)
-    if dev.type != "cuda" or any(t.device != dev for t in ops_):
-        raise ValueError("fused EI kernel needs CUDA tensors on one device")
-    if any(t.dtype != torch.float32 for t in ops_):
-        raise TypeError("fused EI kernel takes float32")
+    for t in ops_:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError("fused EI kernel needs CUDA tensors on one device")
+        if t.dtype != torch.float32:
+            raise TypeError("fused EI kernel takes float32")
     lead = x_buf.shape[:-2]
     r, d = x.shape[-2:]
     n = x_buf.shape[-2]
@@ -140,25 +247,29 @@ def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
             f"{tuple(x_buf.shape)}, amask {tuple(amask.shape)}, alpha "
             f"{tuple(alpha.shape)}, a_buf {tuple(a_buf.shape)}, masks "
             f"{[tuple(m.shape) for m in masks]}")
-    batch = x_buf[..., 0, 0].numel()
-    if batch > 65535:
-        raise ValueError(f"fused EI kernel takes at most 65535 studies, got {batch}")
+    batch = math.prod(lead)
+    # ei and grad share one allocation (two contiguous views).
+    out = torch.empty(batch * r * (d + 1), dtype=torch.float32, device=dev)
+    ei = out[:batch * r].view(*lead, r)
+    grad = out[batch * r:].view(*lead, r, d)
+    if batch == 0 or r == 0:
+        return (ei, grad), False
+    plan = launch_plan(batch, r, n, d, bool(masks))
     lib = _build.load(SOURCE, _SIGNATURES)
-    rows = lib.repro_fused_ei_rows(n, d, int(bool(masks)))
-    if rows == 0:
-        raise ValueError(f"fused EI kernel: n={n}, d={d} exceeds shared memory")
-    scal = [torch.as_tensor(v, dtype=torch.float32, device=dev)
-            .expand(lead).contiguous() for v in (sigma2, rho, shift)]
+    scal = [_scalar(v, lead, dev) for v in (sigma2, rho, shift)]
     x, x_buf, amask, alpha, a_buf, *masks = (t.contiguous() for t in ops_)
-    ei = torch.empty((*lead, r), dtype=torch.float32, device=dev)
-    grad = torch.empty((*lead, r, d), dtype=torch.float32, device=dev)
+    # The current stream's handle, without building a Python Stream object
+    # (the public `torch.cuda.current_stream(dev)` costs several us a call).
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    part, counters = _scratch(dev, stream, plan)
     status = getattr(lib, entry)(
         x.data_ptr(), x_buf.data_ptr(), *(m.data_ptr() for m in masks),
         amask.data_ptr(), alpha.data_ptr(), a_buf.data_ptr(),
         *(s.data_ptr() for s in scal), ei.data_ptr(), grad.data_ptr(),
-        batch, r, n, d, rows, torch.cuda.current_stream(dev).cuda_stream)
+        part.data_ptr(), counters.data_ptr(), batch, r, n, d, plan.rows,
+        plan.tiles_per_slice, plan.shared_bytes, stream)
     _build.check(lib, status, entry)
-    return ei, grad
+    return (ei, grad), True
 
 
 def fused_ei_grad_cuda(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
@@ -166,9 +277,9 @@ def fused_ei_grad_cuda(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
                        ) -> tuple[Tensor, Tensor]:
     """Launch the float form; shapes as `ei_grad_torch`, float32 CUDA."""
     global LAUNCHES
-    out = _launch("repro_fused_ei_grad", x, x_buf, amask, alpha, a_buf,
-                  sigma2, rho, shift, ())
-    LAUNCHES += 1
+    out, launched = _launch("repro_fused_ei_grad", x, x_buf, amask, alpha,
+                            a_buf, sigma2, rho, shift, ())
+    LAUNCHES += launched
     return out
 
 
@@ -180,9 +291,10 @@ def fused_ei_grad_mixed_cuda(x: Tensor, x_buf: Tensor, amask: Tensor,
     (d,) type masks; float32 CUDA.  Computes `ei_grad_torch` of
     `split_rows(x, x_buf, cont_mask, cat_mask)`."""
     global LAUNCHES_MIXED
-    out = _launch("repro_fused_ei_grad_mixed", x, x_buf, amask, alpha, a_buf,
-                  sigma2, rho, shift, (cont_mask, cat_mask))
-    LAUNCHES_MIXED += 1
+    out, launched = _launch("repro_fused_ei_grad_mixed", x, x_buf, amask,
+                            alpha, a_buf, sigma2, rho, shift,
+                            (cont_mask, cat_mask))
+    LAUNCHES_MIXED += launched
     return out
 
 

@@ -10,7 +10,9 @@ backward solve reruns the same kernel with `trans` flipped:
     q = L^{-T} b :  b_bar = L^{-1} q_bar,  L_bar = -tril(q b_bar^T)
 
 `tri_inverse(l)` is the solve at b = I, X = L^{-1}, on its own kernel
-(`repro_tri_inverse`), which skips the zero half of X and takes no b.  Its
+(`repro_tri_inverse`), which skips the zero half of X and takes no b; it
+holds a panel of X in shared memory, so beyond `MAX_N` the card takes the
+general kernel at b = I instead (`inverse_entry`, the same bits).  Its
 VJP is the one above at b = I: L_bar = -tril(L^{-T} X_bar X^T).  Both
 kernels count their launches in `LAUNCHES`.
 """
@@ -143,9 +145,20 @@ def trsv(l: Tensor, b: Tensor, *, trans: bool = False) -> Tensor:
     return _Trsv.apply(l, b, trans)
 
 
+def inverse_entry(n: int) -> str:
+    """The kernel that computes L X = I at size n on the card: the L X = I
+    kernel up to `MAX_N`, beyond it the general solve at B = I, which has
+    no size limit and gives the same bits."""
+    return "tri_inverse" if n <= MAX_N else "trsv"
+
+
 def _inverse(l: Tensor) -> Tensor:
     if l.device.type == "cuda":
-        return tri_inverse_cuda(l)
+        n = l.shape[-1]
+        if inverse_entry(n) == "tri_inverse":
+            return tri_inverse_cuda(l)
+        eye = torch.eye(n, dtype=l.dtype, device=l.device)
+        return trsv_cuda(l, eye.expand(l.shape).contiguous())
     if l.device.type == "cpu":
         return ref.tri_inverse(l)
     raise ValueError(f"no tri_inverse for device {l.device}")
