@@ -33,12 +33,29 @@ Phases, each printing one JSON line:
                instantiation); the mixed form's accuracy spread over
                seeds (informational); L X = I at n = 6144 through
                `trsv.tri_inverse`, past the L X = I kernel's limit, on the
-               general kernel, within TOL_TRSV_RESID.
+               general kernel, within TOL_TRSV_RESID.  Both grams
+               (`gram_checks`) at the 1024^2 Gram, the 1024 x 1 column,
+               the lag refit's batch of 18 masked Grams over one state in
+               one launch (Levy-5d and the mixed workload, n = 960), a
+               batch of 3 studies with distinct x, n (1024, 500, 1) and
+               parameters, and ragged n = 1000 against m = 7 and itself at
+               d = 1 and 33: each held to its plain version, each batch
+               torch.equal to its single launches, each symmetric build to
+               its transpose, each masked build exactly K padded by the
+               identity; digests of the Gram, the column and the batch
+               cross-checked against `gram_digests` (the loop of single
+               builds, through entry points the parent tree also has:
+               imported by path with PYTHONPATH of an unpacked parent's
+               `src`, it prints the parent's digests for an A/B of K's
+               bits); times beside the bound, the plain version and, for
+               the batch, `grid_grams`' loop of 18 (`gram_loop_ms` times
+               that loop alone, on either tree).
   4. main    — `run_bo` on Levy-5d at full width (n_max = 1024, 64 restarts
                x 25 ascent steps, 960 seed points, 48 rounds, lag 32).  Every
                launch counter is set to 0 just before and read just after;
                each kernel must have run the number of times the path
-               implies.  Suggestions in bounds, best value finite, at least
+               implies (`expected_counts`: 51 grams, 3 factors, 3 solves,
+               1248 fused EI).  Suggestions in bounds, best value finite, at least
                one suggestion with a positive EI (the count of those with
                EI 0 is printed), and the final factor and inverse
                consistent with the Gram.
@@ -55,8 +72,12 @@ Phases, each printing one JSON line:
                which must be one device kernel (beside the wrapper's copy
                and the scratch memset), with the launch plan; one L X = I
                call of each shape, each exactly one device kernel; one
-               lag event on the Levy-5d state by device time per kernel;
-               one call of each fused-EI form, each exactly one device
+               lag event on the Levy-5d state by device time per kernel,
+               with the gram's device ms, the event's device kernels, its
+               span and busy time; the lag refit's batch of 18 masked
+               Grams, the refactor's masked Gram and the append's column
+               of each form, each exactly one device kernel; one
+               call of each fused-EI form, each exactly one device
                kernel, whose device ms go beside its event ms.
                Nothing is profiled before the paths' timings are taken.
 Then the `{"kernels": [...]}` line, the nvidia-smi line and, last,
@@ -345,6 +366,243 @@ def grid_grams(st, kern):
             sigma2=torch.tensor(s2, device=dev),
             rho=torch.tensor(rho, device=dev), noise2=st.params.noise2))
         for rho in GRID_RHO for s2 in GRID_SIGMA2])
+
+
+def gram_forms(dev) -> dict:
+    """The gram checks' inputs, one entry per form, each from its own
+    generator: the kernels phase's (1024, 5) points (seed 0, its first
+    draw) and the Levy-5d state drawn next, or the mixed workload's
+    (1024, 6) lattice points and its state (seed 6); the column is row 7
+    (Matérn: shifted by 0.01); the initial parameters.  Each entry holds
+    the tagged kernel function, the CUDA wrapper, its masked form and the
+    plain version, the last three with the (d,) masks bound for mixed."""
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.core.kernels import KernelParams, matern52
+    from repro_torch.kernels import matern, mixed, ref
+    params = KernelParams(sigma2=SIGMA2, rho=RHO0, noise2=NOISE2).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    x = torch.rand((N_MAX, DIM), generator=gen, device=dev)
+    st, _ = levy_state(dev, gen)
+    forms = {"matern52_gram": dict(
+        x=x, col=x[7:8] + 0.01, state=st, kern=matern52, params=params,
+        cuda=matern.matern52_gram_cuda,
+        masked=lambda *a: matern.masked_gram_cuda(*a),
+        plain=ref.matern52_gram, masks=lambda d: ())}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    desc = mixed_space().descriptor().to(dev)
+    xm = project_units(torch.rand((N_MAX, MIXED_DIM), generator=gen,
+                                  device=dev), desc)
+    mst, mkern, _ = mixed_state(dev, gen)
+
+    def mixed_masks(d):
+        """(d,) masks for a ragged width: the space's own at d = 6, else
+        the first two thirds continuous and the rest categorical."""
+        if d == MIXED_DIM:
+            return desc.cont_mask, desc.cat_mask
+        cont = (torch.arange(d, device=dev) < max(1, 2 * d // 3)).float()
+        return cont, 1.0 - cont
+
+    cm, km = desc.cont_mask, desc.cat_mask
+    forms["mixed_gram"] = dict(
+        x=xm, col=xm[7:8], state=mst, kern=mkern, params=params,
+        cuda=lambda a, b, s2, rho, *mk: mixed.mixed_gram_cuda(
+            a, b, s2, rho, *(mk or (cm, km))),
+        masked=lambda a, n, s2, rho, nz, *mk: mixed.masked_gram_cuda(
+            a, n, s2, rho, nz, *(mk or (cm, km))),
+        plain=lambda a, b, s2, rho, *mk: ref.mixed_gram(
+            a, b, s2, rho, *(mk or (cm, km))),
+        masks=mixed_masks)
+    return forms
+
+
+def gram_digests(dev) -> dict:
+    """Digests of each gram's bits on `gram_forms`' inputs: the 1024^2 Gram
+    and the column through `ops.kernel_gram`, and the lag refit's 18
+    padded Grams through `ops.masked_gram` in a loop (`grid_grams`).  Uses
+    only entry points the parent tree also has, so the same call on an
+    unpacked parent shows whether K's bits moved."""
+    from repro_torch.kernels import ops
+    out = {}
+    for name, f in gram_forms(dev).items():
+        out[name] = {
+            "gram": digest(ops.kernel_gram(f["kern"], f["x"], f["x"], f["params"])),
+            "column": digest(ops.kernel_gram(f["kern"], f["x"], f["col"], f["params"])),
+            "lag_batch": digest(grid_grams(f["state"], f["kern"]))}
+    return out
+
+
+def grid_params(dev):
+    """The lag refit's 18 candidates as (G,) device vectors, in
+    `gp.refit_params`' order."""
+    rr, ss = torch.meshgrid(torch.tensor(GRID_RHO, device=dev),
+                            torch.tensor(GRID_SIGMA2, device=dev), indexing="ij")
+    return ss.reshape(-1), rr.reshape(-1)
+
+
+def lag_batch(st, kern, s2, rho):
+    """The lag refit's 18 padded Grams as `gp._lml_grid` builds them: one
+    `ops.masked_gram` on the expanded `x_buf` with the (G,) parameters of
+    `grid_params`."""
+    from repro_torch.core.kernels import KernelParams
+    from repro_torch.kernels import ops
+    return ops.masked_gram(st.x_buf.expand(s2.shape[0], *st.x_buf.shape), st.n,
+                           kern, KernelParams(s2, rho, st.params.noise2))
+
+
+def gram_loop_ms(dev) -> dict:
+    """CUDA-event median of `grid_grams` (18 `ops.masked_gram` calls and a
+    stack) on each form's state.  Uses only entry points the parent tree
+    also has: on an unpacked parent it times the parent's way of building
+    the lag refit's Grams."""
+    return {name: median_ms(lambda: grid_grams(f["state"], f["kern"]))
+            for name, f in gram_forms(dev).items()}
+
+
+def held_padded(tag, got, k, n, noise2) -> None:
+    """A masked build against the unmasked build k of the same kernel:
+    exactly K inside the active block, K_ii + noise2 on its diagonal (one
+    float32 add) and the identity outside it (`ref.pad_identity` of k)."""
+    from repro_torch.kernels import ref
+    want = ref.pad_identity(k, n, noise2)
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{tag}: {bad} entries differ from K padded by "
+                             f"the identity")
+
+
+def gram_checks(dev, digests: dict) -> tuple[dict, dict]:
+    """Phase 3, both grams beyond the main-path shapes of `check_kernels`:
+    the 1024^2 Gram and the column of `gram_forms`, the lag refit's batch
+    of 18 masked Grams over one state (one launch, `lag_batch`), a batch
+    of 3 studies with distinct x, n (1024, 500, 1) and parameters, and
+    ragged n = 1000 against m = 7 and itself at d = 1 and d = 33.  Each is
+    held to its plain version at TOL_MATERN or, by `held_ei`'s reading of
+    `held_to_plain`'s float64 rule, within twice the plain version's
+    float64 error (float32 itself misses TOL_MATERN at rho = 0.05 and
+    sigma2 = 4 in the lag batch, and the cross term rounds apart from
+    cuBLAS's on the mixed workload's points);
+    each batch is torch.equal to
+    its single launches; each symmetric build to its transpose; each
+    masked build is exactly K padded by the identity.  Digests of the
+    1024^2 Gram, the column and the batch must be `digests`' (the loop of
+    single builds).  Times: CUDA-event medians of 20, the bound, the plain
+    version and, for the lag batch, `grid_grams`' loop of 18.  Returns
+    (line, the batch's numbers per kernel for the kernels line)."""
+    from repro_torch.kernels import _build, matern, ref
+    out, batched = {}, {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    for name, f in gram_forms(dev).items():
+        cuda, masked, plain = f["cuda"], f["masked"], f["plain"]
+        x, d, p = f["x"], f["x"].shape[-1], f["params"]
+        s2, rho = p.sigma2, p.rho
+        line, found = {}, {}
+
+        def held(tag, got, want, sym=False) -> dict:
+            """`got` against want(float32), the plain version, by
+            `held_to_plain` (float64: want(float64)), with `held_ei`'s
+            reading of its float64 rule (also where the plain version
+            meets the tolerance and the kernel, closer to float64, is
+            outside it); a symmetric build must also equal its transpose."""
+            ok, res = held_to_plain(got, want(torch.float32),
+                                    want(torch.float64), TOL_MATERN)
+            ok = ok or res["kernel_err_vs_f64"] <= 2.0 * res["plain_err_vs_f64"]
+            if sym and not torch.equal(got, got.transpose(-1, -2)):
+                ok = False
+            if not ok:
+                raise AssertionError(f"{name} {tag}: {res}, symmetric {sym}")
+            return res
+
+        def wide(dt, *ts):
+            return [t.to(dt) for t in ts]
+
+        k = cuda(x, x, s2, rho)
+        col = cuda(x, f["col"], s2, rho)
+        found["gram"], found["column"] = digest(k), digest(col)
+        n = x.shape[0]
+        for tag, got, y in (("1024x1024", k, x), ("1024x1", col, f["col"])):
+            m = y.shape[0]
+            b_ms, b_by = bound(n * m * (2 * d + 15), 4 * (n * d + m * d + n * m))
+            line[tag] = dict(
+                **held(tag, got, lambda dt: plain(*wide(dt, x, y, s2, rho)),
+                       y is x),
+                ms=median_ms(lambda: cuda(x, y, s2, rho)),
+                plain_ms=median_ms(lambda: plain(x, y, s2, rho)),
+                bound_ms=b_ms, bound_by=b_by,
+                plan=dataclasses.asdict(matern.launch_plan(n, m, d, 1, y is x, True)))
+
+        # The lag refit's batch: 18 candidates on one state, one launch.
+        st, kern = f["state"], f["kern"]
+        s2g, rhog = grid_params(dev)
+        g, nm = s2g.shape[0], st.n_max
+        xe = st.x_buf.expand(g, nm, d)
+        got = lag_batch(st, kern, s2g, rhog)
+        singles = grid_grams(st, kern)
+        if not torch.equal(got, singles):
+            raise AssertionError(f"{name} lag batch: not equal to 18 single builds")
+        found["lag_batch"] = digest(got)
+        k_all = cuda(xe, xe, s2g, rhog)
+        held_padded(f"{name} lag batch", got, k_all, st.n, st.params.noise2)
+        b_ms, b_by = bound(nm * nm * (2 * d + 15 * g), 4 * (nm * d + g * nm * nm))
+        lag = dict(shape=f"{g} x ({nm},{d}), n = {st.n}, shared x",
+                   **held("lag batch", got, lambda dt: ref.pad_identity(
+                       plain(*wide(dt, xe, xe, s2g, rhog)), st.n,
+                       st.params.noise2.to(dt)), True),
+                   ms=median_ms(lambda: lag_batch(st, kern, s2g, rhog)),
+                   plain_ms=median_ms(lambda: ref.pad_identity(
+                       plain(xe, xe, s2g, rhog), st.n, st.params.noise2)),
+                   loop_of_18_ms=median_ms(lambda: grid_grams(st, kern)),
+                   bound_ms=b_ms, bound_by=b_by,
+                   plan=dataclasses.asdict(matern.launch_plan(nm, nm, d, g, True, True)))
+        line["lag batch"] = lag
+        batched[name] = lag
+
+        # Three studies with distinct x, n and parameters.
+        x3 = torch.rand((3, nm, d), generator=gen, device=dev)
+        if name == "mixed_gram":
+            from repro_torch.core.descriptor import project_units
+            x3 = project_units(x3.reshape(-1, d), mixed_space().descriptor().to(dev)
+                               ).reshape(3, nm, d)
+        n3 = torch.tensor([nm, 500, 1], dtype=torch.int32, device=dev)
+        s3 = torch.tensor([0.25, 1.0, 4.0], device=dev)
+        r3 = torch.tensor([0.1, 0.25, 0.8], device=dev)
+        z3 = torch.tensor([1e-6, 1e-4, 1e-2], device=dev)
+        got = masked(x3, n3, s3, r3, z3)
+        singles = torch.stack([masked(x3[i], int(n3[i]), s3[i], r3[i], z3[i])
+                               for i in range(3)])
+        if not torch.equal(got, singles):
+            raise AssertionError(f"{name} 3 studies: not equal to single launches")
+        held_padded(f"{name} 3 studies", got, cuda(x3, x3, s3, r3), n3, z3)
+        b_ms, b_by = bound(3 * nm * nm * (2 * d + 15), 4 * 3 * (nm * d + nm * nm))
+        line["3 studies"] = dict(
+            n=[int(v) for v in n3],
+            **held("3 studies", got, lambda dt: ref.pad_identity(
+                plain(*wide(dt, x3, x3, s3, r3)), n3, z3.to(dt)), True),
+            ms=median_ms(lambda: masked(x3, n3, s3, r3, z3)),
+            plain_ms=median_ms(lambda: ref.pad_identity(plain(x3, x3, s3, r3),
+                                                        n3, z3)),
+            bound_ms=b_ms, bound_by=b_by,
+            plan=dataclasses.asdict(matern.launch_plan(nm, nm, d, 3, True, False)))
+        # Ragged shapes: n = 1000 against m = 7 and against itself.
+        for dr in (1, 33):
+            mk = f["masks"](dr)
+            xr = torch.rand((1000, dr), generator=gen, device=dev)
+            yr = torch.rand((7, dr), generator=gen, device=dev)
+            for tag, y in ((f"1000x7, d={dr}", yr), (f"1000x1000, d={dr}", xr)):
+                line[tag] = held(tag, cuda(xr, y, s2, rho, *mk), lambda dt: plain(
+                    *wide(dt, xr, y, s2, rho, *mk)), y is xr)
+        if found != digests[name]:
+            raise AssertionError(f"{name} digests: {found} here, {digests[name]} "
+                                 f"through ops.kernel_gram / ops.masked_gram")
+        line["digest"] = found
+        out[name] = line
+    ptxas = {src: [ln.strip() for ln in _build.BUILD_LOG.get(src, "").splitlines()
+                   if "Used" in ln or "spill" in ln]
+             for src in ("matern", "mixed")}
+    return ({"phase": "kernels", "kernel": "gram shapes", "tol": TOL_MATERN,
+             **out, "ptxas": ptxas}, batched)
 
 
 def ei_args(st, xc):
@@ -899,15 +1157,15 @@ def tri_inverse_beyond_limit(dev, n: int = 6144) -> dict:
 
 def expected_counts(acq_cfg, gram: str, ei: str) -> dict:
     """Launches a full-width run must make: one refactor at the seed points;
-    each lag event scores the 18 grid candidates as one batch (18 Grams,
-    one factor, one solve), then refactors under the winner; each round's
-    append builds one column; each suggest is 25 ascent steps and one
-    final evaluation.  The other path's gram and EI kernels stay at 0."""
+    each lag event scores the 18 grid candidates as one batch (the 18
+    padded Grams in one launch of the masked gram, one factor, one solve),
+    then refactors under the winner (one masked gram); each round's append
+    builds one column; each suggest is 25 ascent steps and one final
+    evaluation.  The other path's gram and EI kernels stay at 0."""
     lag_events = ITERATIONS // LAG
-    grid = len(GRID_RHO) * len(GRID_SIGMA2)
     counts = {"matern": 0, "mixed": 0, "acq": 0, "acq_mixed": 0,
               "trsv": 1 + 2 * lag_events, "chol": 1 + 2 * lag_events}
-    counts[gram] = 1 + lag_events * (grid + 1) + ITERATIONS
+    counts[gram] = 1 + 2 * lag_events + ITERATIONS
     counts[ei] = ITERATIONS * (acq_cfg.ascent_steps + 1)
     return counts
 
@@ -1140,8 +1398,9 @@ def ei_launches(dev) -> dict:
 def lag_event_split(dev) -> dict:
     """One lag event (`gp.refit_params`, then `gp.refactor`) on the Levy-5d
     refactor input under torch.profiler: device ms by kernel, so the
-    solve's share of the lag round is read from device time, not from the
-    host clock.  Uses only entry points the parent tree also has."""
+    solve's and the gram's shares of the lag round are read from device
+    time, not from the host clock, with the number of device kernels the
+    event ran.  Uses only entry points the parent tree also has."""
     from repro_torch.core import gp
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1149,10 +1408,49 @@ def lag_event_split(dev) -> dict:
     lag = device_split(lambda: gp.refactor(st, kern, gp.refit_params(st, kern)))
     solve_ms = sum(e["ms"] for e in lag["by_name"]
                    if "tri_inverse" in e["name"] or "trsv" in e["name"])
+    gram_ms = sum(e["ms"] for e in lag["by_name"] if "gram" in e["name"])
     return {"n": st.n, "solve_ms": solve_ms,
             "solve_share_of_busy": solve_ms / lag["busy_ms"],
+            "gram_ms": gram_ms,
+            "gram_launches": sum(e["count"] for e in lag["by_name"]
+                                 if "gram" in e["name"]),
+            "device_kernels": sum(e["count"] for e in lag["by_name"]
+                                  if not e["name"].startswith(("Memcpy", "Memset"))),
+            "device_activities": sum(e["count"] for e in lag["by_name"]),
             "span_ms": lag["span_ms"], "busy_ms": lag["busy_ms"],
             "idle_ms": lag["idle_ms"], "by_name": lag["by_name"][:10]}
+
+
+def gram_launches(dev) -> dict:
+    """Phase 6: one call of each form under torch.profiler for the 1024^2
+    Gram of the kernels phase, the lag refit's batch of 18 masked Grams
+    (`lag_batch`), the refactor's single masked Gram and the append's
+    column; each must be exactly one device kernel and nothing else (no
+    copy, no fill, no stack); its device ms, with the plan."""
+    from repro_torch.kernels import matern
+    out = {}
+    s2, rho = grid_params(dev)
+    for name, f in gram_forms(dev).items():
+        st, kern, p = f["state"], f["kern"], f["params"]
+        col = st.x_buf[7:8] + 0.01
+        calls = {
+            "gram": (lambda: f["cuda"](f["x"], f["x"], p.sigma2, p.rho), 1,
+                     st.n_max),
+            "lag batch": (lambda: lag_batch(st, kern, s2, rho), 18, st.n_max),
+            "masked single": (lambda: f["masked"](st.x_buf, st.n, p.sigma2, p.rho,
+                                                  p.noise2), 1, st.n_max),
+            "column": (lambda: f["cuda"](st.x_buf, col, p.sigma2, p.rho), 1, 1)}
+        for tag, (fn, batch, m) in calls.items():
+            split = device_split(fn)
+            names = [(e["name"], e["count"]) for e in split["by_name"]]
+            if len(names) != 1 or names[0][1] != 1 or "gram" not in names[0][0]:
+                raise AssertionError(f"{name} {tag}: device activity {split['by_name']}")
+            out[f"{name} {tag}"] = {
+                "device_ms": split["busy_ms"], "kernel": names[0][0],
+                "plan": dataclasses.asdict(matern.launch_plan(
+                    st.n_max, m, st.dim, batch, m > 1, True))}
+    emit({"phase": "profile", "kernel": "gram", "launch": out})
+    return out
 
 
 def profile_steps(name, driver, state, hist, steps: int = 4) -> None:
@@ -1233,17 +1531,28 @@ def main() -> int:
     emit({"phase": "kernels", "kernel": "fused_ei_grad_mixed accuracy spread",
           **ei_accuracy_spread(dev)})
     emit(tri_inverse_beyond_limit(dev))
+    digests = gram_digests(dev)
+    line, gram_batched = gram_checks(dev, digests)
+    emit(line)
+    for row in rows:
+        if row["name"] in gram_batched:
+            row["batched"] = gram_batched[row["name"]]
     paths = {"main": main_path(dev), "mixed": mixed_path(dev)}
     for name, (_, driver, state, hist) in paths.items():
         profile_steps(name, driver, state, hist)
     cholesky_launches(dev)
     tri_inverse_launches(dev)
+    gram_device = gram_launches(dev)
     ei_device = ei_launches(dev)
-    # The fused EI's device time beside its event time from the kernels
-    # phase: the difference is the wrapper's host work while the card idles.
+    # Device time beside the event time from the kernels phase (the gram's
+    # from its 1024^2 call): the difference is the wrapper's host work
+    # while the card idles.
+    device = {**{k: v["device_ms"] for k, v in ei_device.items()},
+              **{k: gram_device[f"{k} gram"]["device_ms"]
+                 for k in ("matern52_gram", "mixed_gram")}}
     for row in rows:
-        if row["name"] in ei_device:
-            row["device_ms"] = ei_device[row["name"]]["device_ms"]
+        if row["name"] in device:
+            row["device_ms"] = device[row["name"]]
             row["host_gap_ms"] = row["ms"] - row["device_ms"]
 
     kernels = []

@@ -278,13 +278,13 @@ def refactor(state: LazyGPState, kernel: KernelFn,
 def _lml_grid(state: LazyGPState, kernel: KernelFn, cand: Tensor) -> Tensor:
     """LML of `state` under each candidate `[sigma2, rho]` row of `cand`
     (G, 2): the `refactor` + `log_marginal_likelihood` of every candidate,
-    with the G padded Grams factored and inverted as one batch (one
-    Cholesky and one solve launch on the card).  `state` stays untouched."""
-    k_pads = torch.stack([
-        ops.masked_gram(state.x_buf, state.n, kernel,
-                        KernelParams(sigma2=c[0], rho=c[1],
-                                     noise2=state.params.noise2))
-        for c in cand])
+    with the G padded Grams built, factored and inverted as one batch (one
+    gram, one Cholesky and one solve launch on the card; the Grams share
+    `x_buf`, expanded, never copied).  `state` stays untouched."""
+    params = KernelParams(sigma2=cand[:, 0], rho=cand[:, 1],
+                          noise2=state.params.noise2)
+    x_bufs = state.x_buf.expand(cand.shape[0], *state.x_buf.shape)
+    k_pads = ops.masked_gram(x_bufs, state.n, kernel, params)
     l_bufs = chol.lazy_full_refactor(k_pads, state.n, n_max=state.n_max)
     li_bufs = ops.padded_tri_inverse(l_bufs)                 # (G, n, n)
     m = _active_mask(state)

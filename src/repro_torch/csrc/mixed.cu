@@ -1,95 +1,36 @@
 // Mixed-space gram  K[i, j] = sigma2 (1 + z + z^2 / 3) exp(-z) cat,
 //   z   = sqrt(5) |xc_i - yc_j| / rho,        xc = x * cont_mask
 //   cat = exp(-0.5 |xk_i - yk_j|^2 / rho),    xk = x * cat_mask
-// for x (n, d), y (m, d) and the two (d,) 0/1 type masks.  The categorical
-// factor divides by rho, not rho^2: that is the reference's definition.
+// for x (n, d), y (m, d) and the two (d,) 0/1 type masks, over a batch of
+// matrices with per-matrix sigma2 and rho, and in the masked form the
+// identity-padded K + noise2 I.  The categorical factor divides by rho,
+// not rho^2: that is the reference's definition.
 //
 // Replaces: src/repro/kernels/mixed.py:_mixed_tile_kernel (reached through
-// _mixed_pallas_raw / mixed_gram_pallas).
+// _mixed_pallas_raw / mixed_gram_pallas, batched over a study axis by
+// pallas_call's batching rule under ops.masked_gram's vmap).
 //
-// What bounds it on the H100: the bytes of the (n, m) output, as for the
-// Matérn gram; the per-append (n_max x 1) call is bound by the launch.
-//
-// Design: the tiling of matern.cu (one thread per output over 16 x 16
-// tiles, features staged in chunks of 32, ragged n, m and d masked here).
-// The reference's ops layer splits x and y into four masked operands
-// before the Pallas call; here the split happens while the rows are
-// loaded, so the wrapper launches nothing else.  Both squared distances
-// use the |a|^2 + |b|^2 - 2 a.b expansion clamped at 0, as the reference
-// does, so kernel and plain version agree to rounding.
-#include "common.cuh"
+// What bounds it on the H100: the bytes of the output, as for the Matérn
+// gram; the append column is bound by the launch.  The design is
+// gram.cuh's, instantiated with kMixed: the masks are staged in shared
+// memory once a feature pass and split each row as it is read (the
+// reference splits x and y into four operands before its call), and the
+// categorical squared distance is kept beside the distance, shared by
+// every matrix of a batch that shares x.  One launch a call; the bits of
+// the earlier 16 x 16 kernel.
+#include "gram.cuh"
 
-namespace {
-
-constexpr int kTile = 16;
-constexpr int kChunk = 32;
-
-__global__ void __launch_bounds__(kTile * kTile)
-mixed_gram_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  const float* __restrict__ cont_mask,
-                  const float* __restrict__ cat_mask,
-                  const float* __restrict__ sigma2_p,
-                  const float* __restrict__ rho_p, float* __restrict__ out,
-                  int n, int m, int d) {
-  __shared__ float xs[kTile][kChunk + 1];
-  __shared__ float ys[kTile][kChunk + 1];
-  __shared__ float cms[kChunk], kms[kChunk];
-  const int tx = threadIdx.x;  // y row within the tile
-  const int ty = threadIdx.y;  // x row within the tile
-  const int tid = ty * kTile + tx;
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  float xx = 0.f, yy = 0.f, cross = 0.f;   // continuous block
-  float kk = 0.f, ll = 0.f, crossk = 0.f;  // categorical block
-  for (int c0 = 0; c0 < d; c0 += kChunk) {
-    for (int e = tid; e < kTile * kChunk; e += kTile * kTile) {
-      const int r = e / kChunk, c = e % kChunk;
-      const int gc = c0 + c;
-      xs[r][c] = (i0 + r < n && gc < d) ? x[(size_t)(i0 + r) * d + gc] : 0.f;
-      ys[r][c] = (j0 + r < m && gc < d) ? y[(size_t)(j0 + r) * d + gc] : 0.f;
-    }
-    if (tid < kChunk) {
-      cms[tid] = (c0 + tid < d) ? cont_mask[c0 + tid] : 0.f;
-      kms[tid] = (c0 + tid < d) ? cat_mask[c0 + tid] : 0.f;
-    }
-    __syncthreads();
-    const int cmax = min(kChunk, d - c0);
-    for (int c = 0; c < cmax; ++c) {
-      const float a = xs[ty][c] * cms[c];
-      const float b = ys[tx][c] * cms[c];
-      xx += a * a;
-      yy += b * b;
-      cross += a * b;
-      const float ak = xs[ty][c] * kms[c];
-      const float bk = ys[tx][c] * kms[c];
-      kk += ak * ak;
-      ll += bk * bk;
-      crossk += ak * bk;
-    }
-    __syncthreads();
-  }
-  const int i = i0 + ty, j = j0 + tx;
-  if (i >= n || j >= m) return;
-  const float sigma2 = *sigma2_p, rho = *rho_p;
-  const float sq = fmaxf(xx + yy - 2.f * cross, 0.f);
-  const float dist = sqrtf(sq + 1e-36f);
-  const float z = repro::kSqrt5 * dist / rho;
-  const float sqk = fmaxf(kk + ll - 2.f * crossk, 0.f);
-  const float cat = expf(-0.5f * sqk / rho);
-  out[(size_t)i * m + j] = sigma2 * (1.f + z + z * z / 3.f) * expf(-z) * cat;
-}
-
-}  // namespace
-
-REPRO_EXPORT int repro_mixed_gram(const float* x, const float* y,
-                                  const float* cont_mask,
-                                  const float* cat_mask, const float* sigma2,
-                                  const float* rho, float* out, int n, int m,
-                                  int d, void* stream) {
-  if (n == 0 || m == 0) return 0;
-  const dim3 block(kTile, kTile);
-  const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  mixed_gram_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, cont_mask, cat_mask, sigma2, rho, out, n, m, d);
-  return static_cast<int>(cudaGetLastError());
+REPRO_EXPORT int repro_mixed_gram(
+    const float* x, const float* y, const float* cont_mask,
+    const float* cat_mask, const float* sigma2, const float* rho,
+    const float* noise2, const int* n_active, float* out, int batch, int n,
+    int m, int d, long long x_row, long long x_batch, long long y_row,
+    long long y_batch, int s2_step, int rho_step, int noise_step, int n_step,
+    int n_fixed, int symmetric, int layout, int per_group, int tiles_m,
+    int grid_x, int grid_y, void* stream) {
+  const repro::gram::Args a{x, y, cont_mask, cat_mask, sigma2, rho, noise2,
+                            n_active, out, x_row, x_batch, y_row, y_batch,
+                            batch, n, m, d, s2_step, rho_step, noise_step,
+                            n_step, n_fixed, symmetric, per_group, tiles_m};
+  return repro::gram::launch<true>(a, layout, grid_x, grid_y, stream);
 }

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 ptr = ctypes.c_void_p
 cint = ctypes.c_int
+clonglong = ctypes.c_longlong
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

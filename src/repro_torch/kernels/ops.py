@@ -9,14 +9,15 @@ no size envelopes: a kernel takes any n, or its wrapper raises.
 
   op                 | shape contract    | CUDA kernel       | batched
   -------------------|-------------------|-------------------|--------
-  matern52_gram      | (n,d)x(m,d) exact | csrc/matern.cu    | via gram
-  mixed_gram         | (n,d)x(m,d) exact | csrc/mixed.cu     | via gram
+  matern52_gram      | (..,n,d)x(..,m,d) | csrc/matern.cu    | yes
+  mixed_gram         | (..,n,d)x(..,m,d) | csrc/mixed.cu     | yes
   trsv               | (n,n),(n[,r])     | csrc/trsv.cu      | yes
   cholesky           | (n,n)             | csrc/chol.cu      | yes
   chol_append        | active factor     | trsv              | no
   gp_posterior_solve | active factor     | trsv              | no
-  kernel_gram        | any kernel fn     | gram if tagged    | no
-  masked_gram        | padded buffers    | gram if tagged    | no
+  kernel_gram        | any kernel fn     | gram if tagged    | if tagged
+  masked_gram        | padded buffers    | masked gram if    | yes
+                     |                   |  tagged           |
   padded_trsv        | padded buffers    | csrc/trsv.cu      | yes
   padded_cholesky    | padded buffers    | csrc/chol.cu      | yes
   tri_inverse        | (n,n)             | csrc/trsv.cu      | yes
@@ -33,11 +34,12 @@ no size envelopes: a kernel takes any n, or its wrapper raises.
 The padded-state ops work on the identity-padded (n_max, n_max) buffers of
 DESIGN.md §3: the active top-left (n, n) block is real data, the rest is
 the identity, and right-hand sides are zero beyond the active block.  They
-take `n` as a Python int, the host-side counter the GP state keeps.  Only
-the factor and the solve take a leading batch axis, which the lag refit
-uses to score its grid of candidate hyper-parameters in one launch; the
-batched study axis of the reference's other padded ops comes with the
-pool slice.
+take `n` as a Python int, the host-side counter the GP state keeps
+(`masked_gram` also an (S,) int tensor).  The masked Gram, the factor, the
+inverse and the solve take a leading batch axis, which the lag refit uses
+to score its grid of candidate hyper-parameters with one launch of each;
+the batched study axis of the reference's appends comes with the pool
+slice.
 
 The appends are matmuls against the maintained inverse `li_buf = L^{-1}`:
 the row solve is `q = L^{-1} p` and the inverse grows by the closed-form
@@ -53,10 +55,12 @@ import torch
 from repro_torch.kernels import acq as acq_kernels
 from repro_torch.kernels import ref
 # The active-shape entry points are the kernel modules' own functions:
-# matern52_gram (n,d)x(m,d), trsv (..., n, n) with b (..., n[, r]),
-# tri_inverse (..., n, n), cholesky (..., n, n) with the reference's
-# diagonal clamp, and mixed_gram (n,d)x(m,d) under the (d,) type masks of
-# a mixed space.
+# matern52_gram (.., n, d) x (.., m, d) with scalar or (B,) params,
+# trsv (..., n, n) with b (..., n[, r]), tri_inverse (..., n, n),
+# cholesky (..., n, n) with the reference's diagonal clamp, and
+# mixed_gram as matern52_gram under the (d,) type masks of a mixed space.
+from repro_torch.kernels import matern as matern_kernels
+from repro_torch.kernels import mixed as mixed_kernels
 from repro_torch.kernels.chol import cholesky
 from repro_torch.kernels.matern import matern52_gram
 from repro_torch.kernels.mixed import mixed_gram
@@ -124,7 +128,8 @@ def kernel_gram(kernel_fn, x: Tensor, y: Tensor, params) -> Tensor:
     the same tag `pallas_gram`): "matern52" for the Matérn-2.5 kernel,
     "mixed" for the mixed kernel, whose closure also carries its
     `cont_mask` / `cat_mask`.  Anything else uses the kernel's own torch
-    formulation.  `params` needs `.sigma2` and `.rho`.
+    formulation.  `params` needs `.sigma2` and `.rho`; a tagged kernel
+    also takes (B,) params and (B, n, d) / (B, m, d) operands.
     """
     tag = getattr(kernel_fn, "gram_kernel", None)
     if tag == "matern52":
@@ -135,16 +140,36 @@ def kernel_gram(kernel_fn, x: Tensor, y: Tensor, params) -> Tensor:
     return kernel_fn(x, y, params)
 
 
-def masked_gram(x_buf: Tensor, n: int, kernel_fn, params) -> Tensor:
+def masked_gram(x_buf: Tensor, n, kernel_fn, params) -> Tensor:
     """Identity-padded Gram K + noise2 I over the padded point buffer:
     rows/cols >= n are the identity, so `padded_cholesky` of it is the
-    identity-padded factor."""
-    n_max = x_buf.shape[-2]
-    eye = torch.eye(n_max, dtype=x_buf.dtype, device=x_buf.device)
-    idx = torch.arange(n_max, device=x_buf.device)
-    k = kernel_gram(kernel_fn, x_buf, x_buf, params) + params.noise2 * eye
-    active = (idx[:, None] < n) & (idx[None, :] < n)
-    return torch.where(active, k, eye)
+    identity-padded factor.
+
+    Batched form (the reference's vmap): `x_buf (S, n_max, d)`, `n` an int
+    or an (S,) int tensor and `params` with scalar or (S,) leaves give
+    (S, n_max, n_max).  `x_buf` may be one buffer expanded over the batch
+    (batch stride 0), as the lag refit scores 18 candidates on one state.
+    A tagged kernel is one launch of its gram's masked form on the card;
+    any other kernel is its torch formulation padded by `ref.pad_identity`,
+    one study at a time.
+    """
+    tag = getattr(kernel_fn, "gram_kernel", None)
+    if tag == "matern52":
+        return matern_kernels.masked_gram(x_buf, n, params.sigma2, params.rho,
+                                          params.noise2)
+    if tag == "mixed":
+        return mixed_kernels.masked_gram(x_buf, n, params.sigma2, params.rho,
+                                         params.noise2, kernel_fn.cont_mask,
+                                         kernel_fn.cat_mask)
+    if x_buf.ndim == 3:
+        def study(v, s):
+            return v[s] if isinstance(v, Tensor) and v.ndim else v
+        return torch.stack([masked_gram(
+            x_buf[s], study(n, s), kernel_fn,
+            type(params)(*(study(v, s) for v in (params.sigma2, params.rho,
+                                                 params.noise2))))
+            for s in range(x_buf.shape[0])])
+    return ref.pad_identity(kernel_fn(x_buf, x_buf, params), n, params.noise2)
 
 
 def write_append_row(buf: Tensor, q: Tensor, d, n: int) -> Tensor:

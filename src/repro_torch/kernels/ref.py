@@ -24,14 +24,36 @@ DIAG_CLAMP = 1e-12
 CLAMP_EPS = 1e-10
 
 
+def per_matrix(v):
+    """A per-matrix scalar against (..., n, m) matrices: a (B,) tensor as
+    (B, 1, 1); a scalar or 0-d tensor as it is."""
+    if isinstance(v, Tensor) and v.ndim:
+        return v[..., None, None]
+    return v
+
+
 def matern52_gram(x: Tensor, y: Tensor, sigma2, rho) -> Tensor:
-    """Pairwise Matérn-2.5 covariance, (n, d) x (m, d) -> (n, m)."""
-    xx = torch.sum(x * x, dim=-1)[:, None]
-    yy = torch.sum(y * y, dim=-1)[None, :]
-    sq = torch.clamp(xx + yy - 2.0 * (x @ y.T), min=0.0)
+    """Pairwise Matérn-2.5 covariance, (.., n, d) x (.., m, d) -> (.., n, m),
+    sigma2 / rho scalars or (B,)."""
+    xx = torch.sum(x * x, dim=-1)[..., :, None]
+    yy = torch.sum(y * y, dim=-1)[..., None, :]
+    sq = torch.clamp(xx + yy - 2.0 * (x @ y.transpose(-1, -2)), min=0.0)
     d = torch.sqrt(sq + 1e-36)
-    z = SQRT5 * d / rho
-    return sigma2 * (1.0 + z + z * z / 3.0) * torch.exp(-z)
+    z = SQRT5 * d / per_matrix(rho)
+    return per_matrix(sigma2) * (1.0 + z + z * z / 3.0) * torch.exp(-z)
+
+
+def pad_identity(k: Tensor, n, noise2) -> Tensor:
+    """The identity-padded Gram of a gram build k (..., n_max, n_max):
+    k + noise2 I inside the active block (rows and columns below n),
+    the identity outside it.  n is an int or a (B,) int tensor, noise2 a
+    scalar or (B,)."""
+    n_max = k.shape[-1]
+    eye = torch.eye(n_max, dtype=k.dtype, device=k.device)
+    idx = torch.arange(n_max, device=k.device)
+    nn = per_matrix(n)
+    active = (idx[:, None] < nn) & (idx[None, :] < nn)
+    return torch.where(active, k + per_matrix(noise2) * eye, eye)
 
 
 def _solve_diag(ld: Tensor, rhs: Tensor, trans: bool) -> Tensor:
@@ -134,16 +156,18 @@ def mixed_gram(x: Tensor, y: Tensor, sigma2, rho, cont_mask: Tensor,
     coordinates (divided by rho, not rho^2, as the reference defines it).
     On feasible one-hot blocks d2_cat is twice the number of differing
     groups, so the factor is the Hamming kernel exp(-h / rho).  The factor
-    carries no gradient (`detach`, the reference's stop_gradient)."""
+    carries no gradient (`detach`, the reference's stop_gradient).  Shapes
+    as `matern52_gram`."""
+    rho = per_matrix(rho)
     xc, yc = x * cont_mask, y * cont_mask
-    xx = torch.sum(xc * xc, dim=-1)[:, None]
-    yy = torch.sum(yc * yc, dim=-1)[None, :]
-    sq = torch.clamp(xx + yy - 2.0 * (xc @ yc.T), min=0.0)
+    xx = torch.sum(xc * xc, dim=-1)[..., :, None]
+    yy = torch.sum(yc * yc, dim=-1)[..., None, :]
+    sq = torch.clamp(xx + yy - 2.0 * (xc @ yc.transpose(-1, -2)), min=0.0)
     d = torch.sqrt(sq + 1e-36)
     z = SQRT5 * d / rho
     xk, yk = x * cat_mask, y * cat_mask
-    kk = torch.sum(xk * xk, dim=-1)[:, None]
-    ll = torch.sum(yk * yk, dim=-1)[None, :]
-    sqk = torch.clamp(kk + ll - 2.0 * (xk @ yk.T), min=0.0)
+    kk = torch.sum(xk * xk, dim=-1)[..., :, None]
+    ll = torch.sum(yk * yk, dim=-1)[..., None, :]
+    sqk = torch.clamp(kk + ll - 2.0 * (xk @ yk.transpose(-1, -2)), min=0.0)
     cat = torch.exp(-0.5 * sqk / rho).detach()
-    return sigma2 * (1.0 + z + z * z / 3.0) * torch.exp(-z) * cat
+    return per_matrix(sigma2) * (1.0 + z + z * z / 3.0) * torch.exp(-z) * cat
