@@ -115,6 +115,9 @@ LAG = 32
 RHO0, SIGMA2, NOISE2 = 0.25, 1.0, 1e-6
 GRID_RHO = (0.05, 0.1, 0.2, 0.4, 0.8, 1.6)     # gp.refit_params' grid
 GRID_SIGMA2 = (0.25, 1.0, 4.0)
+APPEND_ROWS = 128         # the append phase: factor at n_max - 128, then
+APPEND_QUERIES = 64       # absorb 128 rows and query the posterior at 64
+TRSV_SEED = 18            # inputs of the general solve's shapes
 # The mixed workload's objective (benchmarks/bench_mixed.py:36-62): -Levy
 # over (x1, x2, k) plus an offset per branch; optimum at k = 1, branch b.
 BRANCH_OFFSET = {"a": -4.0, "b": 0.0, "c": -2.0}
@@ -127,6 +130,7 @@ TOL_TRSV_RESID = 1e-4     # ||L X - I||_max; 1.7e-6 measured on an H100
 TOL_TRSV_PLAIN = 1e-4     # max |X - X_plain| / max |X_plain|
 TOL_EI = dict(rtol=1e-4, atol=1e-5)        # tests/test_fused_acq.py:65,
 #                                            see held_to_plain
+TOL_POSTERIOR = dict(rtol=1e-4, atol=1e-5)  # mean and variance, O(1) values
 # The lag refit's batch holds Grams that float32 cannot factor accurately
 # (long length scales, noise 1e-6): there each batched factor and solve
 # must be as good as the plain version's (within twice its residual) or
@@ -222,13 +226,18 @@ def device_split(fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    # Now and then a session records no device activity at all; the call is
+    # profiled again then (up to 3 sessions), never judged on an empty trace.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
     if not spans:
-        raise AssertionError("torch.profiler recorded no device activity")
+        raise AssertionError("torch.profiler recorded no device activity in 3 sessions")
     by_name, busy, reach = {}, 0.0, spans[0][0]
     for start, end, name in spans:
         count, us = by_name.get(name, (0, 0.0))
@@ -806,9 +815,10 @@ def check_kernels(dev, gen) -> list[dict]:
     general_ms = median_ms(lambda: trsv.trsv_cuda(l_fac, eye))
     plain_ms = median_ms(lambda: ref.tri_inverse(l_fac))
     lib_ms = median_ms(lambda: torch.linalg.solve_triangular(l_fac, eye, upper=False))
-    # The general solve's count, at r = 1: n^2 flops, L, b and q once.
+    # The general solve at r = 1: n (n + 1) / 2 FMAs; L's lower half, b and
+    # q once.
     vec_ms = median_ms(lambda: trsv.trsv_cuda(l_fac, vec))
-    vec_b_ms, vec_b_by = bound(float(n) * n, 4 * (n * n + 2 * n))
+    vec_b_ms, vec_b_by = bound(float(n) * (n + 1), 4 * (n * (n + 1) / 2 + 2 * n))
     # The lag refit's batch: L X = I on each of the 18 grid factors.  The
     # identity is built here for the general kernel and the library call.
     eye_g = eye.expand(g, n, n).contiguous()
@@ -837,6 +847,8 @@ def check_kernels(dev, gen) -> list[dict]:
                              f"{digest(x_grid)} here")
     ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("trsv", "").splitlines()
              if "Used" in ln or "spill" in ln]
+    general = general_solves(dev)
+    emit({"phase": "kernels", "kernel": "trsv general", **general})
     emit({"phase": "kernels", "kernel": "trsv", "tol_resid": TOL_TRSV_RESID,
           "tol_plain": TOL_TRSV_PLAIN, **detail, "inverses": inverses,
           "digest": digests,
@@ -847,7 +859,11 @@ def check_kernels(dev, gen) -> list[dict]:
     rows.append(dict(name="trsv", shape="L X = I, (1024,1024)",
                      max_abs_err=max_abs(x_k, x_p), ms=ms, general_ms=general_ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib_ms, batched=compact(batched)))
+                     library_ms=lib_ms, batched=compact(batched),
+                     general={tag: {k: v for k, v in line.items()
+                                    if k in GENERAL_KEYS}
+                              for tag, line in general["shapes"].items()},
+                     digest=general["digest"]))
 
     # --- 4. Fused EI at r = 64, n = 1024, d = 5 on the refactored state, on
     # standardized values and on the raw Levy values the main path sees.
@@ -968,6 +984,162 @@ def check_kernels(dev, gen) -> list[dict]:
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=None))
     return rows
+
+
+GENERAL_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err", "regime")
+
+
+def beyond_limit_factor(dev, n: int):
+    """A well-conditioned lower factor of size n from the port's Cholesky,
+    seeded by n (the L X = I check past the L X = I kernel's limit)."""
+    from repro_torch.kernels import chol
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    a = torch.randn((n, n), generator=gen, device=dev) / n ** 0.5
+    return chol.cholesky_cuda(a @ a.T + 2.0 * torch.eye(n, device=dev))
+
+
+def trsv_cases(dev) -> dict:
+    """The general solve's shapes, tag -> (L, B, trans): r = 1 both ways at
+    n = 1024 (the Levy-5d refactor factor) and 4096, ragged n = 1000, three
+    studies at r = 1 (three of the lag refit's factors), L^{-1} K* at 64
+    query points (the posterior's), and B = I on one and on the lag refit's
+    18 factors.  Built from a generator seeded TRSV_SEED through entry
+    points the parent tree also has."""
+    from repro_torch.kernels import chol, ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRSV_SEED)
+    st, kern = levy_state(dev, gen)
+    l_fac = chol.cholesky_cuda(ops.masked_gram(st.x_buf, st.n, kern, st.params))
+    l_grid = chol.cholesky_cuda(grid_grams(st, kern))
+    l_big = beyond_limit_factor(dev, 4096)
+    n = N_MAX
+    vec = torch.randn((n, 1), generator=gen, device=dev)
+    vec_big = torch.randn((l_big.shape[-1], 1), generator=gen, device=dev)
+    vecs = torch.randn((3, n, 1), generator=gen, device=dev)
+    xq = torch.rand((APPEND_QUERIES, DIM), generator=gen, device=dev)
+    active = torch.arange(n, device=dev)[:, None] < st.n
+    k_star = torch.where(active, ops.kernel_gram(kern, st.x_buf, xq, st.params), 0.0)
+    eye = torch.eye(n, device=dev)
+    return {
+        "r=1, n=1024": (l_fac, vec, False),
+        "r=1, n=1024, trans": (l_fac, vec, True),
+        "r=1, n=4096": (l_big, vec_big, False),
+        "r=1, n=4096, trans": (l_big, vec_big, True),
+        "r=1, n=1000": (l_fac[:1000, :1000].contiguous(), vec[:1000].contiguous(), False),
+        "3 x r=1, n=1024": (l_grid[:3].contiguous(), vecs, False),
+        "r=64, n=1024 (K*)": (l_fac, k_star, False),
+        "B=I, n=1024": (l_fac, eye, False),
+        f"{l_grid.shape[0]} x B=I, n=1024": (l_grid, eye.expand_as(l_grid).contiguous(), False),
+    }
+
+
+def trsv_digests(dev) -> dict:
+    """Digests of Q through `trsv.trsv_cuda` for every forward shape of
+    `trsv_cases` and for B = I at n = 6144.  Uses only entry points the
+    parent tree also has: imported by path with PYTHONPATH of an unpacked
+    parent's `src`, it prints the parent's digests (the A/B of Q's bits)."""
+    from repro_torch.kernels import trsv
+    out = {tag: digest(trsv.trsv_cuda(l, b)) for tag, (l, b, trans)
+           in trsv_cases(dev).items() if not trans}
+    l = beyond_limit_factor(dev, 6144)
+    out["B=I, n=6144"] = digest(trsv.trsv_cuda(l, torch.eye(l.shape[-1], device=dev)))
+    return out
+
+
+def general_times(dev) -> dict:
+    """CUDA-event ms (median of 20) and device ms of one call (profiler)
+    of `trsv.trsv_cuda` at each of `trsv_cases`' shapes and at B = I,
+    n = 6144.  Uses only entry points the parent tree also has, so the
+    same call on an unpacked parent times the earlier kernel at the same
+    shapes (the A/B of the general solve's times)."""
+    from repro_torch.kernels import trsv
+    cases = trsv_cases(dev)
+    l = beyond_limit_factor(dev, 6144)
+    cases["B=I, n=6144"] = (l, torch.eye(l.shape[-1], device=dev), False)
+    return {tag: {"ms": median_ms(lambda: trsv.trsv_cuda(l, b, trans=trans)),
+                  "device_ms": device_split(
+                      lambda: trsv.trsv_cuda(l, b, trans=trans))["busy_ms"]}
+            for tag, (l, b, trans) in cases.items()}
+
+
+def solve_bound(l, b) -> tuple[float, str]:
+    """Least time of L Q = B: at r = 1, n (n + 1) / 2 FMAs; for B = I the
+    n^3 / 3 flops of L X = I; else n^2 r flops; L's lower half, B and Q
+    read or written once; times the batch."""
+    n, r = l.shape[-1], b.shape[-1]
+    batch = l[..., 0, 0].numel()
+    eye = r == n and bool(torch.equal(b, torch.eye(n, device=b.device).expand_as(b)))
+    flops = n ** 3 / 3 if eye else float(n) * (n + 1) if r == 1 else float(n) * n * r
+    return bound(batch * flops, batch * 4 * (n * (n + 1) / 2 + 2 * n * r))
+
+
+def general_solves(dev) -> dict:
+    """The general solve (`trsv.trsv_cuda`, C entry `repro_trsv`) at each
+    of `trsv_cases`' shapes: held to the plain version (`ref.trsv`, or
+    within twice its float64 error where float32 itself misses
+    TOL_TRSV_PLAIN), two calls bitwise equal, CUDA-event ms (median of
+    20) beside the plain version's, `torch.linalg.solve_triangular`'s
+    (timed only) and the bound; digests of the forward shapes, cross-checked
+    against `trsv_digests`; both regimes at r = 8 to 1024 (bitwise equal,
+    timed) for where they cross."""
+    from repro_torch.kernels import ref, trsv
+    shapes, digests = {}, {}
+    cases = trsv_cases(dev)
+    for tag, (l, b, trans) in cases.items():
+        got = trsv.trsv_cuda(l, b, trans=trans)
+        again = trsv.trsv_cuda(l, b, trans=trans)
+        plain = ref.trsv(l, b, trans=trans)
+        exact = ref.trsv(l.double(), b.double(), trans=trans)
+        torch.cuda.synchronize()
+        rel, plain_rel = rel_err(got, plain), rel_err(plain.double(), exact)
+        kernel_rel = rel_err(got.double(), exact)
+        ok = bool(((rel <= TOL_TRSV_PLAIN) | (kernel_rel <= 2.0 * plain_rel)).all())
+        line = {"regime": trsv.launch_plan(l.shape[-1], b.shape[-1],
+                                           l[..., 0, 0].numel(), trans).regime,
+                "rel_err_vs_plain": float(rel.max()),
+                "rel_err_vs_f64": float(kernel_rel.max()),
+                "plain_rel_err_vs_f64": float(plain_rel.max()),
+                "max_abs_err": max_abs(got, plain),
+                "repeat_equal": bool(torch.equal(got, again)),
+                "finite": bool(torch.isfinite(got).all())}
+        if not (ok and line["repeat_equal"] and line["finite"]):
+            raise AssertionError(f"trsv {tag}: {line}")
+        lower = l if not trans else l.mT
+        b_ms, b_by = solve_bound(l, b)
+        line.update(
+            ms=median_ms(lambda: trsv.trsv_cuda(l, b, trans=trans)),
+            plain_ms=median_ms(lambda: ref.trsv(l, b, trans=trans)),
+            library_ms=median_ms(lambda: torch.linalg.solve_triangular(
+                lower, b, upper=trans)),
+            bound_ms=b_ms, bound_by=b_by)
+        shapes[tag] = line
+        if not trans:
+            digests[tag] = digest(got)
+    # Where the regimes cross: a dense B of r columns at n = 1024 in each
+    # regime by events (`trsv.NARROW_MAX_R` is set from this); L Q = B keeps
+    # the same bits in both.
+    l_fac = cases["r=1, n=1024"][0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRSV_SEED)
+    crossover = {}
+    for r in (8, 64, 512, 1024):
+        b = torch.randn((N_MAX, r), generator=gen, device=dev)
+        narrow, wide = (trsv._launch(l_fac, b, False, reg) for reg in trsv.REGIMES)
+        if not torch.equal(narrow, wide):
+            raise AssertionError(f"trsv r={r}: the regimes' bits differ")
+        crossover[f"r={r}"] = {
+            "picked": trsv.launch_plan(N_MAX, r, 1).regime,
+            **{f"{reg}_ms": median_ms(lambda: trsv._launch(l_fac, b, False, reg))
+               for reg in trsv.REGIMES}}
+    # B = I past the L X = I kernel's limit: `tri_inverse_beyond_limit`.
+    rebuilt = trsv_digests(dev)
+    if {k: v for k, v in rebuilt.items() if k in digests} != digests:
+        raise AssertionError(f"trsv digests: {rebuilt} through trsv_digests, "
+                             f"{digests} here")
+    return {"tol_plain": TOL_TRSV_PLAIN, "shapes": shapes, "digest": rebuilt,
+            "regimes_by_r": crossover}
 
 
 def acq_ptxas() -> dict:
@@ -1129,28 +1301,42 @@ def ei_accuracy_spread(dev, seeds=range(1, 7)) -> dict:
 def tri_inverse_beyond_limit(dev, n: int = 6144) -> dict:
     """L X = I past the L X = I kernel's shared-memory limit (`trsv.MAX_N`),
     through `trsv.tri_inverse` on the card: it must take the general kernel
-    (`trsv.inverse_entry`), launch once, and hold ||L X - I||_max (in
-    float64) within TOL_TRSV_RESID.  L is the port's Cholesky factor of a
-    well-conditioned SPD matrix."""
-    from repro_torch.kernels import chol, trsv
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(n)
-    a = torch.randn((n, n), generator=gen, device=dev) / n ** 0.5
+    (`trsv.inverse_entry`), launch once, hold ||L X - I||_max (in float64)
+    within TOL_TRSV_RESID, and hold X to the plain version (TOL_TRSV_PLAIN,
+    or twice its float64 error).  L is the port's Cholesky factor of a
+    well-conditioned SPD matrix (`beyond_limit_factor`).  Timed by CUDA
+    events beside the plain version, `solve_triangular` and the bound."""
+    from repro_torch.kernels import ref, trsv
+    l = beyond_limit_factor(dev, n)
     eye = torch.eye(n, device=dev)
-    l = chol.cholesky_cuda(a @ a.T + 2.0 * eye)
     before = trsv.LAUNCHES
     t0 = time.perf_counter()
     x = trsv.tri_inverse(l)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    launches = trsv.LAUNCHES - before
     resid = float((l.double() @ x.double() - eye.double()).abs().max())
+    plain = ref.tri_inverse(l)
+    exact = ref.tri_inverse(l.double())
+    rel, plain_rel = float(rel_err(x, plain)), float(rel_err(plain.double(), exact))
+    kernel_rel = float(rel_err(x.double(), exact))
+    b_ms, b_by = bound(n ** 3 / 3, 4 * (n * (n + 1) / 2 + n * n))
     line = {"n": n, "max_n_of_tri_inverse_kernel": trsv.MAX_N,
             "route": trsv.inverse_entry(n),
-            "launches": trsv.LAUNCHES - before, "resid": resid,
+            "regime": trsv.launch_plan(n, n, 1).regime,
+            "launches": launches, "resid": resid,
             "tol_resid": TOL_TRSV_RESID, "finite": bool(torch.isfinite(x).all()),
-            "seconds": seconds}
-    if not (line["route"] == "trsv" and line["launches"] == 1 and line["finite"]
-            and resid <= TOL_TRSV_RESID):
+            "rel_err_vs_plain": rel, "rel_err_vs_f64": kernel_rel,
+            "plain_rel_err_vs_f64": plain_rel, "max_abs_err": max_abs(x, plain),
+            "digest": digest(x), "seconds": seconds,
+            "ms": median_ms(lambda: trsv.tri_inverse(l)),
+            "plain_ms": median_ms(lambda: ref.tri_inverse(l), reps=5),
+            "library_ms": median_ms(
+                lambda: torch.linalg.solve_triangular(l, eye, upper=False)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    if not (line["route"] == "trsv" and launches == 1 and line["finite"]
+            and resid <= TOL_TRSV_RESID
+            and (rel <= TOL_TRSV_PLAIN or kernel_rel <= 2.0 * plain_rel)):
         raise AssertionError(f"tri_inverse n={n}: {line}")
     return {"phase": "kernels", "kernel": "trsv beyond the L X = I limit", **line}
 
@@ -1277,6 +1463,160 @@ def mixed_path(dev):
             opt, gp.refactor(standardized, opt.kernel), space)})
     emit(line)
     return launches, (opt, objective), state, hist
+
+
+def append_counts() -> dict:
+    """Launches the append phase must make: the factor at n_max - 128 and
+    the posterior's factor, one solve a row, three posterior solves (z,
+    alpha, L^{-1} K*); no gram (its Grams are built before the counters
+    are set to 0, and `dense_posterior` calls the kernel function)."""
+    return {"matern": 0, "mixed": 0, "acq": 0, "acq_mixed": 0,
+            "chol": 2, "trsv": APPEND_ROWS + 3}
+
+
+def plain_appends(l_buf, p_block, c_block, n0: int):
+    """`core/cholesky.lazy_append_block` with the plain solve, in l_buf's
+    dtype."""
+    from repro_torch.kernels import ops, ref
+    for i in range(p_block.shape[0]):
+        q = ref.trsv(l_buf, p_block[i].to(l_buf.dtype)[:, None])[:, 0]
+        d = torch.sqrt(torch.clamp(c_block[i].to(l_buf.dtype) - q @ q,
+                                   min=ops.CLAMP_EPS))
+        l_buf = ops.write_append_row(l_buf, q, d, n0 + i)
+    return l_buf
+
+
+def plain_posterior(x, y, xq, kern, params, dtype):
+    """`gp.dense_posterior` with the plain factor and solves, in dtype."""
+    from repro_torch.core.kernels import KernelParams
+    from repro_torch.kernels import ref
+    x, y, xq = x.to(dtype), y.to(dtype), xq.to(dtype)
+    p = KernelParams(*(torch.as_tensor(v, dtype=dtype, device=x.device)
+                       for v in (params.sigma2, params.rho, params.noise2)))
+    k = kern(x, x, p) + p.noise2 * torch.eye(x.shape[0], dtype=dtype, device=x.device)
+    l = ref.cholesky(k)
+    resid = y - torch.mean(y)
+    k_star = kern(x, xq, p)
+    alpha = ref.trsv(l, ref.trsv(l, resid[:, None]), trans=True)[:, 0]
+    v = ref.trsv(l, k_star)
+    var = torch.clamp(torch.diagonal(kern(xq, xq, p)) - torch.sum(v * v, dim=0),
+                      min=1e-12)
+    return k_star.T @ alpha + torch.mean(y), var
+
+
+def append_path(dev):
+    """The append phase: the paper's Alg. 3 by triangular solve, which
+    `benchmarks/bench_cholesky.py` times against a refactor (Fig. 5), on the
+    Levy-5d state at n_max = 1024.  Factor the padded Gram of the first 896
+    points (`ops.padded_cholesky`), absorb the other 128 one row at a time
+    (`core/cholesky.lazy_append_block`: one general solve a row), then the
+    exact-GP posterior on all 1024 at 64 query points (`gp.dense_posterior`:
+    a factor and three solves).  Every counter is set to 0 just before and
+    read just after; then the final factor is held to `ops.padded_cholesky`
+    of the whole padded Gram and to the same appends through the plain
+    solve, the posterior to the plain versions and to `gp.posterior` on the
+    lazy state, and the per-append ms printed beside one refactor's
+    (`padded_cholesky` and `padded_tri_inverse` at n = 1024)."""
+    from repro_torch.core import cholesky as chol_core
+    from repro_torch.core import gp
+    from repro_torch.kernels import ops, trsv
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(APPEND_ROWS)
+    st, kern = levy_state(dev, gen, n_seed=N_MAX)
+    n0 = N_MAX - APPEND_ROWS
+    k_full = ops.masked_gram(st.x_buf, N_MAX, kern, st.params)
+    k0 = ops.masked_gram(st.x_buf, n0, kern, st.params)
+    idx = torch.arange(N_MAX, device=dev)
+    p_block = torch.stack([torch.where(idx < n0 + i, k_full[:, n0 + i], 0.0)
+                           for i in range(APPEND_ROWS)])
+    c_block = torch.diagonal(k_full)[n0:].contiguous()
+    xq = torch.rand((APPEND_QUERIES, DIM), generator=gen, device=dev)
+    x, y = st.x_buf, st.y_buf
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    l0 = ops.padded_cholesky(k0)
+    l_app = chol_core.lazy_append_block(l0, p_block, c_block, n0, n_max=N_MAX)
+    mean, var = gp.dense_posterior(x, y, xq, kern, st.params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if launches != append_counts():
+        raise AssertionError(f"append: launches {launches}, expected {append_counts()}")
+
+    # The factor: against the refactor of the whole padded Gram, and against
+    # the same appends through the plain solve (float32 and float64).
+    l_full = ops.padded_cholesky(k_full)
+    l_plain = plain_appends(l0, p_block, c_block, n0)
+    l_f64 = plain_appends(l0.double(), p_block, c_block, n0)
+    recon = float(rel_err(l_app @ l_app.T, k_full))
+    plain_recon = float(rel_err(l_plain @ l_plain.T, k_full))
+    rel, plain_rel = float(rel_err(l_app, l_plain)), float(rel_err(l_plain.double(), l_f64))
+    kernel_rel = float(rel_err(l_app.double(), l_f64))
+    factor = {"recon_rel": recon, "plain_recon_rel": plain_recon,
+              "refactor_recon_rel": float(rel_err(l_full @ l_full.T, k_full)),
+              "rel_err_vs_refactor": float(rel_err(l_app, l_full)),
+              "rel_err_vs_plain": rel, "rel_err_vs_f64": kernel_rel,
+              "plain_rel_err_vs_f64": plain_rel,
+              "finite": bool(torch.isfinite(l_app).all()),
+              "upper_zero": bool((torch.triu(l_app, 1) == 0).all())}
+    if not (factor["finite"] and factor["upper_zero"]
+            and recon <= max(TOL_CHOL_RECON, 2.0 * plain_recon)
+            and (rel <= TOL_CHOL_PLAIN or kernel_rel <= 2.0 * plain_rel)):
+        raise AssertionError(f"append factor: {factor}")
+
+    # The posterior: against the plain versions and the lazy state's.
+    mean_p, var_p = plain_posterior(x, y, xq, kern, st.params, torch.float32)
+    mean_d, var_d = plain_posterior(x, y, xq, kern, st.params, torch.float64)
+    full = dataclasses.replace(st, n=N_MAX)
+    mean_l, var_l = gp.posterior(gp.refactor(full, kern), kern, xq)
+    posterior = {"finite": bool(torch.isfinite(mean).all() and torch.isfinite(var).all())}
+    ok = posterior["finite"]
+    for name, got, plain, lazy, exact in (("mean", mean, mean_p, mean_l, mean_d),
+                                          ("var", var, var_p, var_l, var_d)):
+        held_p, d_p = held_to_plain(got, plain, exact, TOL_POSTERIOR)
+        held_l, d_l = held_to_plain(got, lazy, exact, TOL_POSTERIOR)
+        posterior[name] = {"vs_plain": d_p, "vs_lazy": d_l}
+        ok = ok and held_p and held_l
+    if not ok:
+        raise AssertionError(f"append posterior: {posterior}")
+
+    # Fig. 5's pair on this card: one append (the solve and the row write)
+    # against one refactor at n = 1024.
+    append_ms = median_ms(lambda: chol_core.lazy_append_block(
+        l0, p_block, c_block, n0, n_max=N_MAX), reps=5) / APPEND_ROWS
+    solve_ms = median_ms(lambda: trsv.trsv(l_app, p_block[-1]))    # the last row's
+    refactor_ms = median_ms(lambda: ops.padded_tri_inverse(ops.padded_cholesky(k_full)))
+    line = {"phase": "append", "n_factored": n0, "rows_appended": APPEND_ROWS,
+            "n_final": N_MAX, "queries": APPEND_QUERIES, "launches": launches,
+            "seconds": seconds, "factor": factor, "posterior": posterior,
+            "append_ms": append_ms, "append_solve_ms": solve_ms,
+            "refactor_ms": refactor_ms, "refactor_over_append": refactor_ms / append_ms}
+    emit(line)
+    return launches
+
+
+def trsv_launches(dev) -> dict:
+    """Phase 6: one call of the general solve at each of `trsv_cases`'
+    shapes and at B = I, n = 6144, under torch.profiler: each must be
+    exactly one device kernel (`trsv_kernel`, no copy, no fill); its
+    device ms."""
+    from repro_torch.kernels import trsv
+    cases = trsv_cases(dev)
+    l = beyond_limit_factor(dev, 6144)
+    cases["B=I, n=6144"] = (l, torch.eye(l.shape[-1], device=dev), False)
+    out = {}
+    for tag, (l, b, trans) in cases.items():
+        split = device_split(lambda: trsv.trsv_cuda(l, b, trans=trans))
+        names = [(e["name"], e["count"]) for e in split["by_name"]]
+        if len(names) != 1 or names[0][1] != 1 or "trsv_kernel" not in names[0][0]:
+            raise AssertionError(f"trsv {tag}: device activity {split['by_name']}")
+        out[tag] = {"device_ms": split["busy_ms"], "kernel": names[0][0],
+                    "plan": dataclasses.asdict(trsv.launch_plan(
+                        l.shape[-1], b.shape[-1], l[..., 0, 0].numel(), trans))}
+    emit({"phase": "profile", "kernel": "trsv general", "launch": out})
+    return out
 
 
 def record_ascent(opt, state, space) -> dict:
@@ -1530,7 +1870,14 @@ def main() -> int:
     emit(ei_shapes(dev))
     emit({"phase": "kernels", "kernel": "fused_ei_grad_mixed accuracy spread",
           **ei_accuracy_spread(dev)})
-    emit(tri_inverse_beyond_limit(dev))
+    beyond = tri_inverse_beyond_limit(dev)
+    emit(beyond)
+    trsv_row = next(row for row in rows if row["name"] == "trsv")
+    if beyond["digest"] != trsv_row["digest"]["B=I, n=6144"]:
+        raise AssertionError(f"trsv B=I n=6144 digest {beyond['digest']} through "
+                             f"trsv.tri_inverse, {trsv_row['digest']} through trsv_digests")
+    trsv_row["general"]["B=I, n=6144"] = {k: beyond[k] for k in GENERAL_KEYS
+                                          if k in beyond}
     digests = gram_digests(dev)
     line, gram_batched = gram_checks(dev, digests)
     emit(line)
@@ -1538,10 +1885,14 @@ def main() -> int:
         if row["name"] in gram_batched:
             row["batched"] = gram_batched[row["name"]]
     paths = {"main": main_path(dev), "mixed": mixed_path(dev)}
+    launches_by_path = {name: p[0] for name, p in paths.items()}
+    launches_by_path["append"] = append_path(dev)
     for name, (_, driver, state, hist) in paths.items():
         profile_steps(name, driver, state, hist)
     cholesky_launches(dev)
     tri_inverse_launches(dev)
+    for tag, line in trsv_launches(dev).items():
+        trsv_row["general"][tag]["device_ms"] = line["device_ms"]
     gram_device = gram_launches(dev)
     ei_device = ei_launches(dev)
     # Device time beside the event time from the kernels phase (the gram's
@@ -1558,7 +1909,7 @@ def main() -> int:
     kernels = []
     for row in rows:
         mod, source, replaces = SOURCES[row["name"]]
-        by_path = {name: p[0][mod] for name, p in paths.items()}
+        by_path = {name: counts[mod] for name, counts in launches_by_path.items()}
         kernels.append(dict(name=row["name"], route="cuda", source=source,
                             replaces=replaces, launches=sum(by_path.values()),
                             launches_by_path=by_path,
@@ -1566,7 +1917,7 @@ def main() -> int:
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"],
                             library_ms=row["library_ms"], shape=row["shape"],
-                            **{k: row[k] for k in ("general_ms", "batched",
+                            **{k: row[k] for k in ("general_ms", "batched", "general",
                                                    "device_ms", "host_gap_ms")
                                if k in row}))
     emit({"kernels": kernels})

@@ -59,32 +59,38 @@ def pad_identity(k: Tensor, n, noise2) -> Tensor:
 def _solve_diag(ld: Tensor, rhs: Tensor, trans: bool) -> Tensor:
     """Substitution on one (B, B) lower diagonal block, rhs (..., B, r)."""
     b = ld.shape[-1]
-    q = torch.zeros_like(rhs)
-    rows = range(b - 1, -1, -1) if trans else range(b)
-    for i in rows:
+    rows: list[Tensor] = [rhs[..., 0, :]] * b
+    for i in (range(b - 1, -1, -1) if trans else range(b)):
         if trans:   # row i of L^T is column i of L, solved rows are > i
-            coef, done = ld[..., i + 1:, i], q[..., i + 1:, :]
+            coef, done = ld[..., i + 1:, i], rows[i + 1:]
         else:
-            coef, done = ld[..., i, :i], q[..., :i, :]
+            coef, done = ld[..., i, :i], rows[:i]
+        done = torch.stack(done, dim=-2) if done else rhs[..., :0, :]
         acc = torch.sum(coef[..., :, None] * done, dim=-2)
-        q[..., i, :] = (rhs[..., i, :] - acc) / ld[..., i, i, None]
-    return q
+        rows[i] = (rhs[..., i, :] - acc) / ld[..., i, i, None]
+    return torch.stack(rows, dim=-2)
 
 
 def trsv(l: Tensor, b: Tensor, *, trans: bool = False) -> Tensor:
-    """Lower-triangular solve L q = b (or L^T q = b), b (..., n, r)."""
+    """Lower-triangular solve L q = b (or L^T q = b), b (..., n, r).
+    Built without in-place writes, so autograd can run through it."""
     n = l.shape[-1]
-    q = torch.zeros_like(b)
     starts = list(range(0, n, BLOCK))
+    blocks: dict[int, Tensor] = {}
     for s in (reversed(starts) if trans else starts):
         e = min(s + BLOCK, n)
         if trans:
-            part = l[..., e:, s:e].transpose(-1, -2) @ q[..., e:, :]
+            done = [blocks[t] for t in starts if t >= e]
+            part = l[..., e:, s:e].transpose(-1, -2) @ (
+                torch.cat(done, dim=-2) if done else b[..., :0, :])
         else:
-            part = l[..., s:e, :s] @ q[..., :s, :]
-        q[..., s:e, :] = _solve_diag(l[..., s:e, s:e], b[..., s:e, :] - part,
-                                     trans)
-    return q
+            done = [blocks[t] for t in starts if t < s]
+            part = l[..., s:e, :s] @ (
+                torch.cat(done, dim=-2) if done else b[..., :0, :])
+        blocks[s] = _solve_diag(l[..., s:e, s:e], b[..., s:e, :] - part, trans)
+    if not blocks:
+        return torch.zeros_like(b)
+    return torch.cat([blocks[s] for s in starts], dim=-2)
 
 
 def tri_inverse(l: Tensor) -> Tensor:

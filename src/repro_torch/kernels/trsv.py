@@ -2,12 +2,20 @@
 
 Counterpart of `repro/kernels/trsv.py`.  `trsv(l, b, trans=...)` solves
 L q = b or L^T q = b for a lower-triangular L (..., n, n) and b (..., n, r),
-with optional leading batch dimensions (the kernel's blockIdx.z).  It is an
-`autograd.Function` with the reference's textbook VJP (`_trsv_bwd`), whose
-backward solve reruns the same kernel with `trans` flipped:
+with optional leading batch dimensions.  It is an `autograd.Function` with
+the reference's textbook VJP (`_trsv_bwd`), whose backward solve reruns the
+same kernel with `trans` flipped:
 
     q = L^{-1} b :  b_bar = L^{-T} q_bar,  L_bar = -tril(b_bar q^T)
     q = L^{-T} b :  b_bar = L^{-1} q_bar,  L_bar = -tril(q b_bar^T)
+
+On the card the general solve (`repro_trsv`) is one launch in one of two
+regimes (`launch_plan`): a narrow b (r <= `NARROW_MAX_R`: the append, the
+posterior's vectors) spreads its row blocks over the card as a wavefront
+of CTAs that hand solved blocks on through scratch kept per device and
+stream (`_SCRATCH`, left at 0 by the kernel); a wide b gives each CTA a
+panel of 8 columns.  L q = b keeps the earlier kernel's bits; L^T q = b sums
+in the order the rows are solved (csrc/trsv.cu).
 
 `tri_inverse(l)` is the solve at b = I, X = L^{-1}, on its own kernel
 (`repro_tri_inverse`), which skips the zero half of X and takes no b; it
@@ -18,6 +26,10 @@ kernels count their launches in `LAUNCHES`.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
+
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -26,7 +38,7 @@ Tensor = torch.Tensor
 
 SOURCE = "trsv"
 LAUNCHES = 0      # kernel launches since the caller last set it to 0
-_SIGNATURES = {"repro_trsv": (_build.ptr,) * 3 + (_build.cint,) * 4
+_SIGNATURES = {"repro_trsv": (_build.ptr,) * 4 + (_build.cint,) * 8
                + (_build.ptr,),
                "repro_tri_inverse": (_build.ptr,) * 2 + (_build.cint,) * 2
                + (_build.ptr,)}
@@ -38,9 +50,117 @@ _STAGE_BYTES = 2 * 128 * 36 * 4
 _MAX_SHARED = 232448
 MAX_N = (_MAX_SHARED - _STAGE_BYTES) // (4 * PANEL) // 32 * 32
 
+# csrc/trsv.cu, repro_trsv (namespace gen): a CTA owns a panel of 8 columns
+# of q and walks tiles of 32 columns of L (row stride 36 floats) through a
+# cp.async ring; after the ring and its window of q's rows it keeps 16 bytes
+# of control words.  Narrow: one CTA per block of rows, 8 stages, a window
+# of two blocks; wide: one CTA per panel, 128-row blocks, the panel's rows
+# of q resident (2 stages) when they fit, else a window of two blocks and
+# 4 stages.  The narrow regime is faster for every dense b of up to 512
+# columns at n = 1024 (PERF.md); the wide one skips the zero rows
+# of b, which makes it the faster at b = I.
+NARROW_MAX_R = 512
+TILE_K, TILE_LD = 32, 36
+NARROW_STAGES, WIDE_STAGES, WIDE_STAGES_STREAMED = 8, 2, 4
+WIDE_ROWS = 128
+CTRL_BYTES = 16
+SCRATCH_HEAD = 2          # ticket, CTAs done; then a word per (matrix, panel)
+REGIMES = ("narrow", "wide")
+_GRID_MAX = 2**31 - 1
+# (device index, stream) -> the narrow regime's scratch, kept across calls.
+_SCRATCH: dict[tuple[int, int], Tensor] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call of `repro_trsv` is cut."""
+    regime: str            # "narrow" (blocks of rows over CTAs) or "wide"
+    rows: int              # rows of q a CTA solves per block
+    stages: int            # depth of the cp.async ring of tiles of L
+    cols: int              # columns of q a CTA owns (a panel)
+    grid: int              # CTAs
+    shared_bytes: int      # dynamic shared memory of one CTA
+    scratch_ints: int      # narrow: ticket, done, a word per (matrix, panel)
+    resident: bool         # wide: the panel's rows of q stay in shared memory
+
+
+def narrow_rows(n: int) -> int:
+    """Rows per block of the narrow regime: 128, or fewer so that a matrix
+    of n >= 64 rows still spreads over at least two CTAs."""
+    return 32 if n <= 64 else 64 if n <= 128 else 128
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(n: int, r: int, batch: int, trans: bool = False,
+                regime: str | None = None) -> LaunchPlan:
+    """The regime, rows per block, columns per CTA, grid, dynamic shared
+    bytes and scratch of one call on `batch` systems of n rows and r
+    right-hand sides: the single source of these numbers for the wrapper
+    and the C entry, which checks them.  `regime` None picks by r; the
+    geometry does not depend on `trans`."""
+    if min(n, r, batch) < 1:
+        raise ValueError(f"trsv launch plan needs n, r, batch >= 1, got "
+                         f"{n}, {r}, {batch}")
+    if regime is None:
+        regime = "narrow" if r <= NARROW_MAX_R else "wide"
+    if regime not in REGIMES:
+        raise ValueError(f"trsv regime must be one of {REGIMES}, got {regime!r}")
+    panels = -(-r // PANEL)
+    n_pad = -(-n // TILE_K) * TILE_K
+    if regime == "narrow":
+        rows, stages, resident = narrow_rows(n), NARROW_STAGES, False
+        qrows = 2 * rows
+        grid = batch * panels * -(-n // rows)
+        scratch = SCRATCH_HEAD + batch * panels
+    else:
+        rows = WIDE_ROWS
+        ring = 4 * WIDE_STAGES * rows * TILE_LD + CTRL_BYTES
+        resident = ring + 4 * n_pad * PANEL <= _MAX_SHARED
+        stages = WIDE_STAGES if resident else WIDE_STAGES_STREAMED
+        qrows = n_pad if resident else 2 * rows
+        grid, scratch = batch * panels, 0
+    if grid > _GRID_MAX or scratch > _GRID_MAX:
+        raise ValueError(f"trsv kernel: {batch} systems of n = {n}, r = {r} "
+                         f"need more CTAs than one grid holds")
+    smem = 4 * (stages * rows * TILE_LD + qrows * PANEL) + CTRL_BYTES
+    return LaunchPlan(regime=regime, rows=rows, stages=stages, cols=PANEL,
+                      grid=grid, shared_bytes=smem, scratch_ints=scratch,
+                      resident=resident)
+
+
+def narrow_order(n: int, r: int, batch: int, trans: bool = False
+                 ) -> list[tuple[int, int, int]]:
+    """(matrix, panel, block) of each ticket of the narrow regime, as the
+    kernel maps them: block by block in solve order (top down for L,
+    bottom up for L^T), matrix then panel fastest."""
+    plan = launch_plan(n, r, batch, trans, "narrow")
+    nblk, per = -(-n // plan.rows), plan.grid // -(-n // plan.rows)
+    order = []
+    for ticket in range(plan.grid):
+        step, rem = divmod(ticket, per)
+        order.append((rem % batch, rem // batch,
+                      nblk - 1 - step if trans else step))
+    return order
+
+
+def _scratch(dev: torch.device, stream: int, ints: int) -> Tensor:
+    """This device and stream's scratch, grown to `ints`.  Zeroed when it is
+    allocated; the kernel leaves it 0, so calls in stream order share it."""
+    key = (dev.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < ints:
+        buf = torch.zeros(ints, dtype=torch.int32, device=dev)
+        _SCRATCH[key] = buf
+    return buf
+
 
 def trsv_cuda(l: Tensor, b: Tensor, *, trans: bool = False) -> Tensor:
     """Launch the kernel: l (..., n, n), b (..., n, r) float32 CUDA."""
+    return _launch(l, b, trans, None)
+
+
+def _launch(l: Tensor, b: Tensor, trans: bool, regime: str | None) -> Tensor:
+    """`trsv_cuda` in the given regime (None: the plan's choice)."""
     global LAUNCHES
     if l.device.type != "cuda" or b.device != l.device:
         raise ValueError(f"trsv kernel needs CUDA tensors on one device, "
@@ -52,15 +172,20 @@ def trsv_cuda(l: Tensor, b: Tensor, *, trans: bool = False) -> Tensor:
             or b.shape[:-1] != l.shape[:-1]):
         raise ValueError(f"trsv kernel takes (..., n, n) and (..., n, r), got "
                          f"{tuple(l.shape)} and {tuple(b.shape)}")
-    batch = l[..., 0, 0].numel()
-    if batch > 65535:
-        raise ValueError(f"trsv kernel takes at most 65535 systems, got {batch}")
     l, b = l.contiguous(), b.contiguous()
     q = torch.empty_like(b)
+    batch, r = math.prod(l.shape[:-2]), b.shape[-1]
+    if batch == 0 or n == 0 or r == 0:
+        return q
+    plan = launch_plan(n, r, batch, trans, regime)
     lib = _build.load(SOURCE, _SIGNATURES)
-    status = lib.repro_trsv(l.data_ptr(), b.data_ptr(), q.data_ptr(), batch, n,
-                            b.shape[-1], int(trans),
-                            torch.cuda.current_stream(l.device).cuda_stream)
+    # The current stream's handle without building a Python Stream object.
+    stream = torch._C._cuda_getCurrentRawStream(l.device.index)
+    scratch = (_scratch(l.device, stream, plan.scratch_ints).data_ptr()
+               if plan.scratch_ints else None)
+    status = lib.repro_trsv(l.data_ptr(), b.data_ptr(), q.data_ptr(), scratch,
+                            batch, n, r, int(trans), REGIMES.index(plan.regime),
+                            plan.rows, plan.stages, plan.shared_bytes, stream)
     LAUNCHES += 1
     _build.check(lib, status, "trsv")
     return q
@@ -139,10 +264,16 @@ class _Trsv(torch.autograd.Function):
 
 def trsv(l: Tensor, b: Tensor, *, trans: bool = False) -> Tensor:
     """Solve L q = b (trans=False) or L^T q = b (trans=True); b is a
-    vector (..., n) or a matrix (..., n, r).  Differentiable in l and b."""
-    if b.ndim == l.ndim - 1:
-        return _Trsv.apply(l, b[..., None], trans)[..., 0]
-    return _Trsv.apply(l, b, trans)
+    vector (..., n) or a matrix (..., n, r).  Differentiable in l and b;
+    where no gradient is wanted the solve runs without the autograd node
+    (the appends call it once a row)."""
+    vector = b.ndim == l.ndim - 1
+    rhs = b[..., None] if vector else b
+    if torch.is_grad_enabled() and (l.requires_grad or b.requires_grad):
+        q = _Trsv.apply(l, rhs, trans)
+    else:
+        q = _solve(l, rhs, trans)
+    return q[..., 0] if vector else q
 
 
 def inverse_entry(n: int) -> str:
