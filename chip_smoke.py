@@ -7,9 +7,10 @@ Phases, each printing one JSON line:
   1. device  — the card's name and power limit as nvidia-smi reports them;
                TF32 off for matmuls and convolutions (fp32 like the reference).
   2. build   — nvcc builds the five kernel libraries of
-               `src/repro_torch/csrc/` (six kernels: acq.cu holds the float
-               and the mixed fused EI), one process per source, all
-               started together.
+               `src/repro_torch/csrc/` (seven kernels: acq.cu holds the
+               float and the mixed fused EI, trsv.cu L X = I and the
+               general solve), one process per source, all started
+               together.
   3. kernels — each kernel against its plain PyTorch version on the card,
                on the same inputs at the main path's shapes (the factor and
                the solve also as the lag refit's batch of 18 grid
@@ -33,7 +34,21 @@ Phases, each printing one JSON line:
                instantiation); the mixed form's accuracy spread over
                seeds (informational); L X = I at n = 6144 through
                `trsv.tri_inverse`, past the L X = I kernel's limit, on the
-               general kernel, within TOL_TRSV_RESID.  Both grams
+               general kernel, within TOL_TRSV_RESID.  The general solve
+               (`trsv_cuda`, C entry `repro_trsv`; `general_solves`) at
+               r = 1 forward and transposed at n = 1024 and 4096, ragged
+               n = 1000 at r = 1, a batch of 3 studies at r = 1, r = 64
+               (the posterior's L^{-1} K*), B = I at n = 1024, on the lag
+               refit's 18 factors and at n = 6144, and L^T Q = G at r = n
+               (L X = I's VJP, n = 1024): each held to the plain
+               version (or twice its float64 error), two calls torch.equal,
+               CUDA-event ms beside the plain version's,
+               `torch.linalg.solve_triangular`'s (timed only) and the
+               bound; digests of the forward shapes cross-checked against
+               `trsv_digests` (imported by path with PYTHONPATH of an
+               unpacked parent's `src`, it prints the parent's digests:
+               the A/B of Q's bits), and both regimes side by side at
+               n = 1024 and 4096 (`regimes_by_r`, bitwise equal).  Both grams
                (`gram_checks`) at the 1024^2 Gram, the 1024 x 1 column,
                the lag refit's batch of 18 masked Grams over one state in
                one launch (Levy-5d and the mixed workload, n = 960), a
@@ -54,8 +69,8 @@ Phases, each printing one JSON line:
                x 25 ascent steps, 960 seed points, 48 rounds, lag 32).  Every
                launch counter is set to 0 just before and read just after;
                each kernel must have run the number of times the path
-               implies (`expected_counts`: 51 grams, 3 factors, 3 solves,
-               1248 fused EI).  Suggestions in bounds, best value finite, at least
+               implies (`expected_counts`: 51 grams, 3 factors, 3 L X = I,
+               1248 fused EI, no general solve).  Suggestions in bounds, best value finite, at least
                one suggestion with a positive EI (the count of those with
                EI 0 is printed), and the final factor and inverse
                consistent with the Gram.
@@ -66,7 +81,20 @@ Phases, each printing one JSON line:
                launch counts (the float Matérn gram and float EI 0), every
                suggestion on the feasible lattice, and a recorded ascent
                showing which coordinates the gradient steps move.
-  6. profile — four more rounds of each path under torch.profiler: device
+  6. append  — the paper's Alg. 3 by triangular solve (Fig. 5's pair) on
+               the Levy-5d state at n_max = 1024: `ops.padded_cholesky` at
+               n = 896, 128 rows one at a time through
+               `core/cholesky.lazy_append_block` (one general solve a row),
+               then `gp.dense_posterior` on all 1024 points at 64 query
+               points.  Launches exactly: general solve 131 (128 appends,
+               3 posterior solves), Cholesky 2, the rest 0 (L X = I
+               included).  The final factor is held to the refactor of the
+               whole padded Gram and to the same appends through the plain
+               solve, the posterior to the plain versions and to
+               `gp.posterior` on the lazy state; the line prints one
+               append's ms beside one refactor's (`padded_cholesky` and
+               `padded_tri_inverse` at n = 1024).
+  7. profile — four more rounds of each path under torch.profiler: device
                busy share and device time by kernel; then one Cholesky
                call at n = 1024 and one on the lag refit's batch, each of
                which must be one device kernel (beside the wrapper's copy
@@ -78,15 +106,20 @@ Phases, each printing one JSON line:
                Grams, the refactor's masked Gram and the append's column
                of each form, each exactly one device kernel; one
                call of each fused-EI form, each exactly one device
-               kernel, whose device ms go beside its event ms.
+               kernel, whose device ms go beside its event ms; one call of
+               the general solve at each of its shapes, each exactly one
+               device kernel.
                Nothing is profiled before the paths' timings are taken.
-Then the `{"kernels": [...]}` line, the nvidia-smi line and, last,
+Then the `{"kernels": [...]}` line (seven kernels: L X = I and the general
+solve, two C entries of `csrc/trsv.cu`, count apart; launches per path:
+main, mixed, append), the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -142,18 +175,23 @@ def emit(obj) -> None:
 
 
 def reset_counts() -> None:
-    """Set every launch counter to 0 (the mixed fused EI counts apart)."""
-    from repro_torch.kernels import KERNEL_MODULES, acq
+    """Set every launch counter to 0 (the mixed fused EI and the general
+    solve count apart)."""
+    from repro_torch.kernels import KERNEL_MODULES, acq, trsv
     for mod in KERNEL_MODULES:
         mod.LAUNCHES = 0
     acq.LAUNCHES_MIXED = 0
+    trsv.LAUNCHES_GENERAL = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels import KERNEL_MODULES, acq
+    """Launches by C entry: `trsv` is L X = I, `trsv_general` the general
+    solve."""
+    from repro_torch.kernels import KERNEL_MODULES, acq, trsv
     counts = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
               for mod in KERNEL_MODULES}
     counts["acq_mixed"] = acq.LAUNCHES_MIXED
+    counts["trsv_general"] = trsv.LAUNCHES_GENERAL
     return counts
 
 
@@ -859,7 +897,14 @@ def check_kernels(dev, gen) -> list[dict]:
     rows.append(dict(name="trsv", shape="L X = I, (1024,1024)",
                      max_abs_err=max_abs(x_k, x_p), ms=ms, general_ms=general_ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib_ms, batched=compact(batched),
+                     library_ms=lib_ms, batched=compact(batched)))
+    # The general solve's row: the append's shape, r = 1 at n = 1024, with
+    # every shape of `trsv_cases` beside it.
+    append_shape = general["shapes"][GENERAL_ROW_SHAPE]
+    rows.append(dict(name="trsv_general", shape=f"L q = b, {GENERAL_ROW_SHAPE}",
+                     **{k: append_shape[k] for k in
+                        ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")},
                      general={tag: {k: v for k, v in line.items()
                                     if k in GENERAL_KEYS}
                               for tag, line in general["shapes"].items()},
@@ -988,6 +1033,7 @@ def check_kernels(dev, gen) -> list[dict]:
 
 GENERAL_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "regime")
+GENERAL_ROW_SHAPE = "r=1, n=1024"      # the general solve's row: the append's
 
 
 def beyond_limit_factor(dev, n: int):
@@ -1004,9 +1050,10 @@ def trsv_cases(dev) -> dict:
     """The general solve's shapes, tag -> (L, B, trans): r = 1 both ways at
     n = 1024 (the Levy-5d refactor factor) and 4096, ragged n = 1000, three
     studies at r = 1 (three of the lag refit's factors), L^{-1} K* at 64
-    query points (the posterior's), and B = I on one and on the lag refit's
-    18 factors.  Built from a generator seeded TRSV_SEED through entry
-    points the parent tree also has."""
+    query points (the posterior's), B = I on one and on the lag refit's
+    18 factors, and L^T Q = G at r = n (the backward solve of L X = I's
+    VJP, the wide regime's caller).  Built from a generator seeded
+    TRSV_SEED through entry points the parent tree also has."""
     from repro_torch.kernels import chol, ops
     gen = torch.Generator(device=dev)
     gen.manual_seed(TRSV_SEED)
@@ -1019,6 +1066,7 @@ def trsv_cases(dev) -> dict:
     vec_big = torch.randn((l_big.shape[-1], 1), generator=gen, device=dev)
     vecs = torch.randn((3, n, 1), generator=gen, device=dev)
     xq = torch.rand((APPEND_QUERIES, DIM), generator=gen, device=dev)
+    g_vjp = torch.randn((n, n), generator=gen, device=dev)
     active = torch.arange(n, device=dev)[:, None] < st.n
     k_star = torch.where(active, ops.kernel_gram(kern, st.x_buf, xq, st.params), 0.0)
     eye = torch.eye(n, device=dev)
@@ -1032,6 +1080,7 @@ def trsv_cases(dev) -> dict:
         "r=64, n=1024 (K*)": (l_fac, k_star, False),
         "B=I, n=1024": (l_fac, eye, False),
         f"{l_grid.shape[0]} x B=I, n=1024": (l_grid, eye.expand_as(l_grid).contiguous(), False),
+        "r=n, n=1024, trans (VJP)": (l_fac, g_vjp, True),
     }
 
 
@@ -1064,6 +1113,19 @@ def general_times(dev) -> dict:
             for tag, (l, b, trans) in cases.items()}
 
 
+@contextlib.contextmanager
+def regime(name: str, r: int):
+    """Move `trsv.NARROW_MAX_R` so that a B of r columns takes the regime
+    `name`, and put it back."""
+    from repro_torch.kernels import trsv
+    saved = trsv.NARROW_MAX_R
+    trsv.NARROW_MAX_R = r if name == "narrow" else r - 1
+    try:
+        yield
+    finally:
+        trsv.NARROW_MAX_R = saved
+
+
 def solve_bound(l, b) -> tuple[float, str]:
     """Least time of L Q = B: at r = 1, n (n + 1) / 2 FMAs; for B = I the
     n^3 / 3 flops of L X = I; else n^2 r flops; L's lower half, B and Q
@@ -1082,8 +1144,9 @@ def general_solves(dev) -> dict:
     TOL_TRSV_PLAIN), two calls bitwise equal, CUDA-event ms (median of
     20) beside the plain version's, `torch.linalg.solve_triangular`'s
     (timed only) and the bound; digests of the forward shapes, cross-checked
-    against `trsv_digests`; both regimes at r = 8 to 1024 (bitwise equal,
-    timed) for where they cross."""
+    against `trsv_digests`; both regimes at r = 8 to 1024 at n = 1024 and
+    at r = 64 and 512 at n = 4096 (bitwise equal, timed), by moving
+    `trsv.NARROW_MAX_R`, for where they cross."""
     from repro_torch.kernels import ref, trsv
     shapes, digests = {}, {}
     cases = trsv_cases(dev)
@@ -1117,22 +1180,26 @@ def general_solves(dev) -> dict:
         shapes[tag] = line
         if not trans:
             digests[tag] = digest(got)
-    # Where the regimes cross: a dense B of r columns at n = 1024 in each
-    # regime by events (`trsv.NARROW_MAX_R` is set from this); L Q = B keeps
-    # the same bits in both.
-    l_fac = cases["r=1, n=1024"][0]
+    # Where the regimes cross: a dense B of r columns at n = 1024 and 4096
+    # in each regime by events (`trsv.NARROW_MAX_R` is set from this); L Q = B
+    # keeps the same bits in both.
+    factors = {N_MAX: cases["r=1, n=1024"][0], 4096: cases["r=1, n=4096"][0]}
     gen = torch.Generator(device=dev)
     gen.manual_seed(TRSV_SEED)
     crossover = {}
-    for r in (8, 64, 512, 1024):
-        b = torch.randn((N_MAX, r), generator=gen, device=dev)
-        narrow, wide = (trsv._launch(l_fac, b, False, reg) for reg in trsv.REGIMES)
-        if not torch.equal(narrow, wide):
-            raise AssertionError(f"trsv r={r}: the regimes' bits differ")
-        crossover[f"r={r}"] = {
-            "picked": trsv.launch_plan(N_MAX, r, 1).regime,
-            **{f"{reg}_ms": median_ms(lambda: trsv._launch(l_fac, b, False, reg))
-               for reg in trsv.REGIMES}}
+    for nn, r in ((N_MAX, 8), (N_MAX, 64), (N_MAX, 512), (N_MAX, 1024),
+                  (4096, 64), (4096, 512)):
+        l_n = factors[nn]
+        b = torch.randn((l_n.shape[-1], r), generator=gen, device=dev)
+        picked = trsv.launch_plan(l_n.shape[-1], r, 1).regime
+        got, ms_by = {}, {}
+        for reg in trsv.REGIMES:
+            with regime(reg, r):
+                got[reg] = trsv.trsv_cuda(l_n, b)
+                ms_by[f"{reg}_ms"] = median_ms(lambda: trsv.trsv_cuda(l_n, b))
+        if not torch.equal(got["narrow"], got["wide"]):
+            raise AssertionError(f"trsv n={nn} r={r}: the regimes' bits differ")
+        crossover[f"n={nn}, r={r}"] = {"picked": picked, **ms_by}
     # B = I past the L X = I kernel's limit: `tri_inverse_beyond_limit`.
     rebuilt = trsv_digests(dev)
     if {k: v for k, v in rebuilt.items() if k in digests} != digests:
@@ -1301,7 +1368,8 @@ def ei_accuracy_spread(dev, seeds=range(1, 7)) -> dict:
 def tri_inverse_beyond_limit(dev, n: int = 6144) -> dict:
     """L X = I past the L X = I kernel's shared-memory limit (`trsv.MAX_N`),
     through `trsv.tri_inverse` on the card: it must take the general kernel
-    (`trsv.inverse_entry`), launch once, hold ||L X - I||_max (in float64)
+    (`trsv.inverse_entry`, counted in `trsv.LAUNCHES_GENERAL`), launch
+    once, hold ||L X - I||_max (in float64)
     within TOL_TRSV_RESID, and hold X to the plain version (TOL_TRSV_PLAIN,
     or twice its float64 error).  L is the port's Cholesky factor of a
     well-conditioned SPD matrix (`beyond_limit_factor`).  Timed by CUDA
@@ -1309,12 +1377,12 @@ def tri_inverse_beyond_limit(dev, n: int = 6144) -> dict:
     from repro_torch.kernels import ref, trsv
     l = beyond_limit_factor(dev, n)
     eye = torch.eye(n, device=dev)
-    before = trsv.LAUNCHES
+    before = trsv.LAUNCHES_GENERAL
     t0 = time.perf_counter()
     x = trsv.tri_inverse(l)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = trsv.LAUNCHES - before
+    launches = trsv.LAUNCHES_GENERAL - before
     resid = float((l.double() @ x.double() - eye.double()).abs().max())
     plain = ref.tri_inverse(l)
     exact = ref.tri_inverse(l.double())
@@ -1347,10 +1415,12 @@ def expected_counts(acq_cfg, gram: str, ei: str) -> dict:
     padded Grams in one launch of the masked gram, one factor, one solve),
     then refactors under the winner (one masked gram); each round's append
     builds one column; each suggest is 25 ascent steps and one final
-    evaluation.  The other path's gram and EI kernels stay at 0."""
+    evaluation.  The other path's gram and EI kernels and the general
+    solve stay at 0."""
     lag_events = ITERATIONS // LAG
     counts = {"matern": 0, "mixed": 0, "acq": 0, "acq_mixed": 0,
-              "trsv": 1 + 2 * lag_events, "chol": 1 + 2 * lag_events}
+              "trsv": 1 + 2 * lag_events, "trsv_general": 0,
+              "chol": 1 + 2 * lag_events}
     counts[gram] = 1 + 2 * lag_events + ITERATIONS
     counts[ei] = ITERATIONS * (acq_cfg.ascent_steps + 1)
     return counts
@@ -1467,11 +1537,12 @@ def mixed_path(dev):
 
 def append_counts() -> dict:
     """Launches the append phase must make: the factor at n_max - 128 and
-    the posterior's factor, one solve a row, three posterior solves (z,
-    alpha, L^{-1} K*); no gram (its Grams are built before the counters
-    are set to 0, and `dense_posterior` calls the kernel function)."""
+    the posterior's factor, one general solve a row, three posterior
+    solves (z, alpha, L^{-1} K*); no L X = I; no gram (its Grams are built
+    before the counters are set to 0, and `dense_posterior` calls the
+    kernel function)."""
     return {"matern": 0, "mixed": 0, "acq": 0, "acq_mixed": 0,
-            "chol": 2, "trsv": APPEND_ROWS + 3}
+            "chol": 2, "trsv": 0, "trsv_general": APPEND_ROWS + 3}
 
 
 def plain_appends(l_buf, p_block, c_block, n0: int):
@@ -1598,7 +1669,7 @@ def append_path(dev):
 
 
 def trsv_launches(dev) -> dict:
-    """Phase 6: one call of the general solve at each of `trsv_cases`'
+    """Phase 7: one call of the general solve at each of `trsv_cases`'
     shapes and at B = I, n = 6144, under torch.profiler: each must be
     exactly one device kernel (`trsv_kernel`, no copy, no fill); its
     device ms."""
@@ -1655,7 +1726,7 @@ def record_ascent(opt, state, space) -> dict:
 
 
 def cholesky_launches(dev) -> None:
-    """Phase 6: the factor of the main path's refactor input and of the lag
+    """Phase 7: the factor of the main path's refactor input and of the lag
     refit's batch, one call each under torch.profiler, must each be one
     device kernel (beside the wrapper's copy and the memset of the barrier
     counters); prints the launch plan.  Runs after the paths, since a
@@ -1681,7 +1752,7 @@ def cholesky_launches(dev) -> None:
 
 
 def tri_inverse_launches(dev) -> None:
-    """Phase 6: L X = I on the main path's refactor factor and on the lag
+    """Phase 7: L X = I on the main path's refactor factor and on the lag
     refit's batch, one call each under torch.profiler, must each be one
     device kernel and nothing else (no identity built or copied); then
     one lag event by device time (`lag_event_split`)."""
@@ -1703,7 +1774,7 @@ def tri_inverse_launches(dev) -> None:
 
 
 def ei_launches(dev) -> dict:
-    """Phase 6: one call of each fused-EI form at r = 64, n = 1024 (the
+    """Phase 7: one call of each fused-EI form at r = 64, n = 1024 (the
     standardized states of the kernels phase's kind) under torch.profiler
     must be exactly one device kernel and nothing else: no copy, no memset
     (the scratch is kept across calls); its device ms, with the plan."""
@@ -1762,7 +1833,7 @@ def lag_event_split(dev) -> dict:
 
 
 def gram_launches(dev) -> dict:
-    """Phase 6: one call of each form under torch.profiler for the 1024^2
+    """Phase 7: one call of each form under torch.profiler for the 1024^2
     Gram of the kernels phase, the lag refit's batch of 18 masked Grams
     (`lag_batch`), the refactor's single masked Gram and the append's
     column; each must be exactly one device kernel and nothing else (no
@@ -1794,7 +1865,7 @@ def gram_launches(dev) -> dict:
 
 
 def profile_steps(name, driver, state, hist, steps: int = 4) -> None:
-    """Phase 6: a few more BO rounds of a path (continuing its state) under
+    """Phase 7: a few more BO rounds of a path (continuing its state) under
     torch.profiler: wall time, device busy time and its share, and the
     device time by kernel.  Runs after the launch counts were read."""
     from torch.autograd import DeviceType
@@ -1833,6 +1904,8 @@ SOURCES = {
                  "src/repro/kernels/chol.py:65"),
     "trsv": ("trsv", "src/repro_torch/csrc/trsv.cu",
              "src/repro/kernels/trsv.py:60"),
+    "trsv_general": ("trsv_general", "src/repro_torch/csrc/trsv.cu",
+                     "src/repro/kernels/trsv.py:60"),
     "fused_ei_grad": ("acq", "src/repro_torch/csrc/acq.cu",
                       "src/repro/kernels/acq.py:141"),
     "mixed_gram": ("mixed", "src/repro_torch/csrc/mixed.cu",
@@ -1872,7 +1945,7 @@ def main() -> int:
           **ei_accuracy_spread(dev)})
     beyond = tri_inverse_beyond_limit(dev)
     emit(beyond)
-    trsv_row = next(row for row in rows if row["name"] == "trsv")
+    trsv_row = next(row for row in rows if row["name"] == "trsv_general")
     if beyond["digest"] != trsv_row["digest"]["B=I, n=6144"]:
         raise AssertionError(f"trsv B=I n=6144 digest {beyond['digest']} through "
                              f"trsv.tri_inverse, {trsv_row['digest']} through trsv_digests")
@@ -1893,6 +1966,8 @@ def main() -> int:
     tri_inverse_launches(dev)
     for tag, line in trsv_launches(dev).items():
         trsv_row["general"][tag]["device_ms"] = line["device_ms"]
+    trsv_row["device_ms"] = trsv_row["general"][GENERAL_ROW_SHAPE]["device_ms"]
+    trsv_row["host_gap_ms"] = trsv_row["ms"] - trsv_row["device_ms"]
     gram_device = gram_launches(dev)
     ei_device = ei_launches(dev)
     # Device time beside the event time from the kernels phase (the gram's

@@ -96,12 +96,16 @@
 //     finish sets it back to 0, so back-to-back calls need no memset.
 //   * Wide (r > 512): one CTA per panel walks 128-row blocks (4 x 32-row
 //     sub-blocks), the L X = I kernel's staging: a thread owns 1 row x 4
-//     columns (float4 reads of Q), two stages of 128 x 32 tiles of L.  The
-//     CTA's panel of solved Q stays in shared memory (n <= 6080); past that
-//     limit the rows solved in earlier blocks stream back through L2 a
-//     128-row block at a time (with 4 stages), so n has no limit.  A diagonal tile is
-//     solved by its sub-block's two warps in registers, then applied by the
-//     warps below after a barrier.  The CTA first finds the first (last,
+//     columns (float4 reads of Q), 128 x 32 tiles of L in a ring of 4
+//     stages.  The CTA keeps a window of two blocks of its panel of Q in
+//     shared memory: the block being solved, and the earlier block whose
+//     rows the current tiles need, which streams back through L2 (written
+//     by this CTA, read with ld.global.cg) a 128-row block at a time, so n
+//     has no limit.  The whole panel is not kept in shared memory: that
+//     measured no faster on the regime's caller below the limit it would
+//     set, L X = I's VJP (L^T at r = n; PERF.md).  A diagonal tile is solved
+//     by its sub-block's two warps in registers, then applied by the warps
+//     below after a barrier.  The CTA first finds the first (last,
 //     for L^T) row where its panel of B is not zero: Q is exactly zero above
 //     it (below it), so those rows are written as zeros and never walked.
 //     At B = I that skips the zero half, as the L X = I kernel does.
@@ -113,7 +117,14 @@
 // ascending, then one IEEE division by L[row, row] (taken, as in the L X = I
 // kernel, as a product with the correctly rounded double reciprocal, which
 // rounds the same way).  The wavefront delivers blocks in ascending k, so
-// this costs nothing.  Skipped zero rows change at most the sign of a zero.
+// this costs nothing.  The wide regime's skipped rows (B's leading zero
+// rows) contribute exact zeros in the earlier kernel when L is finite with
+// a non-zero diagonal there, which changes at most the sign of a zero: on
+// such a factor the bits are the earlier kernel's.  Where a skipped row of
+// L has a zero pivot, or an inf or a NaN lies in the skipped part, the
+// earlier kernel and the plain version carry NaN or inf into Q's later
+// rows through those zeros, and this kernel does not: it writes the
+// skipped rows as 0 and never reads that part of L.
 // L^T Q = B cannot keep them: the earlier kernel summed the off-diagonal
 // blocks in ascending k, and the first of those is the last one back
 // substitution solves.  Here every element sums in the order the rows are
@@ -336,6 +347,7 @@ constexpr int kW = 8;                  // columns of Q a CTA owns (a panel)
 constexpr int kTk = 32;                // k per staged tile of L
 constexpr int kLd = kTk + 4;           // row stride of a tile of L (floats)
 constexpr int kNarrowStages = 8;       // cp.async ring depth, narrow
+constexpr int kWideStages = 4;         // ... and wide
 constexpr int kWideRows = 128;
 constexpr int kCtrlBytes = 16;         // ticket / flag words after the floats
 constexpr int kMaxShared = 232448;     // opt-in shared memory of one CTA
@@ -350,7 +362,7 @@ struct Args {
   const float* b;
   float* q;
   int* scratch;      // narrow: ticket, done, a word per (matrix, panel)
-  int batch, n, r, panels, nblk, qrows, resident, vec;
+  int batch, n, r, panels, nblk, vec;
 };
 
 template <int kMR, int kCC, bool kTrans>
@@ -359,6 +371,8 @@ struct Geo {
   static constexpr int kWGC = kW / kCC;             // warps across columns
   static constexpr int kWGR = kThreads / 32 / kWGC; // warps across rows
   static constexpr int kR = 32 * kWGR * kMR;        // rows of a block
+  static constexpr int kQRows = 2 * kR;             // rows of Q's window
+  static constexpr int kStages = kChain ? kNarrowStages : kWideStages;
   static constexpr int kLdT = kR + 4;               // row stride, L^T tile
   static constexpr int kStage = kR * kLd;           // >= kTk * kLdT
 };
@@ -553,15 +567,16 @@ __device__ __forceinline__ void diag_block(float (&v)[kMR][kCC], const float* lt
 }
 
 // Narrow: one CTA an SM (its ring is 155 KB at 128-row blocks), so the
-// registers need not be shared; wide: three CTAs an SM at n = 1024.
-template <int kMR, int kCC, bool kTrans, int kStages>
-__global__ void __launch_bounds__(kThreads, kCC == 1 ? 1 : 3) trsv_kernel(const Args a) {
+// registers need not be shared; wide: two CTAs an SM (80 KB each).
+template <int kMR, int kCC, bool kTrans>
+__global__ void __launch_bounds__(kThreads, kCC == 1 ? 1 : 2) trsv_kernel(const Args a) {
   using G = Geo<kMR, kCC, kTrans>;
   constexpr int kR = G::kR;
+  constexpr int kStages = G::kStages;
   extern __shared__ float4 smem4[];
   float* const stage = reinterpret_cast<float*>(smem4);
   float* const win = stage + kStages * G::kStage;   // Q's rows, 8 floats a row
-  int* const ctrl = reinterpret_cast<int*>(win + a.qrows * kW);
+  int* const ctrl = reinterpret_cast<int*>(win + G::kQRows * kW);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -634,15 +649,15 @@ __global__ void __launch_bounds__(kThreads, kCC == 1 ? 1 : 3) trsv_kernel(const 
       z_lo = min(e_top, n);
       z_hi = n;
     }
-    if (!a.resident) base = kTrans ? k_hi - nblocks * kR : k_lo;
+    base = kTrans ? k_hi - nblocks * kR : k_lo;
     for (int e = tid; e < (z_hi - z_lo) * kW; e += kThreads) {
       const int row = z_lo + e / kW, col = c0 + e % kW;
       if (col < r) q[static_cast<size_t>(row) * r + col] = 0.f;
     }
   }
-  // Row k of Q sits at window row (k - base) % qrows: every row of the
-  // panel when it is resident, else two blocks, k-block j in half j % 2.
-  auto wrow = [&](int k) { return (k - base) % a.qrows; };
+  // Row k of Q sits at window row (k - base) % (2 kR): k-block j (counted
+  // from base) in half j % 2.
+  auto wrow = [&](int k) { return (k - base) % G::kQRows; };
 
   // The tiles in walk order, produced kStages - 1 ahead of their use.  Each
   // thread commits one group per call, so groups and tiles stay in step.
@@ -665,7 +680,6 @@ __global__ void __launch_bounds__(kThreads, kCC == 1 ? 1 : 3) trsv_kernel(const 
   };
   for (int st = 0; st < kStages - 1; ++st) load_next(st);
 
-  const bool load_q_rows = G::kChain || !a.resident;
   const int row0 = 32 * g * kMR + lane;   // local row of v[0]
   const int colp = h * kCC;               // first column within the panel
   const bool active = c0 + colp < r;      // warp-uniform
@@ -706,7 +720,7 @@ __global__ void __launch_bounds__(kThreads, kCC == 1 ? 1 : 3) trsv_kernel(const 
       const float* qt = win + wrow(k0) * kW;
       const bool diag = kTrans ? k0 < s + kR : k0 >= s;
       if (!diag) {
-        if (load_q_rows && (k0 < q_lo || k0 + kTk > q_hi)) {
+        if (k0 < q_lo || k0 + kTk > q_hi) {
           // This tile's rows of Q are not in the window: bring in every
           // solved row of its k-block from here on in walk order (wide: the
           // block's; narrow: those whose CTA has published them, waiting for
@@ -750,15 +764,12 @@ __global__ void __launch_bounds__(kThreads, kCC == 1 ? 1 : 3) trsv_kernel(const 
         const float dia = kTrans ? lt[lane * G::kLdT + row_l] : lt[row_l * kLd + lane];
         const double rdia = row >= vlo && row < vhi
                                 ? __drcp_rn(static_cast<double>(dia)) : 0.0;
-        // Wide: the warps below read these rows from the window.  Resident,
-        // it holds rows [0, k_top) only; a row outside them is outside the
-        // matrix and feeds only rows outside it.
-        const bool in_win = !G::kChain && (!a.resident || (row >= 0 && row < k_top));
+        // Wide: the warps below read these rows from the window.
         diag_block<kMR, kCC, kTrans>(
             v, lt, row0, jm, lane, rdia,
             q + static_cast<size_t>(row) * r + c0 + colp,
             row >= vlo && row < vhi ? min(kCC, r - c0 - colp) : 0,
-            in_win ? win + wrow(row) * kW + colp : nullptr);
+            G::kChain ? nullptr : win + wrow(row) * kW + colp);
       }
       if (G::kWGR > 1) {
         __syncthreads();                   // sub-block j's rows of Q are in
@@ -791,8 +802,6 @@ __global__ void __launch_bounds__(kThreads, kCC == 1 ? 1 : 3) trsv_kernel(const 
 struct Plan {
   int rows;
   int stages;
-  int resident;
-  int qrows;
   size_t smem;
   long long grid;
   long long scratch;
@@ -808,27 +817,20 @@ inline bool rows_ok(int regime, int rows) {
 
 inline Plan plan_for(int regime, int batch, int n, int r, int rows) {
   const long long panels = (r + kW - 1) / kW;
-  const int n_pad = (n + kTk - 1) / kTk * kTk;
   Plan p{};
   p.rows = rows;
   if (regime == kNarrow) {
     p.stages = kNarrowStages;
-    p.resident = 0;
-    p.qrows = 2 * p.rows;
     p.grid = batch * panels * ((n + p.rows - 1) / p.rows);
     p.scratch = kScratchHead + batch * panels;
   } else {
-    // Resident (the panel's rows of Q in shared memory) with 2 stages when
-    // that fits, else streamed with 4 (measured faster at n = 6144).
-    const size_t ring = sizeof(float) * 2 * p.rows * kLd + kCtrlBytes;
-    p.resident = ring + sizeof(float) * n_pad * kW <= kMaxShared;
-    p.stages = p.resident ? 2 : 4;
-    p.qrows = p.resident ? n_pad : 2 * p.rows;
+    p.stages = kWideStages;
     p.grid = batch * panels;
     p.scratch = 0;
   }
+  // The ring, the window of two blocks of Q's rows, the control words.
   p.smem = sizeof(float) * (static_cast<size_t>(p.stages) * p.rows * kLd +
-                            static_cast<size_t>(p.qrows) * kW) + kCtrlBytes;
+                            static_cast<size_t>(2 * p.rows) * kW) + kCtrlBytes;
   return p;
 }
 
@@ -859,13 +861,11 @@ inline cudaError_t allow_shared(const void* kernel, int smem) {
 }
 
 template <bool kTrans>
-const void* pick(int regime, int rows, int stages) {
-  if (regime == kWide)
-    return stages == 2 ? reinterpret_cast<const void*>(trsv_kernel<1, 4, kTrans, 2>)
-                       : reinterpret_cast<const void*>(trsv_kernel<1, 4, kTrans, 4>);
-  if (rows == 32) return reinterpret_cast<const void*>(trsv_kernel<1, 1, kTrans, kNarrowStages>);
-  if (rows == 64) return reinterpret_cast<const void*>(trsv_kernel<2, 1, kTrans, kNarrowStages>);
-  return reinterpret_cast<const void*>(trsv_kernel<4, 1, kTrans, kNarrowStages>);
+const void* pick(int regime, int rows) {
+  if (regime == kWide) return reinterpret_cast<const void*>(trsv_kernel<1, 4, kTrans>);
+  if (rows == 32) return reinterpret_cast<const void*>(trsv_kernel<1, 1, kTrans>);
+  if (rows == 64) return reinterpret_cast<const void*>(trsv_kernel<2, 1, kTrans>);
+  return reinterpret_cast<const void*>(trsv_kernel<4, 1, kTrans>);
 }
 
 }  // namespace gen
@@ -890,10 +890,9 @@ REPRO_EXPORT int repro_trsv(const float* l, const float* b, float* q,
     return static_cast<int>(cudaErrorInvalidValue);
   const int panels = (r + gen::kW - 1) / gen::kW;
   const gen::Args a{l, b, q, scratch, batch, n, r, panels, (n + rows - 1) / rows,
-                    p.qrows, p.resident,
                     n % 4 == 0 && reinterpret_cast<uintptr_t>(l) % 16 == 0};
-  const void* kernel = trans ? gen::pick<true>(regime, rows, stages)
-                             : gen::pick<false>(regime, rows, stages);
+  const void* kernel = trans ? gen::pick<true>(regime, rows)
+                             : gen::pick<false>(regime, rows);
   cudaError_t err = gen::allow_shared(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {const_cast<gen::Args*>(&a)};

@@ -14,7 +14,8 @@ PyTorch versions (counterpart of `repro.kernels`).
 
 A CUDA tensor goes to the kernel, a CPU tensor to the plain version.  Each
 kernel module counts its launches in `LAUNCHES`; `acq` counts its mixed
-form apart, in `LAUNCHES_MIXED`.
+form apart, in `LAUNCHES_MIXED`, and `trsv` its general solve apart from
+L X = I, in `LAUNCHES_GENERAL`.
 """
 from repro_torch.kernels import acq, chol, matern, mixed, ops, ref, trsv
 

@@ -15,14 +15,15 @@ posterior's vectors) spreads its row blocks over the card as a wavefront
 of CTAs that hand solved blocks on through scratch kept per device and
 stream (`_SCRATCH`, left at 0 by the kernel); a wide b gives each CTA a
 panel of 8 columns.  L q = b keeps the earlier kernel's bits; L^T q = b sums
-in the order the rows are solved (csrc/trsv.cu).
+in the order the rows are solved (csrc/trsv.cu).  It counts its launches
+in `LAUNCHES_GENERAL`.
 
 `tri_inverse(l)` is the solve at b = I, X = L^{-1}, on its own kernel
 (`repro_tri_inverse`), which skips the zero half of X and takes no b; it
 holds a panel of X in shared memory, so beyond `MAX_N` the card takes the
 general kernel at b = I instead (`inverse_entry`, the same bits).  Its
-VJP is the one above at b = I: L_bar = -tril(L^{-T} X_bar X^T).  Both
-kernels count their launches in `LAUNCHES`.
+VJP is the one above at b = I: L_bar = -tril(L^{-T} X_bar X^T).  It counts
+its launches in `LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ from repro_torch.kernels import _build, ref
 Tensor = torch.Tensor
 
 SOURCE = "trsv"
-LAUNCHES = 0      # kernel launches since the caller last set it to 0
+LAUNCHES = 0          # repro_tri_inverse launches since the caller set it to 0
+LAUNCHES_GENERAL = 0  # repro_trsv launches, counted apart
 _SIGNATURES = {"repro_trsv": (_build.ptr,) * 4 + (_build.cint,) * 8
                + (_build.ptr,),
                "repro_tri_inverse": (_build.ptr,) * 2 + (_build.cint,) * 2
@@ -53,15 +55,16 @@ MAX_N = (_MAX_SHARED - _STAGE_BYTES) // (4 * PANEL) // 32 * 32
 # csrc/trsv.cu, repro_trsv (namespace gen): a CTA owns a panel of 8 columns
 # of q and walks tiles of 32 columns of L (row stride 36 floats) through a
 # cp.async ring; after the ring and its window of q's rows it keeps 16 bytes
-# of control words.  Narrow: one CTA per block of rows, 8 stages, a window
-# of two blocks; wide: one CTA per panel, 128-row blocks, the panel's rows
-# of q resident (2 stages) when they fit, else a window of two blocks and
-# 4 stages.  The narrow regime is faster for every dense b of up to 512
-# columns at n = 1024 (PERF.md); the wide one skips the zero rows
-# of b, which makes it the faster at b = I.
+# of control words.  Narrow: one CTA per block of rows, 8 stages; wide: one
+# CTA per panel, 128-row blocks, 4 stages; both keep a window of two blocks
+# of q's rows.  The narrow regime is the faster for every dense b of up to
+# 512 columns at n = 1024 and 4096, the wide one at 1024 columns
+# (`chip_smoke.general_solves`' `regimes_by_r`, PERF.md); the wide one
+# skips the zero rows of b, which makes it the faster at b = I.
+# `launch_plan` reads the switch at each call.
 NARROW_MAX_R = 512
-TILE_K, TILE_LD = 32, 36
-NARROW_STAGES, WIDE_STAGES, WIDE_STAGES_STREAMED = 8, 2, 4
+TILE_LD = 36              # row stride of a staged 32-column tile of L
+NARROW_STAGES, WIDE_STAGES = 8, 4
 WIDE_ROWS = 128
 CTRL_BYTES = 16
 SCRATCH_HEAD = 2          # ticket, CTAs done; then a word per (matrix, panel)
@@ -81,7 +84,6 @@ class LaunchPlan:
     grid: int              # CTAs
     shared_bytes: int      # dynamic shared memory of one CTA
     scratch_ints: int      # narrow: ticket, done, a word per (matrix, panel)
-    resident: bool         # wide: the panel's rows of q stay in shared memory
 
 
 def narrow_rows(n: int) -> int:
@@ -90,42 +92,36 @@ def narrow_rows(n: int) -> int:
     return 32 if n <= 64 else 64 if n <= 128 else 128
 
 
-@functools.lru_cache(maxsize=256)
-def launch_plan(n: int, r: int, batch: int, trans: bool = False,
-                regime: str | None = None) -> LaunchPlan:
+def launch_plan(n: int, r: int, batch: int, trans: bool = False) -> LaunchPlan:
     """The regime, rows per block, columns per CTA, grid, dynamic shared
     bytes and scratch of one call on `batch` systems of n rows and r
     right-hand sides: the single source of these numbers for the wrapper
-    and the C entry, which checks them.  `regime` None picks by r; the
-    geometry does not depend on `trans`."""
+    and the C entry, which checks them.  The regime is narrow up to
+    `NARROW_MAX_R` columns; the geometry does not depend on `trans`."""
     if min(n, r, batch) < 1:
         raise ValueError(f"trsv launch plan needs n, r, batch >= 1, got "
                          f"{n}, {r}, {batch}")
-    if regime is None:
-        regime = "narrow" if r <= NARROW_MAX_R else "wide"
-    if regime not in REGIMES:
-        raise ValueError(f"trsv regime must be one of {REGIMES}, got {regime!r}")
+    return _plan(n, r, batch, r <= NARROW_MAX_R)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(n: int, r: int, batch: int, narrow: bool) -> LaunchPlan:
     panels = -(-r // PANEL)
-    n_pad = -(-n // TILE_K) * TILE_K
-    if regime == "narrow":
-        rows, stages, resident = narrow_rows(n), NARROW_STAGES, False
-        qrows = 2 * rows
+    if narrow:
+        rows, stages = narrow_rows(n), NARROW_STAGES
         grid = batch * panels * -(-n // rows)
         scratch = SCRATCH_HEAD + batch * panels
     else:
-        rows = WIDE_ROWS
-        ring = 4 * WIDE_STAGES * rows * TILE_LD + CTRL_BYTES
-        resident = ring + 4 * n_pad * PANEL <= _MAX_SHARED
-        stages = WIDE_STAGES if resident else WIDE_STAGES_STREAMED
-        qrows = n_pad if resident else 2 * rows
+        rows, stages = WIDE_ROWS, WIDE_STAGES
         grid, scratch = batch * panels, 0
     if grid > _GRID_MAX or scratch > _GRID_MAX:
         raise ValueError(f"trsv kernel: {batch} systems of n = {n}, r = {r} "
                          f"need more CTAs than one grid holds")
-    smem = 4 * (stages * rows * TILE_LD + qrows * PANEL) + CTRL_BYTES
-    return LaunchPlan(regime=regime, rows=rows, stages=stages, cols=PANEL,
-                      grid=grid, shared_bytes=smem, scratch_ints=scratch,
-                      resident=resident)
+    # The ring, the window of two blocks of q's rows, the control words.
+    smem = 4 * (stages * rows * TILE_LD + 2 * rows * PANEL) + CTRL_BYTES
+    return LaunchPlan(regime=REGIMES[not narrow], rows=rows, stages=stages,
+                      cols=PANEL, grid=grid, shared_bytes=smem,
+                      scratch_ints=scratch)
 
 
 def narrow_order(n: int, r: int, batch: int, trans: bool = False
@@ -133,7 +129,10 @@ def narrow_order(n: int, r: int, batch: int, trans: bool = False
     """(matrix, panel, block) of each ticket of the narrow regime, as the
     kernel maps them: block by block in solve order (top down for L,
     bottom up for L^T), matrix then panel fastest."""
-    plan = launch_plan(n, r, batch, trans, "narrow")
+    if min(n, r, batch) < 1:
+        raise ValueError(f"trsv narrow order needs n, r, batch >= 1, got "
+                         f"{n}, {r}, {batch}")
+    plan = _plan(n, r, batch, True)
     nblk, per = -(-n // plan.rows), plan.grid // -(-n // plan.rows)
     order = []
     for ticket in range(plan.grid):
@@ -156,12 +155,7 @@ def _scratch(dev: torch.device, stream: int, ints: int) -> Tensor:
 
 def trsv_cuda(l: Tensor, b: Tensor, *, trans: bool = False) -> Tensor:
     """Launch the kernel: l (..., n, n), b (..., n, r) float32 CUDA."""
-    return _launch(l, b, trans, None)
-
-
-def _launch(l: Tensor, b: Tensor, trans: bool, regime: str | None) -> Tensor:
-    """`trsv_cuda` in the given regime (None: the plan's choice)."""
-    global LAUNCHES
+    global LAUNCHES_GENERAL
     if l.device.type != "cuda" or b.device != l.device:
         raise ValueError(f"trsv kernel needs CUDA tensors on one device, "
                          f"got {l.device} and {b.device}")
@@ -177,7 +171,7 @@ def _launch(l: Tensor, b: Tensor, trans: bool, regime: str | None) -> Tensor:
     batch, r = math.prod(l.shape[:-2]), b.shape[-1]
     if batch == 0 or n == 0 or r == 0:
         return q
-    plan = launch_plan(n, r, batch, trans, regime)
+    plan = launch_plan(n, r, batch, trans)
     lib = _build.load(SOURCE, _SIGNATURES)
     # The current stream's handle without building a Python Stream object.
     stream = torch._C._cuda_getCurrentRawStream(l.device.index)
@@ -186,7 +180,7 @@ def _launch(l: Tensor, b: Tensor, trans: bool, regime: str | None) -> Tensor:
     status = lib.repro_trsv(l.data_ptr(), b.data_ptr(), q.data_ptr(), scratch,
                             batch, n, r, int(trans), REGIMES.index(plan.regime),
                             plan.rows, plan.stages, plan.shared_bytes, stream)
-    LAUNCHES += 1
+    LAUNCHES_GENERAL += 1
     _build.check(lib, status, "trsv")
     return q
 

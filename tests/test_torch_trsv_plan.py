@@ -32,6 +32,14 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 N_MAX = 64
 
 
+def _plan(monkeypatch, regime, nn, r, batch=1):
+    """`trsv.launch_plan` with the switch moved so that it picks `regime`
+    (None: the switch as it is)."""
+    if regime is not None:
+        monkeypatch.setattr(trsv, "NARROW_MAX_R", r if regime == "narrow" else r - 1)
+    return trsv.launch_plan(nn, r, batch)
+
+
 # ---------------------------------------------------------------------------
 # The launch plan.
 # ---------------------------------------------------------------------------
@@ -63,53 +71,56 @@ def test_a_short_vector_takes_32_row_blocks(nn):
 @pytest.mark.parametrize("nn", [1, 31, 64, 1000, 1024, 4096, 6112, 6144, 16384])
 @pytest.mark.parametrize("r", [1, 8, 64, "n"])
 @pytest.mark.parametrize("regime", [None, "narrow", "wide"])
-def test_shared_memory_fits_one_cta(nn, r, regime):
+def test_shared_memory_fits_one_cta(nn, r, regime, monkeypatch):
     r = nn if r == "n" else r
-    plan = trsv.launch_plan(nn, r, 1, False, regime)
+    plan = _plan(monkeypatch, regime, nn, r)
+    assert regime is None or plan.regime == regime
     assert 0 < plan.shared_bytes <= MAX_SHARED
-    # The ring, the window of q's rows (8 floats a row), the control words.
-    window = (-(-nn // 32) * 32 if plan.resident else 2 * plan.rows) * 8
+    # The ring, the window of two blocks of q's rows (8 floats a row), the
+    # control words.
+    window = 2 * plan.rows * 8
     assert plan.shared_bytes == 4 * (plan.stages * plan.rows * 36 + window) + 16
 
 
 @pytest.mark.parametrize("nn", [32, 1024, 4960, 6080, 6081, 6112, 6144, 16384])
-def test_wide_keeps_the_panel_resident_while_it_fits(nn):
+def test_wide_streams_q_through_a_window_of_two_blocks(nn, monkeypatch):
     plan = trsv.launch_plan(nn, nn, 1)
     assert plan.regime == "wide" or nn <= trsv.NARROW_MAX_R
-    wide = trsv.launch_plan(nn, nn, 1, False, "wide")
-    assert wide.resident == (nn <= 6080)
-    assert wide.stages == (2 if wide.resident else 4)
+    wide = _plan(monkeypatch, "wide", nn, nn)
+    # One geometry at every n: 128-row blocks, 4 stages, 80 KB a CTA.
+    assert (wide.rows, wide.stages, wide.cols) == (128, 4, 8)
+    assert wide.shared_bytes == 4 * (4 * 128 * 36 + 2 * 128 * 8) + 16
     # Beyond the L X = I kernel's limit L X = I takes this regime.
     assert trsv.MAX_N == 6112 and trsv.inverse_entry(6144) == "trsv"
 
 
 @pytest.mark.parametrize("nn,r,batch", [(1024, 1, 1), (1024, 1, 3), (1000, 7, 2),
                                         (1024, 64, 1), (97, 9, 18), (1024, 1024, 18)])
-def test_scratch_holds_a_progress_word_per_matrix_and_panel(nn, r, batch):
-    narrow = trsv.launch_plan(nn, r, batch, False, "narrow")
+def test_scratch_holds_a_progress_word_per_matrix_and_panel(nn, r, batch, monkeypatch):
+    narrow = _plan(monkeypatch, "narrow", nn, r, batch)
     assert narrow.scratch_ints == 2 + batch * -(-r // 8)
-    assert trsv.launch_plan(nn, r, batch, False, "wide").scratch_ints == 0
+    assert _plan(monkeypatch, "wide", nn, r, batch).scratch_ints == 0
 
 
 @pytest.mark.parametrize("nn,r,batch", [(1024, 1, 1), (1024, 1, 3), (1000, 7, 2),
                                         (1024, 64, 1), (6144, 6144, 1),
                                         (1024, 1024, 18)])
-def test_grid(nn, r, batch):
+def test_grid(nn, r, batch, monkeypatch):
     panels = -(-r // 8)
-    narrow = trsv.launch_plan(nn, r, batch, False, "narrow")
+    narrow = _plan(monkeypatch, "narrow", nn, r, batch)
     assert narrow.grid == batch * panels * -(-nn // narrow.rows)
-    assert trsv.launch_plan(nn, r, batch, False, "wide").grid == batch * panels
+    assert _plan(monkeypatch, "wide", nn, r, batch).grid == batch * panels
     assert narrow.cols == 8
 
 
-def test_grid_past_one_launch_is_refused():
+def test_grid_past_one_launch_is_refused(monkeypatch):
     # 2^32 CTAs: 8 systems of 2^24 panels of 8 columns in 32 blocks of 128
     # rows; 2^31 in the wide regime: 2^15 systems of 2^16 panels.
     with pytest.raises(ValueError, match="grid"):
-        trsv.launch_plan(4096, 8 * 2**24, 8, False, "narrow")
+        _plan(monkeypatch, "narrow", 4096, 8 * 2**24, 8)
     with pytest.raises(ValueError, match="grid"):
-        trsv.launch_plan(128, 8 * 2**16, 2**15, False, "wide")
-    assert trsv.launch_plan(128, 8, 2**31 - 1, False, "wide").grid == 2**31 - 1
+        _plan(monkeypatch, "wide", 128, 8 * 2**16, 2**15)
+    assert _plan(monkeypatch, "wide", 128, 8, 2**31 - 1).grid == 2**31 - 1
 
 
 @pytest.mark.parametrize("args", [(0, 1, 1), (8, 0, 1), (8, 1, 0), (-1, 1, 1)])
@@ -118,21 +129,24 @@ def test_plan_rejects_an_empty_solve(args):
         trsv.launch_plan(*args)
 
 
-def test_plan_rejects_an_unknown_regime():
-    with pytest.raises(ValueError, match="regime"):
-        trsv.launch_plan(64, 1, 1, False, "diagonal")
+@pytest.mark.parametrize("switch", [0, 1, 7, 64, 10**6])
+def test_plan_reads_the_switch_at_each_call(switch, monkeypatch):
+    monkeypatch.setattr(trsv, "NARROW_MAX_R", switch)
+    for r in (1, 8, 64, 1024):
+        assert trsv.launch_plan(64, r, 1).regime == ("narrow" if r <= switch
+                                                     else "wide")
 
 
 @pytest.mark.parametrize("nn,r,batch", [(1024, 1, 1), (1000, 3, 3), (300, 20, 2),
                                         (64, 1, 1), (129, 9, 5)])
 @pytest.mark.parametrize("trans", [False, True])
-def test_narrow_tickets_wait_only_on_earlier_tickets(nn, r, batch, trans):
+def test_narrow_tickets_wait_only_on_earlier_tickets(nn, r, batch, trans, monkeypatch):
     """Ticket -> (matrix, panel, block) as the kernel maps it: every block
     once, and every block a CTA waits on (above it for L, below it for L^T,
     same matrix and panel) has an earlier ticket, so a CTA only ever waits
     on CTAs that were already running."""
     order = trsv.narrow_order(nn, r, batch, trans)
-    plan = trsv.launch_plan(nn, r, batch, trans, "narrow")
+    plan = _plan(monkeypatch, "narrow", nn, r, batch)
     nblk, panels = -(-nn // plan.rows), -(-r // 8)
     assert sorted(order) == [(m, p, k) for m in range(batch) for p in range(panels)
                              for k in range(nblk)]
@@ -159,17 +173,17 @@ def test_cpu_tensor_goes_to_the_plain_version(shape, r, trans, monkeypatch):
     rng = np.random.default_rng(shape[-1] + r)
     l = t(lower_factor(rng, shape[-1], shape[:-2]))
     b = t(rng.standard_normal((*shape[:-1], r)))
-    before = trsv.LAUNCHES
+    before = (trsv.LAUNCHES, trsv.LAUNCHES_GENERAL)
     got = trsv.trsv(l, b, trans=trans)
-    assert trsv.LAUNCHES == before
+    assert (trsv.LAUNCHES, trsv.LAUNCHES_GENERAL) == before
     assert torch.equal(got, ref.trsv(l, b, trans=trans))
 
 
 def test_kernel_wrapper_refuses_a_cpu_tensor():
-    before = trsv.LAUNCHES
+    before = (trsv.LAUNCHES, trsv.LAUNCHES_GENERAL)
     with pytest.raises(ValueError, match="CUDA"):
         trsv.trsv_cuda(torch.eye(4), torch.ones(4, 1))
-    assert trsv.LAUNCHES == before
+    assert (trsv.LAUNCHES, trsv.LAUNCHES_GENERAL) == before
 
 
 # ---------------------------------------------------------------------------
