@@ -94,7 +94,26 @@ Phases, each printing one JSON line:
                `gp.posterior` on the lazy state; the line prints one
                append's ms beside one refactor's (`padded_cholesky` and
                `padded_tri_inverse` at n = 1024).
-  7. profile — four more rounds of each path under torch.profiler: device
+  7. engine  — the stacked `StudyEngine` (`hpo/engine.py`) at full width,
+               twice: 16 Levy-5d studies, and 8 studies of the mixed
+               workload beside 8 Levy-6d studies (one slot swapped to the
+               other layout halfway by `reset_slot` + `set_desc`).  n_max
+               = 1024, 48 restarts x 20 steps, lag 32; study s prefilled
+               through `absorb_round` to 960 - 8 s points, then 32
+               `advance` rounds with every study flagged.  Counters set to
+               0 before the prefill and read after the last round; each
+               round exactly 21 fused EI and one column gram (plus two
+               masked grams, factors and L X = I a due lag event), the
+               general solve 0; every mixed suggestion on its lattice.
+               Then (uncounted): the mixed kernels with (16, 6) per-study
+               masks held to their plain versions and each lane bit for
+               bit to a launch under its own masks (`stacked_mask_checks`),
+               one round against the single-study path on every lane
+               (`lane_parity`, with the 16 single-study steps timed beside
+               the batched round), one round with half the studies
+               unflagged (their every bit kept) and one round under
+               `torch.cuda.set_sync_debug_mode("error")`.
+  8. profile — four more rounds of each path under torch.profiler: device
                busy share and device time by kernel; then one Cholesky
                call at n = 1024 and one on the lag refit's batch, each of
                which must be one device kernel (beside the wrapper's copy
@@ -108,14 +127,22 @@ Phases, each printing one JSON line:
                call of each fused-EI form, each exactly one device
                kernel, whose device ms go beside its event ms; one call of
                the general solve at each of its shapes, each exactly one
-               device kernel.
+               device kernel; one more round of each engine by device
+               time per kernel, with its busy share.
                Nothing is profiled before the paths' timings are taken.
 Then the `{"kernels": [...]}` line (seven kernels: L X = I and the general
 solve, two C entries of `csrc/trsv.cu`, count apart; launches per path:
-main, mixed, append), the nvidia-smi line and, last,
+main, mixed, append, engine, engine_mixed), the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
+
+    python3 chip_smoke.py --digests [SRC]
+
+prints only the digests of the grams', the fused EI's (shared masks) and
+L X = I's bits, built from the `repro_torch` under SRC (this checkout's
+`src` by default): run it on an unpacked parent's `src` and on this one
+for an A/B of the bits.
 """
 from __future__ import annotations
 
@@ -479,6 +506,37 @@ def gram_digests(dev) -> dict:
             "lag_batch": digest(grid_grams(f["state"], f["kern"]))}
     return out
 
+
+
+def ei_digests(dev) -> dict:
+    """Digests of both fused-EI forms' bits (ei, then grad) on refactored
+    standardized states (a generator seeded 16: the Levy-5d state, then
+    the mixed workload's, each with 64 candidates; the mixed form under
+    the space's (d,) masks), one study and the same study stacked three
+    times.  Uses only entry points the parent tree also has, so the same
+    call on an unpacked parent shows whether the shared-mask bits moved."""
+    from repro_torch.core import gp
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.kernels import acq
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    desc = mixed_space().descriptor().to(dev)
+    st, kern = levy_state(dev, gen)
+    fargs = ei_args(gp.refactor(st, kern),
+                    torch.rand((64, DIM), generator=gen, device=dev))
+    mst, mkern, _ = mixed_state(dev, gen)
+    margs = ei_args(gp.refactor(mst, mkern), project_units(
+        torch.rand((64, MIXED_DIM), generator=gen, device=dev), desc))
+    out = {}
+    for tag, launch, args in (
+            ("float", acq.fused_ei_grad_cuda, fargs),
+            ("mixed", lambda *a: acq.fused_ei_grad_mixed_cuda(
+                *a, desc.cont_mask, desc.cat_mask), margs)):
+        three = [torch.stack([torch.as_tensor(a, device=dev)] * 3)
+                 for a in args]
+        for key, a in ((tag, args), (f"{tag} x3", three)):
+            out[key] = digest(torch.cat([v.reshape(-1) for v in launch(*a)]))
+    return out
 
 def grid_params(dev):
     """The lag refit's 18 candidates as (G,) device vectors, in
@@ -979,8 +1037,7 @@ def check_kernels(dev, gen) -> list[dict]:
     # version takes the split rows, as the reference's does; the kernel
     # splits them as it loads them.
     def mixed_plain(a):
-        xcc, xbc, xk, xbk = acq.split_rows(a[0], a[1], cm, km)
-        return acq.ei_grad_torch(xcc, xbc, *a[2:], xk=xk, xbk=xbk)
+        return plain_ei(a, cm, km)
 
     from repro_torch.core.kernels import KernelParams
     xc = project_units(torch.rand((64, d6), generator=gen, device=dev), desc)
@@ -1292,8 +1349,7 @@ def ei_shapes(dev) -> dict:
                 for i in range(len(cases[0]))]
 
     def mixed_plain(a):
-        xcc, xbc, xk, xbk = acq.split_rows(a[0], a[1], cm, km)
-        return acq.ei_grad_torch(xcc, xbc, *a[2:], xk=xk, xbk=xbk)
+        return plain_ei(a, cm, km)
 
     forms = {
         "float": (float_args, lambda a: acq.fused_ei_grad_cuda(*a),
@@ -1668,8 +1724,530 @@ def append_path(dev):
     return launches
 
 
+# --- the engine phases: the stacked StudyEngine at full width ---------------
+
+ENGINE_STUDIES = 16       # studies stacked in one engine
+ENGINE_ROUNDS = 32        # serving rounds with every study flagged
+ENGINE_SPREAD = 8         # study s is prefilled to N_SEED - 8 s points
+TOL_LANE_SUGGEST = 1e-3   # a batched suggestion against the single-study
+# path on the same lane and seeds, in unit coordinates: the fused EI's
+# launch plan cuts its sums by the batch (`acq.launch_plan`), so the two
+# ascents agree to its tolerance, not bit for bit.  On an ill-conditioned
+# posterior (raw values, rho 0.05) the round-off can send an ascent to
+# another basin; such a lane's value must then be the single-study EI at
+# the batched lane's own point, and at most a quarter of the lanes may
+# diverge (a fault in the batched path would move them all)
+TOL_LANE_FACTOR = 1e-4    # max |a - b| / max |b|, l_buf (O(1) entries)
+TOL_LANE_INVERSE = 1e-3   # the same for li_buf and alpha, which carry
+# K's conditioning (noise 1e-5 on raw Levy values, n about 1000)
+
+
+@dataclasses.dataclass
+class EngineStudy:
+    """One study of an engine phase: its layout, its objective on unit
+    rows (k, d) and the lattice its suggestions must lie on."""
+    tag: str
+    space: object             # a SearchSpace; all-continuous studies too
+    objective: object
+
+
+def levy_unit(dim: int):
+    """Levy-dim on [-10, 10]^dim read from unit rows, as the main path maps
+    it (raw values)."""
+    from repro_torch.core.levy import levy_bounds, neg_levy
+    lo, hi = levy_bounds(dim)
+
+    def objective(u: np.ndarray) -> np.ndarray:
+        x = lo + torch.as_tensor(u, dtype=torch.float32) * (hi - lo)
+        return neg_levy(x).numpy().astype(np.float32)
+
+    return objective
+
+
+def engine_studies(mixed: bool) -> list[EngineStudy]:
+    """The float engine: 16 Levy-5d studies.  The mixed engine: 8 studies
+    of the mixed workload (`mixed_space`, width 6) and 8 Levy-6d studies on
+    the same width, all-continuous."""
+    from repro_torch.hpo.space import Dim, SearchSpace
+    def unit_box(d):
+        return SearchSpace(tuple(Dim(f"u{i}", 0.0, 1.0) for i in range(d)))
+    if not mixed:
+        return [EngineStudy("levy5", unit_box(DIM), levy_unit(DIM))
+                for _ in range(ENGINE_STUDIES)]
+    space = mixed_space()
+    half = ENGINE_STUDIES // 2
+    return ([EngineStudy("mixed", space, mixed_objective(space))] * half
+            + [EngineStudy("levy6", unit_box(MIXED_DIM), levy_unit(MIXED_DIM))]
+            * (ENGINE_STUDIES - half))
+
+
+def engine_counts(mixed: bool, appends: int, refits: int,
+                  suggests: int, steps: int) -> dict:
+    """Launches of an engine run: one column gram per absorb round or
+    advance with a flag (`appends`); per lag refit one masked gram, one
+    factor and one L X = I on the grid of 18, then one of each for the
+    refactor; per batched suggest `steps` + 1 fused-EI launches for all
+    studies; the other form's kernels and the general solve 0."""
+    gram, ei = ("mixed", "acq_mixed") if mixed else ("matern", "acq")
+    counts = {"matern": 0, "mixed": 0, "acq": 0, "acq_mixed": 0,
+              "trsv": 2 * refits, "trsv_general": 0, "chol": 2 * refits}
+    counts[gram] = appends + 2 * refits
+    counts[ei] = suggests * (steps + 1)
+    return counts
+
+
+def lag_due(eng, flags) -> int:
+    """Lag refits the engine's policy makes after absorbing `flags` (its
+    host mirrors; lag > 0)."""
+    return sum(1 for s in np.flatnonzero(flags)
+               if eng.since_refit(s) + 1 >= eng.cfg.lag)
+
+
+def diff_counts(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def stacked_engine_args(st, cand):
+    """The fused EI's operands for a stacked state, as the batched suggest
+    hoists them."""
+    amask = (torch.arange(st.n_max, device=cand.device)
+             < st.n[:, None]).float()
+    a_buf = st.li_buf.transpose(-1, -2) @ st.li_buf
+    ymean = torch.sum(st.y_buf * amask, dim=-1) / st.n
+    shift = ymean - torch.amax(torch.where(amask > 0, st.y_buf, -torch.inf),
+                               dim=-1) - 0.01
+    return (cand, st.x_buf, amask, st.alpha, a_buf, st.params.sigma2,
+            st.params.rho, shift)
+
+
+def plain_ei(args, cont_mask=None, cat_mask=None):
+    """The fused EI's plain version on `ei_args`-style operands, in the
+    mixed form when the masks are given (the rows split first)."""
+    from repro_torch.kernels import acq
+    if cont_mask is None:
+        return acq.ei_grad_torch(*args)
+    xcc, xbc, xk, xbk = acq.split_rows(args[0], args[1], cont_mask, cat_mask)
+    return acq.ei_grad_torch(xcc, xbc, *args[2:], xk=xk, xbk=xbk)
+
+
+def stacked_mask_checks(eng, gen) -> dict:
+    """The two mixed kernels with per-study (S, d) masks at the mixed
+    engine's shapes (16 studies, two type layouts, n = 1024, ragged n,
+    d = 6, r = 48): the append's column, the masked Gram a refactor builds
+    (and its unmasked build: the masked one must be exactly that padded by
+    the identity) and the fused EI, each held to its plain version, each
+    lane torch.equal to a launch with that lane's (d,) masks (the grams:
+    a single launch; the EI: the same batch under the lane's masks, whose
+    plan is the batch's), and identical rows torch.equal to (d,) masks.
+    Run after the engine phase's counts were read."""
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.kernels import acq, mixed, ref
+    st, desc = eng.state, eng.desc
+    cm, km = desc.cont_mask, desc.cat_mask
+    n_studies, n_max, d = st.x_buf.shape
+    p = st.params
+    x, cols = st.x_buf, st.x_buf[:, 7:8].contiguous()
+    same_cm = cm[:1].expand(n_studies, d).contiguous()
+    same_km = km[:1].expand(n_studies, d).contiguous()
+    out = {}
+
+    def lanes_equal(got, single) -> bool:
+        return all(torch.equal(got[s], single(s)) for s in range(n_studies))
+
+    # The append's column (the engine's one gram launch a round).
+    got = mixed.mixed_gram_cuda(x, cols, p.sigma2, p.rho, cm, km)
+    plain = ref.mixed_gram(x, cols, p.sigma2, p.rho, cm, km)
+    exact = ref.mixed_gram(x.double(), cols.double(), p.sigma2.double(),
+                           p.rho.double(), cm.double(), km.double())
+    ok, line = held_to_plain(got, plain, exact, TOL_MATERN)
+    lanes = lanes_equal(got, lambda s: mixed.mixed_gram_cuda(
+        x[s], cols[s], p.sigma2[s], p.rho[s], cm[s], km[s]))
+    shared = torch.equal(
+        mixed.mixed_gram_cuda(x, cols, p.sigma2, p.rho, same_cm, same_km),
+        mixed.mixed_gram_cuda(x, cols, p.sigma2, p.rho, cm[0], km[0]))
+    b_ms, b_by = bound(n_studies * n_max * (4 * d + 20),
+                       4 * n_studies * (n_max * d + d + 2 * d + n_max))
+    out["column"] = dict(line, lanes_equal=lanes, shared_rows_equal=shared,
+                         ms=median_ms(lambda: mixed.mixed_gram_cuda(
+                             x, cols, p.sigma2, p.rho, cm, km)),
+                         plain_ms=median_ms(lambda: ref.mixed_gram(
+                             x, cols, p.sigma2, p.rho, cm, km)),
+                         bound_ms=b_ms, bound_by=b_by)
+    if not (ok and lanes and shared):
+        raise AssertionError(f"stacked masks, column: {out['column']}")
+
+    # The masked Gram (a refactor's input, per-study n), and the unmasked
+    # build it must pad exactly.
+    got = mixed.masked_gram_cuda(x, st.n, p.sigma2, p.rho, p.noise2, cm, km)
+    k = mixed.mixed_gram_cuda(x, x, p.sigma2, p.rho, cm, km)
+    held_padded("stacked masked mixed gram", got, k, st.n, p.noise2)
+    plain = ref.pad_identity(ref.mixed_gram(x, x, p.sigma2, p.rho, cm, km),
+                             st.n, p.noise2)
+    exact = ref.pad_identity(ref.mixed_gram(
+        x.double(), x.double(), p.sigma2.double(), p.rho.double(),
+        cm.double(), km.double()), st.n, p.noise2.double())
+    ok, line = held_to_plain(got, plain, exact, TOL_MATERN)
+    lanes = lanes_equal(got, lambda s: mixed.masked_gram_cuda(
+        x[s], int(st.n[s]), p.sigma2[s], p.rho[s], p.noise2[s], cm[s], km[s]))
+    shared = torch.equal(
+        mixed.masked_gram_cuda(x, st.n, p.sigma2, p.rho, p.noise2, same_cm,
+                               same_km),
+        mixed.masked_gram_cuda(x, st.n, p.sigma2, p.rho, p.noise2, cm[0],
+                               km[0]))
+    b_ms, b_by = bound(n_studies * n_max * n_max * (4 * d + 20) / 2,
+                       4 * n_studies * (n_max * d + 2 * d + n_max * n_max))
+    out["masked"] = dict(line, lanes_equal=lanes, shared_rows_equal=shared,
+                         ms=median_ms(lambda: mixed.masked_gram_cuda(
+                             x, st.n, p.sigma2, p.rho, p.noise2, cm, km)),
+                         plain_ms=median_ms(lambda: ref.pad_identity(
+                             ref.mixed_gram(x, x, p.sigma2, p.rho, cm, km),
+                             st.n, p.noise2), reps=5),
+                         bound_ms=b_ms, bound_by=b_by)
+    del got, k, plain, exact
+    if not (ok and lanes and shared):
+        raise AssertionError(f"stacked masks, masked gram: {out['masked']}")
+
+    # The fused EI at the batched suggest's shapes.
+    r = eng.cfg.acq.restarts
+    cand = project_units(torch.rand((n_studies, r, d), generator=gen,
+                                    device=x.device), desc)
+    args = stacked_engine_args(st, cand)
+
+    def mixed_plain(a):
+        return plain_ei(a, cm, km)
+
+    line = held_ei("stacked masks", lambda a: acq.fused_ei_grad_mixed_cuda(
+        *a, cm, km), mixed_plain, args, km[:, None, :])
+    ei, grad = acq.fused_ei_grad_mixed_cuda(*args, cm, km)
+    lanes = True
+    for s in range(n_studies):
+        e1, g1 = acq.fused_ei_grad_mixed_cuda(*args, cm[s], km[s])
+        lanes = lanes and torch.equal(ei[s], e1[s]) and torch.equal(grad[s],
+                                                                    g1[s])
+    shared = all(torch.equal(a, b) for a, b in zip(
+        acq.fused_ei_grad_mixed_cuda(*args, same_cm, same_km),
+        acq.fused_ei_grad_mixed_cuda(*args, cm[0], km[0])))
+    b_ms, b_by = bound(n_studies * r * (2.0 * n_max * n_max
+                                        + n_max * (8 * d + 45)),
+                       4 * n_studies * (r * d + n_max * d + 2 * d
+                                        + 2 * n_max + n_max * n_max + r
+                                        + r * d))
+    out["fused_ei"] = dict(line, lanes_equal=lanes, shared_rows_equal=shared,
+                           max_abs_err=max(line["ei_max_abs_err"],
+                                           line["grad_max_abs_err"]),
+                           ms=median_ms(lambda: acq.fused_ei_grad_mixed_cuda(
+                               *args, cm, km)),
+                           plain_ms=median_ms(lambda: mixed_plain(args)),
+                           bound_ms=b_ms, bound_by=b_by,
+                           plan=dataclasses.asdict(acq.launch_plan(
+                               n_studies, r, n_max, d, True)))
+    if not (lanes and shared):
+        raise AssertionError(f"stacked masks, fused EI: {out['fused_ei']}")
+    line = {"phase": "kernels", "kernel": "per-study masks",
+            "shape": f"S={n_studies}, n={n_max}, d={d}, r={r}",
+            "n": [int(v) for v in st.n.cpu()], "tol": TOL_MATERN,
+            "tol_ei": TOL_EI, **out}
+    emit(line)
+    return out
+
+
+def lane_parity(eng, studies, units, gen) -> dict:
+    """One advance with every study flagged and explicit seeds, against the
+    existing single-study path on each lane's snapshot (`study_state`)
+    with the same observation and seeds: `gp.append` then
+    `optimize_acquisition`, one study after another.  Holds each lane's
+    suggestion, l_buf, li_buf and alpha to the single-study path's and
+    times both ways (host clock around `torch.cuda.synchronize()`): the
+    batched round against 16 single-study appends and suggests."""
+    from repro_torch.core import acquisition as acq_mod
+    from repro_torch.core import gp
+    from repro_torch.core.descriptor import index_descriptor
+    from repro_torch.core.kernels import KERNELS, make_mixed_kernel
+    n_studies, dim = eng.n_studies, eng.dim
+    flags = np.ones(n_studies, bool)
+    if lag_due(eng, flags):
+        raise AssertionError("lane parity: a lag event is due this round")
+    xs = units[:, 0].cpu().numpy()
+    ys = np.array([st.objective(xs[s:s + 1])[0]
+                   for s, st in enumerate(studies)], np.float32)
+    snaps = [eng.study_state(s) for s in range(n_studies)]
+    seeds = torch.rand((n_studies, eng.cfg.acq.restarts, dim), generator=gen,
+                       device=units.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_u, got_v = eng.advance(flags, xs, ys, seeds=seeds)
+    torch.cuda.synchronize()
+    batched_ms = 1e3 * (time.perf_counter() - t0)
+
+    def kernel_of(s):
+        if eng.desc is None:
+            return KERNELS[eng.cfg.kernel]
+        return make_mixed_kernel(eng.desc.cont_mask[s], eng.desc.cat_mask[s])
+
+    lo = torch.zeros(dim, device=units.device)
+    hi = torch.ones(dim, device=units.device)
+    xs_dev = torch.as_tensor(xs, device=units.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    singles = []
+    for s in range(n_studies):
+        kern = kernel_of(s)
+        st = gp.append(snaps[s], kern, xs_dev[s], float(ys[s]))
+        u, v = acq_mod.optimize_acquisition(
+            st, kern, lo, hi, eng.cfg.acq, seeds=seeds[s],
+            desc=None if eng.desc is None else index_descriptor(eng.desc, s))
+        singles.append((st, u, v))
+    torch.cuda.synchronize()
+    sequential_ms = 1e3 * (time.perf_counter() - t0)
+    worst = {"suggest": 0.0, "l_buf": 0.0, "li_buf": 0.0, "alpha": 0.0}
+    diverged = []
+    for s, (st, u, v) in enumerate(singles):
+        lane = eng.study_state(s)
+        dev_u = float((got_u[s] - u).abs().max())
+        if dev_u > TOL_LANE_SUGGEST:
+            # Another basin: the batched value must be the single-study EI
+            # at the batched point (held to it as `held_to_plain` holds a
+            # kernel, with its float64 rule).
+            args = ei_args(st, got_u[s])
+            at_point, _ = acq_mod.ei_value_and_grad(
+                st, kernel_of(s), got_u[s], eng.cfg.acq)
+            cm = km = None
+            if eng.desc is not None:
+                cm, km = eng.desc.cont_mask[s], eng.desc.cat_mask[s]
+            exact, _ = plain_ei([a.double() for a in args], cm, km)
+            ok, held = held_to_plain(got_v[s], at_point, exact, TOL_EI)
+            diverged.append({"lane": s, "dev": dev_u,
+                             "ei_batched": float(got_v[s, 0]),
+                             "ei_single": float(v[0]),
+                             "ei_single_at_batched_point": float(at_point[0]),
+                             "held": ok})
+            if not ok:
+                raise AssertionError(f"lane {s}: suggestion off by {dev_u}, "
+                                     f"its value not the single-study EI "
+                                     f"there: {diverged[-1]}, {held}")
+        else:
+            worst["suggest"] = max(worst["suggest"], dev_u)
+        for leaf in ("l_buf", "li_buf", "alpha"):
+            a, b = getattr(lane, leaf), getattr(st, leaf)
+            worst[leaf] = max(worst[leaf], float((a - b).abs().max()
+                                                 / b.abs().max()))
+        if (lane.n, lane.since_refit) != (st.n, st.since_refit):
+            raise AssertionError(f"lane {s}: counters {lane.n} vs {st.n}")
+    if not (worst["l_buf"] <= TOL_LANE_FACTOR
+            and worst["li_buf"] <= TOL_LANE_INVERSE
+            and worst["alpha"] <= TOL_LANE_INVERSE
+            and len(diverged) <= n_studies // 4):
+        raise AssertionError(f"lane parity: {worst}, diverged {diverged}")
+    return {"max_dev": worst, "diverged": diverged, "tol": {
+                "suggest": TOL_LANE_SUGGEST, "l_buf": TOL_LANE_FACTOR,
+                "li_buf_alpha": TOL_LANE_INVERSE},
+            "batched_round_ms": batched_ms,
+            "sequential_ms": sequential_ms,
+            "sequential_over_batched": sequential_ms / batched_ms}, got_u
+
+
+def unflagged_round(eng, studies, units) -> dict:
+    """One advance with the odd studies unflagged: every leaf of an
+    unflagged lane must stay torch.equal, its counters unchanged."""
+    from repro_torch.core import gp
+    flags = np.arange(eng.n_studies) % 2 == 0
+    xs = units[:, 0].cpu().numpy()
+    ys = np.array([st.objective(xs[s:s + 1])[0]
+                   for s, st in enumerate(studies)], np.float32)
+    before = [eng.study_state(s) for s in range(eng.n_studies)]
+    units, _ = eng.advance(flags, xs, ys)
+    changed = []
+    for s in np.flatnonzero(~flags):
+        after = eng.study_state(s)
+        same = all(torch.equal(a, b) for a, b in zip(
+            gp._leaves(after), gp._leaves(before[s])))
+        if not (same and after.n == before[s].n
+                and after.since_refit == before[s].since_refit):
+            changed.append(int(s))
+    grown = all(eng.n(s) == before[s].n + 1 for s in np.flatnonzero(flags))
+    if changed or not grown:
+        raise AssertionError(f"unflagged lanes changed: {changed}; "
+                             f"flagged grown {grown}")
+    return {"unflagged": int((~flags).sum()), "unflagged_equal": True}, units
+
+
+def sync_free_round(eng, studies, units):
+    """One advance with every study flagged and no lag event due, under
+    `torch.cuda.set_sync_debug_mode("error")`: a device read on the path
+    (an .item(), a boolean-mask index, a blocking copy) raises."""
+    flags = np.ones(eng.n_studies, bool)
+    if lag_due(eng, flags):
+        raise AssertionError("sync-free round: a lag event is due")
+    xs = units[:, 0].cpu().numpy()
+    ys = np.array([st.objective(xs[s:s + 1])[0]
+                   for s, st in enumerate(studies)], np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        units, _ = eng.advance(flags, xs, ys)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return units
+
+
+def engine_path(dev, mixed: bool):
+    """Phases engine and engine_mixed: the port's `StudyEngine` at full
+    width (n_max = 1024, 16 studies, SchedulerConfig's acquisition: 48
+    restarts x 20 steps, lag 32, top_t 1).  Study s is prefilled through
+    `absorb_round` to 960 - 8 s points of its own (so lag events fall in
+    different rounds and the append sees ragged n), then 32 `advance`
+    rounds run with every study flagged, each absorbing the last round's
+    suggestions.  The mixed engine stacks 8 studies of the mixed workload
+    and 8 Levy-6d studies, and halfway swaps slot 15 to the mixed layout
+    (`reset_slot` + `set_desc`, as a gateway takes a new tenant).  Every
+    counter is set to 0 before the prefill and read after the last round;
+    each round's launches must be exactly 21 fused EI, one column gram,
+    and per lag event of a flagged study two masked grams, two factors and
+    two L X = I (the grid of 18, then the refactor), the general solve 0.
+    Every mixed suggestion must lie on its study's lattice.  Returns the
+    counts, the engine, its studies, its last suggestions and its line."""
+    from repro_torch.hpo.engine import StudyEngine
+    from repro_torch.hpo.pool import SchedulerConfig
+    name = "engine_mixed" if mixed else "engine"
+    studies = engine_studies(mixed)
+    dim = studies[0].space.dim
+    cfg = SchedulerConfig(n_max=N_MAX, lag=LAG)
+    steps = cfg.acq.ascent_steps
+    eng = StudyEngine(dim, cfg, ENGINE_STUDIES,
+                      [st.space.descriptor() for st in studies]
+                      if mixed else None)
+    sizes = [N_SEED - ENGINE_SPREAD * s for s in range(ENGINE_STUDIES)]
+    points = [st.space.sample(np.random.default_rng(100 + s), sizes[s])
+              for s, st in enumerate(studies)]
+    values = [st.objective(p) for st, p in zip(studies, points)]
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    prefill_refits = 0
+    for r in range(max(sizes)):
+        flags = np.array([r < k for k in sizes])
+        pick = [min(r, k - 1) for k in sizes]
+        xs = np.stack([p[i] for p, i in zip(points, pick)])
+        ys = np.array([v[i] for v, i in zip(values, pick)], np.float32)
+        prefill_refits += lag_due(eng, flags)
+        eng.absorb_round(flags, xs, ys)
+    eng.sync()
+    prefill_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = engine_counts(mixed, max(sizes), prefill_refits, 0, steps)
+    if counts != want:
+        raise AssertionError(f"{name} prefill: launches {counts}, "
+                             f"expected {want}")
+    if [eng.n(s) for s in range(ENGINE_STUDIES)] != sizes:
+        raise AssertionError(f"{name}: prefill n "
+                             f"{[eng.n(s) for s in range(ENGINE_STUDIES)]}")
+
+    units, _ = eng.suggest_all()
+    flags = np.ones(ENGINE_STUDIES, bool)
+    rng = np.random.default_rng(7)
+    round_ms, round_due, off, swapped = [], [], 0, None
+    for r in range(ENGINE_ROUNDS):
+        xs = units[:, 0].cpu().numpy()
+        off += sum(int((st.space.project(xs[s]) != xs[s]).any())
+                   for s, st in enumerate(studies))
+        if mixed and r == ENGINE_ROUNDS // 2:
+            # A new tenant in slot 15, with the other layout: the slot is
+            # blanked, its descriptor row written; its first observation
+            # is a point of its own lattice.
+            swapped = ENGINE_STUDIES - 1
+            studies[swapped] = studies[0]
+            eng.reset_slot(swapped)
+            eng.set_desc(swapped, studies[swapped].space.descriptor())
+            xs[swapped] = studies[swapped].space.sample(rng, 1)[0]
+        ys = np.array([st.objective(xs[s:s + 1])[0]
+                       for s, st in enumerate(studies)], np.float32)
+        due = lag_due(eng, flags)
+        before = read_counts()
+        t0 = time.perf_counter()
+        units, vals = eng.advance(flags, xs, ys)
+        torch.cuda.synchronize()
+        round_ms.append(1e3 * (time.perf_counter() - t0))
+        got = diff_counts(read_counts(), before)
+        want = engine_counts(mixed, 1, due, 1, steps)
+        if got != want:
+            raise AssertionError(f"{name} round {r}: launches {got}, "
+                                 f"expected {want}")
+        round_due.append(due)
+    totals = read_counts()
+    refits = sum(round_due)
+    xs = units[:, 0].cpu().numpy()
+    off += sum(int((st.space.project(xs[s]) != xs[s]).any())
+               for s, st in enumerate(studies))
+    if off:
+        raise AssertionError(f"{name}: {off} suggestions off their lattice")
+    want = engine_counts(mixed, max(sizes) + ENGINE_ROUNDS,
+                         prefill_refits + refits, 1 + ENGINE_ROUNDS, steps)
+    if totals != want:
+        raise AssertionError(f"{name}: launches {totals}, expected {want}")
+    vals = vals.cpu()
+    if not (torch.isfinite(units).all() and torch.isfinite(vals).all()):
+        raise AssertionError(f"{name}: non-finite suggestions")
+    calm = [ms for ms, due in zip(round_ms, round_due) if not due]
+    line = {"phase": name, "studies": ENGINE_STUDIES, "n_max": N_MAX,
+            "dim": dim, "layouts": [st.tag for st in studies],
+            "n_prefill": [sizes[0], sizes[-1]], "prefill_seconds": prefill_s,
+            "prefill_refits": prefill_refits, "rounds": ENGINE_ROUNDS,
+            "round_refits": refits, "launches": totals,
+            "per_round_launches": engine_counts(mixed, 1, 0, 1, steps),
+            "swapped_slot": swapped, "points_off_lattice": off,
+            "n_final": [eng.n(s) for s in range(ENGINE_STUDIES)],
+            "clamp_counts": eng.clamp_counts().tolist(),
+            "ei_zero_last_round": int((vals == 0).sum()),
+            "advance_ms": {"median": statistics.median(calm),
+                           "mean": statistics.fmean(calm),
+                           "min": min(calm), "max": max(calm),
+                           "rounds_without_lag_event": len(calm),
+                           "by_round": round_ms, "lag_events_by_round":
+                           round_due}}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    if mixed:
+        line["stacked_masks"] = stacked_mask_checks(eng, gen)
+    line["lane_parity"], units = lane_parity(eng, studies, units, gen)
+    more, units = unflagged_round(eng, studies, units)
+    line.update(more)
+    units = sync_free_round(eng, studies, units)
+    line["sync_free_round"] = "no device sync under set_sync_debug_mode('error')"
+    emit(line)
+    return totals, eng, studies, units, line
+
+
+def profile_engine(name, eng, studies, units) -> None:
+    """Phase 8: one more advance round of an engine (every study flagged,
+    no lag event due) under torch.profiler: device busy and idle time by
+    kernel, beside the host clock of the same round."""
+    flags = np.ones(eng.n_studies, bool)
+    state = {"units": units}
+
+    def round_():
+        if lag_due(eng, flags):
+            raise AssertionError(f"{name} profile: a lag event is due")
+        xs = state["units"][:, 0].cpu().numpy()
+        ys = np.array([st.objective(xs[s:s + 1])[0]
+                       for s, st in enumerate(studies)], np.float32)
+        state["units"], _ = eng.advance(flags, xs, ys)
+
+    split = device_split(round_)
+    t0 = time.perf_counter()
+    round_()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    emit({"phase": "profile", "path": name, "round_wall_ms": wall,
+          "device_span_ms": split["span_ms"], "device_busy_ms": split["busy_ms"],
+          "device_idle_ms": split["idle_ms"],
+          "device_busy_share": split["busy_ms"] / wall,
+          "by_kernel": split["by_name"][:12]})
+
+
 def trsv_launches(dev) -> dict:
-    """Phase 7: one call of the general solve at each of `trsv_cases`'
+    """Phase 8: one call of the general solve at each of `trsv_cases`'
     shapes and at B = I, n = 6144, under torch.profiler: each must be
     exactly one device kernel (`trsv_kernel`, no copy, no fill); its
     device ms."""
@@ -1726,7 +2304,7 @@ def record_ascent(opt, state, space) -> dict:
 
 
 def cholesky_launches(dev) -> None:
-    """Phase 7: the factor of the main path's refactor input and of the lag
+    """Phase 8: the factor of the main path's refactor input and of the lag
     refit's batch, one call each under torch.profiler, must each be one
     device kernel (beside the wrapper's copy and the memset of the barrier
     counters); prints the launch plan.  Runs after the paths, since a
@@ -1752,7 +2330,7 @@ def cholesky_launches(dev) -> None:
 
 
 def tri_inverse_launches(dev) -> None:
-    """Phase 7: L X = I on the main path's refactor factor and on the lag
+    """Phase 8: L X = I on the main path's refactor factor and on the lag
     refit's batch, one call each under torch.profiler, must each be one
     device kernel and nothing else (no identity built or copied); then
     one lag event by device time (`lag_event_split`)."""
@@ -1774,7 +2352,7 @@ def tri_inverse_launches(dev) -> None:
 
 
 def ei_launches(dev) -> dict:
-    """Phase 7: one call of each fused-EI form at r = 64, n = 1024 (the
+    """Phase 8: one call of each fused-EI form at r = 64, n = 1024 (the
     standardized states of the kernels phase's kind) under torch.profiler
     must be exactly one device kernel and nothing else: no copy, no memset
     (the scratch is kept across calls); its device ms, with the plan."""
@@ -1833,7 +2411,7 @@ def lag_event_split(dev) -> dict:
 
 
 def gram_launches(dev) -> dict:
-    """Phase 7: one call of each form under torch.profiler for the 1024^2
+    """Phase 8: one call of each form under torch.profiler for the 1024^2
     Gram of the kernels phase, the lag refit's batch of 18 masked Grams
     (`lag_batch`), the refactor's single masked Gram and the append's
     column; each must be exactly one device kernel and nothing else (no
@@ -1865,7 +2443,7 @@ def gram_launches(dev) -> dict:
 
 
 def profile_steps(name, driver, state, hist, steps: int = 4) -> None:
-    """Phase 7: a few more BO rounds of a path (continuing its state) under
+    """Phase 8: a few more BO rounds of a path (continuing its state) under
     torch.profiler: wall time, device busy time and its share, and the
     device time by kernel.  Runs after the launch counts were read."""
     from torch.autograd import DeviceType
@@ -1915,17 +2493,41 @@ SOURCES = {
 }
 
 
-def main() -> int:
+def digests_only(dev, src: str) -> int:
+    """`chip_smoke.py --digests [SRC]`: build the kernels of the
+    `repro_torch` under SRC (this checkout's `src` by default; an unpacked
+    parent's for an A/B) and print the digests of `gram_digests`,
+    `ei_digests` and `inverse_digests`, which use only entry points older
+    trees have."""
+    import repro_torch
+    from repro_torch.kernels import _build
+    _build.build()
+    emit({"phase": "digests", "src": src, "package": repro_torch.__file__,
+          "nvidia_smi": nvidia_smi_line(), "gram": gram_digests(dev),
+          "ei": ei_digests(dev), "inverse": inverse_digests(dev)})
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(root, "src"))
+    src = os.path.join(root, "src")
+    if argv[:1] == ["--digests"]:
+        src = os.path.abspath(argv[1]) if len(argv) > 1 else src
+    elif argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv:
+        return digests_only(dev, src)
     smi = nvidia_smi_line()
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
@@ -1954,14 +2556,30 @@ def main() -> int:
     digests = gram_digests(dev)
     line, gram_batched = gram_checks(dev, digests)
     emit(line)
+    emit({"phase": "kernels", "kernel": "fused_ei_grad digests",
+          **ei_digests(dev)})
     for row in rows:
         if row["name"] in gram_batched:
             row["batched"] = gram_batched[row["name"]]
     paths = {"main": main_path(dev), "mixed": mixed_path(dev)}
     launches_by_path = {name: p[0] for name, p in paths.items()}
     launches_by_path["append"] = append_path(dev)
+    engines = {name: engine_path(dev, mixed)
+               for name, mixed in (("engine", False), ("engine_mixed", True))}
+    for name, (counts, *_) in engines.items():
+        launches_by_path[name] = counts
+    stacked = engines["engine_mixed"][-1]["stacked_masks"]
+    for row in rows:
+        keys = {"mixed_gram": ("column", "masked"),
+                "fused_ei_grad_mixed": ("fused_ei",)}.get(row["name"], ())
+        if keys:
+            row["stacked_masks"] = {k: {f: stacked[k][f] for f in (
+                "max_abs_err", "lanes_equal", "shared_rows_equal", "ms",
+                "plain_ms", "bound_ms")} for k in keys}
     for name, (_, driver, state, hist) in paths.items():
         profile_steps(name, driver, state, hist)
+    for name, (_, eng, studies, units, _) in engines.items():
+        profile_engine(name, eng, studies, units)
     cholesky_launches(dev)
     tri_inverse_launches(dev)
     for tag, line in trsv_launches(dev).items():
@@ -1993,7 +2611,8 @@ def main() -> int:
                             bound_by=row["bound_by"],
                             library_ms=row["library_ms"], shape=row["shape"],
                             **{k: row[k] for k in ("general_ms", "batched", "general",
-                                                   "device_ms", "host_gap_ms")
+                                                   "device_ms", "host_gap_ms",
+                                                   "stacked_masks")
                                if k in row}))
     emit({"kernels": kernels})
     print(smi, flush=True)

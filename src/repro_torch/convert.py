@@ -5,7 +5,10 @@ The keys are the tree-path names under which the reference's checkpoint
 store writes a `LazyGPState` (`repro/checkpoint/store.py`,
 `_flatten_with_paths`) or a `TypeDescriptor`, so a port checkpoint can
 later use the same names.  The GP state and its kernel params are what
-weights are to a model.
+weights are to a model.  A stacked state (a study engine's, DESIGN.md §7)
+and a stacked descriptor go under the same names with a leading S on
+every leaf; the stacked state's `n` and `since_refit` then stay (S,)
+int32 tensors on the device.
 """
 from __future__ import annotations
 
@@ -27,12 +30,14 @@ DESC_KEYS = DESC_FLOATS + DESC_INDICES
 
 def state_to_numpy(state: LazyGPState) -> dict[str, np.ndarray]:
     """Every leaf as a numpy array under its reference tree-path name
-    (float32 buffers and params, 0-d int32 counters)."""
+    (float32 buffers and params, int32 counters: 0-d, or (S,) for a
+    stacked state)."""
     out = {k: state_leaf.detach().cpu().numpy() for k, state_leaf in zip(
         BUFFERS, (state.x_buf, state.y_buf, state.l_buf, state.li_buf,
                   state.alpha))}
-    out[".n"] = np.asarray(state.n, np.int32)
-    out[".since_refit"] = np.asarray(state.since_refit, np.int32)
+    for k, v in zip(COUNTERS, (state.n, state.since_refit)):
+        out[k] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                  else np.asarray(v)).astype(np.int32)
     out[".clamp_count"] = state.clamp_count.detach().cpu().numpy() \
         .astype(np.int32)
     for k, v in zip(PARAMS, (state.params.sigma2, state.params.rho,
@@ -43,7 +48,9 @@ def state_to_numpy(state: LazyGPState) -> dict[str, np.ndarray]:
 
 def state_from_numpy(leaves: dict[str, np.ndarray],
                      device: str | torch.device = "cuda") -> LazyGPState:
-    """A port state on `device` from reference tree-path leaves."""
+    """A port state on `device` from reference tree-path leaves: a
+    single-study state (host counters) for 0-d counters, a stacked state
+    ((S,) int32 counters on the device) for (S,) ones."""
     missing = [k for k in KEYS if k not in leaves]
     if missing:
         raise KeyError(f"state leaves missing: {missing}")
@@ -52,10 +59,14 @@ def state_from_numpy(leaves: dict[str, np.ndarray],
     def t(k):
         return torch.as_tensor(np.array(leaves[k]), device=dev)
 
+    def counter(k):
+        v = np.asarray(leaves[k])
+        return t(k).to(torch.int32) if v.ndim else int(v)
+
     return LazyGPState(
         x_buf=t(".x_buf"), y_buf=t(".y_buf"), l_buf=t(".l_buf"),
         li_buf=t(".li_buf"), alpha=t(".alpha"),
-        n=int(leaves[".n"]), since_refit=int(leaves[".since_refit"]),
+        n=counter(".n"), since_refit=counter(".since_refit"),
         clamp_count=t(".clamp_count").to(torch.int32),
         params=KernelParams(*(t(k) for k in PARAMS)))
 

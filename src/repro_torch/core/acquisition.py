@@ -1,9 +1,12 @@
 """Acquisition functions and their multi-start optimizer.
 
-Counterpart of `repro/core/acquisition.py` for one study (no restart
-sharding and no q-fantasies yet).  Expected Improvement (paper Sec. 3.2.1)
-and a multi-start projected-gradient ascent that returns the argmax
-(sequential BO) or the top-t distinct local maxima (paper Sec. 3.4).
+Counterpart of `repro/core/acquisition.py` (no restart sharding and no
+q-fantasies yet).  Expected Improvement (paper Sec. 3.2.1) and a
+multi-start projected-gradient ascent that returns the argmax (sequential
+BO) or the top-t distinct local maxima (paper Sec. 3.4), for one study or
+for a stacked state of S studies (the reference's vmap): there each ascent
+step is one fused-EI launch for all S studies, with (S, d) type masks
+where their layouts differ.
 
 Each ascent step is one `ops.fused_ei_grad` call for the whole restart
 batch (the fused kernel on the card), with the loop invariants — f_best,
@@ -31,7 +34,7 @@ import torch
 
 from repro_torch.core import descriptor as desc_mod
 from repro_torch.core import gp as gp_mod
-from repro_torch.core.kernels import KernelFn
+from repro_torch.core.kernels import KernelFn, make_mixed_kernel
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -96,8 +99,9 @@ def _acq_value(state: gp_mod.LazyGPState, kernel: KernelFn, x: Tensor,
 
 
 def _f_best(state: gp_mod.LazyGPState) -> Tensor:
-    m = torch.arange(state.n_max, device=state.device) < state.n
-    return torch.max(torch.where(m, state.y_buf, -math.inf))
+    """Best active observation; (S,) for a stacked state."""
+    return torch.amax(torch.where(gp_mod._active_mask(state), state.y_buf,
+                                  -math.inf), dim=-1)
 
 
 # Mantissa bits cleared by the selection tie-break: values within ~2^-11
@@ -128,13 +132,13 @@ def _make_eval_batch(state: gp_mod.LazyGPState, kernel: KernelFn,
     Fused: hoists the active mask, `A = li_buf^T li_buf` (one GEMM over
     every ascent step) and the scalar shift `ymean - f_best - xi`; each
     step is then one `ops.fused_ei_grad` call, in its mixed form when the
-    kernel is the mixed closure (its type masks).  Unfused: autodiff
-    through the posterior, with f_best / ymean still hoisted.
+    kernel is the mixed closure (its type masks).  A stacked state gives
+    `eval(X (S, r, d))`, one call for all S studies.  Unfused (one study):
+    autodiff through the posterior, with f_best / ymean still hoisted.
     """
     if fused:
-        amask = (torch.arange(state.n_max, device=state.device)
-                 < state.n).to(state.x_buf.dtype)
-        a_buf = state.li_buf.T @ state.li_buf
+        amask = gp_mod._active_mask(state).to(state.x_buf.dtype)
+        a_buf = state.li_buf.transpose(-1, -2) @ state.li_buf
         shift = ymean - f_best - cfg.xi
         cont_mask = getattr(kernel, "cont_mask", None)
         cat_mask = getattr(kernel, "cat_mask", None)
@@ -174,24 +178,28 @@ def ascend_acquisition(eval_batch, lo: Tensor, hi: Tensor, cfg: AcqConfig,
                        seeds: Tensor | None = None,
                        jitter: Tensor | None = None,
                        project: Callable[[Tensor], Tensor] | None = None,
+                       batch: tuple[int, ...] = (),
                        ) -> tuple[Tensor, Tensor]:
     """Multi-start ascent + tie-break-stable selection, model-free.
 
-    `eval_batch(X (r, d)) -> (vals (r,), grads (r, d))` is the acquisition
-    oracle.  The restart seeds are `seeds (R, d)` when given, else
-    `lo + (hi - lo) * U[0, 1)` drawn from `generator`; the top-t backfill
-    jitter is `jitter (top_t, d)` standard normals when given, else drawn
-    from `generator`.  `project` (optional) repairs rows (..., d) onto a
-    feasible lattice: the seeds, every iterate after its gradient step and
-    the backfill (mixed spaces).  Returns (points (top_t, d), values
-    (top_t,)).
+    `eval_batch(X (*batch, r, d)) -> (vals (*batch, r), grads (*batch, r,
+    d))` is the acquisition oracle; `batch` is () for one study and (S,)
+    for a stacked state, whose studies ascend side by side and select each
+    on its own restarts.  The restart seeds are `seeds (*batch, R, d)`
+    when given, else `lo + (hi - lo) * U[0, 1)` drawn from `generator`;
+    the top-t backfill jitter is `jitter (*batch, top_t, d)` standard
+    normals when given, else drawn from `generator`.  `project` (optional)
+    repairs rows (..., d) onto a feasible lattice: the seeds, every
+    iterate after its gradient step and the backfill (mixed spaces).
+    Returns (points (*batch, top_t, d), values (*batch, top_t)).
     """
     d = lo.shape[-1]
     width = hi - lo
     project = project or (lambda u: u)
     if seeds is None:
-        seeds = lo + width * torch.rand((cfg.restarts, d), generator=generator,
-                                        dtype=lo.dtype, device=lo.device)
+        seeds = lo + width * torch.rand((*batch, cfg.restarts, d),
+                                        generator=generator, dtype=lo.dtype,
+                                        device=lo.device)
     x = project(seeds.to(device=lo.device, dtype=lo.dtype))
     for _ in range(cfg.ascent_steps):
         _, g = eval_batch(x)
@@ -200,39 +208,50 @@ def ascend_acquisition(eval_batch, lo: Tensor, hi: Tensor, cfg: AcqConfig,
         x = project(torch.clamp(x + cfg.lr * width * g, lo, hi))
     vals, _ = eval_batch(x)
 
+    def rows(a, i):         # rows i (*batch, k) of a (*batch, R, ...)
+        if a.ndim > i.ndim:
+            return torch.take_along_dim(a, i[..., None], dim=-2)
+        return torch.take_along_dim(a, i, dim=-1)
+
     # Selection runs on quantized values; the returned values are exact.
     qvals = _quantize_for_tiebreak(vals)
     if top_t == 1:
-        best = torch.argmax(qvals)
-        return x[best][None, :], vals[best][None]
+        best = torch.argmax(qvals, dim=-1, keepdim=True)   # first max wins
+        return rows(x, best), rows(vals, best)
 
-    # Spatial dedup: greedy pick best, suppress all restarts within radius.
-    order = torch.argsort(-qvals, stable=True)
-    finals, svals = x[order], vals[order]
+    # Spatial dedup: greedy pick best, suppress all restarts within radius
+    # (each study on its own restarts).
+    order = torch.argsort(-qvals, dim=-1, stable=True)
+    finals, svals = rows(x, order), rows(vals, order)
     radius = cfg.dedup_radius * torch.linalg.vector_norm(width)
-    dist = torch.linalg.vector_norm(finals[:, None, :] - finals[None, :, :],
-                                    dim=-1)
+    dist = torch.linalg.vector_norm(finals[..., :, None, :]
+                                    - finals[..., None, :, :], dim=-1)
     close = (dist < radius).cpu()        # one host copy for the greedy loop
-    chosen, suppressed = [], torch.zeros(finals.shape[0], dtype=torch.bool)
-    for i in range(finals.shape[0]):
-        if len(chosen) == top_t:
-            break
-        if not suppressed[i]:
-            chosen.append(i)
-            suppressed |= close[i]
+    picks = []
+    for close_s in close.reshape(-1, *close.shape[-2:]):
+        chosen = []
+        suppressed = torch.zeros(close_s.shape[0], dtype=torch.bool)
+        for i in range(close_s.shape[0]):
+            if len(chosen) == top_t:
+                break
+            if not suppressed[i]:
+                chosen.append(i)
+                suppressed |= close_s[i]
+        picks.append(chosen)
     # Fewer than top_t distinct basins: back-fill with jittered copies of
     # the best point so the batch shape stays fixed.
     if jitter is None:
-        jitter = torch.randn((top_t, d), generator=generator, dtype=lo.dtype,
-                             device=lo.device)
+        jitter = torch.randn((*batch, top_t, d), generator=generator,
+                             dtype=lo.dtype, device=lo.device)
     jitter = jitter.to(device=lo.device, dtype=lo.dtype)
-    idx = torch.tensor(chosen + [chosen[0]] * (top_t - len(chosen)),
-                       device=lo.device)
-    points, pvals = finals[idx], svals[idx]
-    filled = torch.arange(top_t, device=lo.device) < len(chosen)
-    fallback = project(torch.clamp(finals[chosen[0]] + 0.01 * width * jitter,
-                                   lo, hi))
-    points = torch.where(filled[:, None], points, fallback)
+    idx = torch.tensor([c + [c[0]] * (top_t - len(c)) for c in picks],
+                       device=lo.device).reshape(*batch, top_t)
+    filled = torch.tensor([[k < len(c) for k in range(top_t)] for c in picks],
+                          device=lo.device).reshape(*batch, top_t)
+    points, pvals = rows(finals, idx), rows(svals, idx)
+    fallback = project(torch.clamp(rows(finals, idx[..., :1])
+                                   + 0.01 * width * jitter, lo, hi))
+    points = torch.where(filled[..., None], points, fallback)
     return points, pvals
 
 
@@ -248,13 +267,49 @@ def optimize_acquisition(state: gp_mod.LazyGPState, kernel: KernelFn,
     top_t = 1 is sequential BO, top_t = t the paper's t best distinct
     local maxima.  Draws as `ascend_acquisition`.  `desc` (a mixed space's
     descriptor, on the state's device) projects the ascent onto its
-    feasible lattice."""
+    feasible lattice.
+
+    Stacked (the reference's vmap over studies): a stacked state gives
+    ((S, top_t, d), (S, top_t)), with seeds (S, R, d) and jitter
+    (S, top_t, d) when given; `kernel` covers all S studies (the mixed
+    closure over (S, d) masks where their layouts differ) and `desc` is
+    the stacked (S, d) descriptor.  Each ascent step is one fused-EI call
+    for all S; selection is per study, with the same tie-break.  An
+    acquisition the fused kernel does not cover runs study by study.
+    Batched suggestions match the single-study path to the fused EI's
+    tolerance, not bit for bit: the kernel's launch plan cuts the sums by
+    the batch size (`acq.launch_plan`)."""
+    fused = _use_fused(cfg, kernel)
+    if state.is_batched and not fused:
+        return _optimize_each(state, kernel, lo, hi, cfg, top_t,
+                              generator=generator, seeds=seeds,
+                              jitter=jitter, desc=desc)
     f_best = _f_best(state)
     ymean = gp_mod._ymean(state)
-    eval_batch = _make_eval_batch(state, kernel, cfg, _use_fused(cfg, kernel),
-                                  f_best, ymean)
+    eval_batch = _make_eval_batch(state, kernel, cfg, fused, f_best, ymean)
     project = ((lambda u: desc_mod.project_units(u, desc))
                if desc is not None else None)
     return ascend_acquisition(eval_batch, lo, hi, cfg, top_t,
                               generator=generator, seeds=seeds, jitter=jitter,
-                              project=project)
+                              project=project,
+                              batch=state.x_buf.shape[:-2])
+
+
+def _optimize_each(state, kernel, lo, hi, cfg, top_t, *, generator, seeds,
+                   jitter, desc):
+    """The stacked suggest one study at a time (the autodiff ascent has no
+    study axis); reads each study's n from the device."""
+    outs = []
+    for s in range(state.n_studies):
+        kern = kernel
+        if getattr(kernel, "gram_kernel", None) == "mixed" \
+                and kernel.cont_mask.ndim > 1:
+            kern = make_mixed_kernel(kernel.cont_mask[s], kernel.cat_mask[s])
+        outs.append(optimize_acquisition(
+            gp_mod.unstack_state(state, s), kern, lo, hi, cfg, top_t,
+            generator=generator,
+            seeds=None if seeds is None else seeds[s],
+            jitter=None if jitter is None else jitter[s],
+            desc=(desc_mod.index_descriptor(desc, s)
+                  if desc is not None and desc.is_batched else desc)))
+    return tuple(torch.stack(v) for v in zip(*outs))

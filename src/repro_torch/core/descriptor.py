@@ -1,7 +1,9 @@
 """Type descriptor for mixed (float / int / categorical / conditional) spaces.
 
-Counterpart of `repro/core/descriptor.py` for one study (the stacked
-`(S, d)` descriptors come with the batched slice).  The GP always sees the
+Counterpart of `repro/core/descriptor.py`, with the stacked `(S, d)`
+descriptors of a batched engine (`stack_descriptors`, `index_descriptor`:
+one type layout a study, studies of different layouts side by side).  The
+GP always sees the
 encoded unit cube: every search-space dimension contributes one or more
 unit-cube coordinates (floats and ints one each, categoricals a one-hot
 block).  The `TypeDescriptor` records per coordinate which coordinates take
@@ -51,6 +53,11 @@ class TypeDescriptor:
         return self.cont_mask.shape[-1]
 
     @property
+    def is_batched(self) -> bool:
+        """Stacked `(S, d)` leaves, one row a study."""
+        return self.cont_mask.ndim == 2
+
+    @property
     def has_discrete(self) -> bool:
         """Host-side: any int / categorical / conditional coordinate?  Reads
         the fields back to the host, so it decides which closures a driver
@@ -60,9 +67,10 @@ class TypeDescriptor:
 
     def to(self, device) -> "TypeDescriptor":
         """The same descriptor with its fields on `device`."""
-        return TypeDescriptor(*(f.to(device) for f in (
-            self.cont_mask, self.cat_mask, self.levels, self.group,
-            self.parent)))
+        return TypeDescriptor(*(getattr(self, f).to(device) for f in FIELDS))
+
+
+FIELDS = tuple(f.name for f in dataclasses.fields(TypeDescriptor))
 
 
 def all_continuous(dim: int) -> TypeDescriptor:
@@ -77,11 +85,29 @@ def all_continuous(dim: int) -> TypeDescriptor:
     )
 
 
+def stack_descriptors(descs: "list[TypeDescriptor]") -> TypeDescriptor:
+    """Stack per-study descriptors into `(S, d)` leaves (one shared width),
+    on the first descriptor's device."""
+    widths = {d.dim for d in descs}
+    if len(widths) != 1:
+        raise ValueError(f"descriptors must share one width, got {widths}")
+    dev = descs[0].cont_mask.device
+    return TypeDescriptor(*(torch.stack([getattr(d, f).to(dev) for d in descs])
+                            for f in FIELDS))
+
+
+def index_descriptor(desc: TypeDescriptor, i: int) -> TypeDescriptor:
+    """Study i of a stacked descriptor (views of its rows, no copy)."""
+    return TypeDescriptor(*(getattr(desc, f)[i] for f in FIELDS))
+
+
 def project_units(u: Tensor, desc: TypeDescriptor) -> Tensor:
     """Round-and-repair projection onto the feasible lattice.
 
     Three masked passes over the last axis of `u` (`(d,)` or `(n, d)`, rows
-    projected independently):
+    projected independently; with a stacked `(S, d)` descriptor, `u` is
+    `(S, n, d)` and study s's rows take row s of the descriptor, in the
+    same launches as one study):
 
       1. **int snap**: coordinates with `levels = L > 0` round to the
          uniform lattice `{k / (L-1)}` (L = 1 pins to 0); `torch.round`
@@ -96,13 +122,16 @@ def project_units(u: Tensor, desc: TypeDescriptor) -> Tensor:
     Continuous coordinates pass through untouched.
     """
     d = u.shape[-1]
+    # A stacked descriptor's (S, d) rows against (S, n, d) points.
+    row = ((lambda v: v[..., None, :]) if desc.is_batched
+           else (lambda v: v))
     # 1. integer lattice snap
-    lev = desc.levels
+    lev = row(desc.levels)
     snapped = torch.round(u * (lev - 1.0)) / torch.clamp(lev - 1.0, min=1.0)
     u = torch.where(lev > 0, snapped, u)
     # 2. per-group one-hot argmax (group ids are first-coordinate indices,
     # so d segments cover every group)
-    gid = desc.group
+    gid = row(desc.group)
     is_cat = gid >= 0
     seg = torch.where(is_cat, gid, 0).expand(u.shape)
     scores = torch.where(is_cat, u, -torch.inf)
@@ -116,6 +145,9 @@ def project_units(u: Tensor, desc: TypeDescriptor) -> Tensor:
     onehot = (idx == torch.gather(first, -1, seg)).to(u.dtype)
     u = torch.where(is_cat, onehot, u)
     # 3. conditional gating by the (projected) parent coordinate
-    par = desc.parent
-    gate = torch.index_select(u, -1, torch.clamp(par, 0, d - 1))
+    par = row(desc.parent)
+    if desc.is_batched:     # each study's own parent ids
+        gate = torch.gather(u, -1, torch.clamp(par, 0, d - 1).expand(u.shape))
+    else:
+        gate = torch.index_select(u, -1, torch.clamp(par, 0, d - 1))
     return torch.where(par >= 0, u * gate, u)

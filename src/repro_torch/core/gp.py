@@ -1,17 +1,25 @@
 """Lazy Gaussian process regression (the paper's surrogate model).
 
-Counterpart of `repro/core/gp.py` for one study (the stacked-state helpers
-and the fantasy layer come with the pool slice).  Fixed-shape padded
-buffers hold the observed points, the observations, the identity-padded
-Cholesky factor and its maintained inverse; `append` is the paper's O(n^2)
-Alg. 3 step; `refactor` / `refit_params` are the lag-event refactorization
-with kernel hyper-parameter re-estimation by log marginal likelihood.
+Counterpart of `repro/core/gp.py` (the fantasy layer comes with a later
+slice).  Fixed-shape padded buffers hold the observed points, the
+observations, the identity-padded Cholesky factor and its maintained
+inverse; `append` is the paper's O(n^2) Alg. 3 step; `refactor` /
+`refit_params` are the lag-event refactorization with kernel
+hyper-parameter re-estimation by log marginal likelihood.
 
-The active count `n` and the lag counter `since_refit` are Python ints in
-the state: the BO loop is driven from the host, and a device counter would
-make every capacity or lag check wait for the card.  `clamp_count` stays a
-0-d int32 tensor on the device.  Transitions return new states and never
-write a buffer of their input state.
+The active count `n` and the lag counter `since_refit` of one study are
+Python ints in the state: the BO loop is driven from the host, and a
+device counter would make every capacity or lag check wait for the card.
+`clamp_count` stays a 0-d int32 tensor on the device.  Transitions return
+new states and never write a buffer of their input state.
+
+Stacked studies (DESIGN.md §7): `init_pool_state` / `stack_states` build a
+state whose leaves carry a leading study axis S, with `n`, `since_refit`
+and `clamp_count` (S,) int32 tensors on the device and (S,) params; the
+stacked engine (`repro_torch.hpo.engine`) keeps host mirrors of the
+counters and advances the state in place (`append_stacked`), as the
+reference's engine donates its buffers.  `unstack_state` gives one study
+as a single-study state that every function here takes.
 """
 from __future__ import annotations
 
@@ -79,10 +87,20 @@ class LazyGPState:
     l_buf: Tensor        # (n_max, n_max) identity-padded factor of K + noise I
     li_buf: Tensor       # (n_max, n_max) identity-padded inverse factor L^{-1}
     alpha: Tensor        # (n_max,) (K + noise I)^{-1} (y - mean), zero-padded
-    n: int               # active count (host)
-    since_refit: int     # appends since the last full refactor (host)
+    n: int | Tensor      # active count (host; stacked: (S,) int32, device)
+    since_refit: int | Tensor  # appends since the last full refactor (the
+    # same)
     clamp_count: Tensor  # () int32 appends whose d^2 hit the floor (device)
     params: KernelParams
+
+    @property
+    def is_batched(self) -> bool:
+        """A stacked state: every leaf has a leading study axis."""
+        return self.x_buf.ndim == 3
+
+    @property
+    def n_studies(self) -> int:
+        return self.x_buf.shape[0] if self.is_batched else 1
 
     @property
     def n_max(self) -> int:
@@ -145,15 +163,94 @@ def init_state(cfg: GPConfig, params: KernelParams | None = None) -> LazyGPState
     )
 
 
-def _active_mask(state: LazyGPState, n: int | None = None) -> Tensor:
+# ---------------------------------------------------------------------------
+# Stacked study axis (DESIGN.md §7): constructors, views and writes.
+# ---------------------------------------------------------------------------
+
+def _leaves(state: LazyGPState) -> tuple:
+    return (state.x_buf, state.y_buf, state.l_buf, state.li_buf, state.alpha,
+            state.clamp_count, state.params.sigma2, state.params.rho,
+            state.params.noise2)
+
+
+def _with_leaves(state: LazyGPState, leaves, n, since_refit) -> LazyGPState:
+    x_buf, y_buf, l_buf, li_buf, alpha, clamp, sigma2, rho, noise2 = leaves
+    return LazyGPState(x_buf=x_buf, y_buf=y_buf, l_buf=l_buf, li_buf=li_buf,
+                       alpha=alpha, n=n, since_refit=since_refit,
+                       clamp_count=clamp,
+                       params=KernelParams(sigma2, rho, noise2))
+
+
+def stack_states(states: "list[LazyGPState]") -> LazyGPState:
+    """Stack single-study states (one n_max and width, one device) into one
+    state with a leading study axis."""
+    dev = states[0].device
+    leaves = [torch.stack([torch.as_tensor(v, device=dev) for v in vs])
+              for vs in zip(*(_leaves(st) for st in states))]
+
+    def counter(name):
+        return torch.tensor([int(getattr(st, name)) for st in states],
+                            dtype=torch.int32, device=dev)
+
+    return _with_leaves(states[0], leaves, counter("n"),
+                        counter("since_refit"))
+
+
+def init_pool_state(cfg: GPConfig, n_studies: int,
+                    params: KernelParams | None = None) -> LazyGPState:
+    """Stacked state for `n_studies` empty studies with the same kernel
+    params; per-study params diverge at lag events."""
+    if n_studies < 1:
+        raise ValueError(f"n_studies must be >= 1, got {n_studies}")
+    return stack_states([init_state(cfg, params)] * n_studies)
+
+
+def unstack_state(state: LazyGPState, study: int, *, n: int | None = None,
+                  since_refit: int | None = None,
+                  copy: bool = False) -> LazyGPState:
+    """Study `study` of a stacked state as a single-study state: views of
+    its rows (its own buffers with `copy`).  `n` / `since_refit` are the
+    host counts where the caller keeps them (the engine's mirrors); else
+    they are read from the device."""
+    leaves = [leaf[study].clone() if copy else leaf[study]
+              for leaf in _leaves(state)]
+    return _with_leaves(
+        state, leaves, int(state.n[study]) if n is None else n,
+        int(state.since_refit[study]) if since_refit is None else since_refit)
+
+
+def lanes(state: LazyGPState, sl: slice) -> LazyGPState:
+    """A slice of the study axis as a stacked state of views: in-place
+    transitions on it (`append_stacked`) write the full stack."""
+    return _with_leaves(state, [leaf[sl] for leaf in _leaves(state)],
+                        state.n[sl], state.since_refit[sl])
+
+
+def write_study(state: LazyGPState, study: int, sub: LazyGPState) -> None:
+    """Copy single-study state `sub` into study `study` of a stacked
+    state, in place and bit for bit."""
+    for leaf, v in zip(_leaves(state), _leaves(sub)):
+        leaf[study] = v
+    state.n[study] = int(sub.n)
+    state.since_refit[study] = int(sub.since_refit)
+
+
+def _active_mask(state: LazyGPState, n: int | Tensor | None = None) -> Tensor:
+    """Rows below n: (n_max,), or (S, n_max) for a stacked state."""
     n = state.n if n is None else n
+    if isinstance(n, Tensor):
+        n = n[..., None]
     return torch.arange(state.n_max, device=state.device) < n
 
 
 def _ymean(state: LazyGPState) -> Tensor:
-    """Mean of the active observations (GP prior mean = running mean)."""
+    """Mean of the active observations (GP prior mean = running mean);
+    (S,) for a stacked state."""
     m = _active_mask(state)
-    return torch.sum(torch.where(m, state.y_buf, 0.0)) / max(state.n, 1)
+    total = torch.sum(torch.where(m, state.y_buf, 0.0), dim=-1)
+    if isinstance(state.n, Tensor):
+        return total / torch.clamp(state.n, min=1)
+    return total / max(state.n, 1)
 
 
 def _recompute_alpha(state: LazyGPState) -> Tensor:
@@ -216,6 +313,41 @@ def append(state: LazyGPState, kernel: KernelFn, x_new: Tensor,
         state, x_buf=x_buf, y_buf=y_buf, l_buf=l_buf, li_buf=li_buf,
         alpha=alpha, n=n_new, since_refit=state.since_refit + 1,
         clamp_count=state.clamp_count + clamped)
+
+
+def append_stacked(state: LazyGPState, kernel: KernelFn, xs: Tensor,
+                   ys: Tensor, flags: Tensor) -> None:
+    """Absorb one observation into each flagged study of a stacked state,
+    in place (the reference's masked `append` under vmap): `xs (S, d)`,
+    `ys (S,)`, `flags (S,)` bool on the state's device.  One gram launch
+    builds every study's covariance column; the bordered update and the
+    alpha refresh are batched matvecs (`ops.lazy_append_stacked`).  The
+    other studies keep every bit.  Capacity is the caller's check
+    (`ensure_capacity` on its host counts): nothing here reads the device
+    back."""
+    n_studies, n_max = state.n_studies, state.n_max
+    lanes_ = torch.arange(n_studies, device=state.device)
+    n = state.n
+    p = ops.kernel_gram(kernel, state.x_buf, xs[:, None, :],
+                        state.params)[..., 0]
+    p_pad = torch.where(_active_mask(state), p, 0.0)
+    c = kernel(xs[:, None, :], xs[:, None, :], state.params)[:, 0, 0] \
+        + state.params.noise2
+    row = torch.clamp(n, max=n_max - 1).long()
+    keep = ~flags
+    state.x_buf[lanes_, row] = torch.where(keep[:, None],
+                                           state.x_buf[lanes_, row], xs)
+    state.y_buf[lanes_, row] = torch.where(keep, state.y_buf[lanes_, row], ys)
+    mask_new = _active_mask(state, n + 1)
+    ymean = torch.sum(torch.where(mask_new, state.y_buf, 0.0), dim=-1) / (n + 1)
+    resid = torch.where(mask_new, state.y_buf - ymean[:, None], 0.0)
+    _, clamped = ops.lazy_append_stacked(state.l_buf, state.li_buf,
+                                         state.alpha, p_pad, c, resid, n,
+                                         flags)
+    step = flags.to(torch.int32)
+    state.clamp_count.add_(clamped * step)
+    state.n.add_(step)
+    state.since_refit.add_(step)
 
 
 def append_batch(state: LazyGPState, kernel: KernelFn, xs: Tensor,

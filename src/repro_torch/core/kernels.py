@@ -4,7 +4,10 @@ Counterpart of `repro/core/kernels.py`.  Matérn-1.5/2.5, squared-exponential
 and the mixed-space Matérn x categorical kernel, each a pairwise-distance
 computation |x|^2 + |y|^2 - 2 x.y^T over torch tensors.
 All kernels take `KernelParams(sigma2, rho, noise2)` so that the lag
-policy can refit them as a unit.
+policy can refit them as a unit.  Each also takes a leading study axis,
+as the reference vmaps them over a stacked engine: (S, n, d) x (S, m, d)
+points with (S,) params (and, for the mixed kernel, (S, d) masks, one
+type layout a study) give (S, n, m).
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from repro_torch.kernels.ref import per_matrix, per_row
 
 Tensor = torch.Tensor
 
@@ -38,29 +43,30 @@ class KernelParams:
 
 
 def pairwise_sqdist(x: Tensor, y: Tensor) -> Tensor:
-    """Squared Euclidean distances between rows of x (n, d) and y (m, d),
-    by the expansion |x - y|^2 = |x|^2 + |y|^2 - 2 x.y^T."""
-    xx = torch.sum(x * x, dim=-1)[:, None]
-    yy = torch.sum(y * y, dim=-1)[None, :]
-    return torch.clamp(xx + yy - 2.0 * (x @ y.T), min=0.0)
+    """Squared Euclidean distances between rows of x (.., n, d) and
+    y (.., m, d), by the expansion |x - y|^2 = |x|^2 + |y|^2 - 2 x.y^T."""
+    xx = torch.sum(x * x, dim=-1)[..., :, None]
+    yy = torch.sum(y * y, dim=-1)[..., None, :]
+    return torch.clamp(xx + yy - 2.0 * (x @ y.transpose(-1, -2)), min=0.0)
 
 
 def matern52(x: Tensor, y: Tensor, params: KernelParams) -> Tensor:
     """Matérn-2.5 kernel matrix (paper Eq. 3, with the exponent sign fixed)."""
     d = torch.sqrt(pairwise_sqdist(x, y) + 1e-36)
-    z = SQRT5 * d / params.rho
-    return params.sigma2 * (1.0 + z + z * z / 3.0) * torch.exp(-z)
+    z = SQRT5 * d / per_matrix(params.rho)
+    return per_matrix(params.sigma2) * (1.0 + z + z * z / 3.0) * torch.exp(-z)
 
 
 def matern32(x: Tensor, y: Tensor, params: KernelParams) -> Tensor:
     d = torch.sqrt(pairwise_sqdist(x, y) + 1e-36)
-    z = SQRT3 * d / params.rho
-    return params.sigma2 * (1.0 + z) * torch.exp(-z)
+    z = SQRT3 * d / per_matrix(params.rho)
+    return per_matrix(params.sigma2) * (1.0 + z) * torch.exp(-z)
 
 
 def rbf(x: Tensor, y: Tensor, params: KernelParams) -> Tensor:
     sq = pairwise_sqdist(x, y)
-    return params.sigma2 * torch.exp(-0.5 * sq / (params.rho * params.rho))
+    rho = per_matrix(params.rho)
+    return per_matrix(params.sigma2) * torch.exp(-0.5 * sq / (rho * rho))
 
 
 KernelFn = Callable[[Tensor, Tensor, KernelParams], Tensor]
@@ -87,20 +93,28 @@ def mixed_matern52(x: Tensor, y: Tensor, params: KernelParams,
     feasible one-hot encodings the Hamming kernel exp(-h / rho)).  The
     categorical factor carries no gradient (`detach`, the reference's
     stop_gradient): the ascent moves one-hot coordinates by round-and-repair
-    projection, never by gradient steps."""
+    projection, never by gradient steps.  The masks are (d,), or (S, d)
+    against (S, n, d) points, one type layout a study."""
+    cont_mask, cat_mask = per_row(cont_mask), per_row(cat_mask)
+    rho = per_matrix(params.rho)
     xc, yc = x * cont_mask, y * cont_mask
     d = torch.sqrt(pairwise_sqdist(xc, yc) + 1e-36)
-    z = SQRT5 * d / params.rho
+    z = SQRT5 * d / rho
     sqk = pairwise_sqdist(x * cat_mask, y * cat_mask)
-    cat = torch.exp(-0.5 * sqk / params.rho).detach()
-    return params.sigma2 * (1.0 + z + z * z / 3.0) * torch.exp(-z) * cat
+    cat = torch.exp(-0.5 * sqk / rho).detach()
+    return per_matrix(params.sigma2) * (1.0 + z + z * z / 3.0) \
+        * torch.exp(-z) * cat
 
 
 def make_mixed_kernel(cont_mask: Tensor, cat_mask: Tensor) -> KernelFn:
     """Close a `KernelFn` over a space's type masks (from its
     `TypeDescriptor`, on the device of the points).  The tag
     `gram_kernel = "mixed"` routes gram builds to the mixed kernel, and the
-    closure carries the masks for it and for the fused EI ascent."""
+    closure carries the masks for it and for the fused EI ascent.  Stacked
+    (S, d) masks (a stacked descriptor's) give one closure over S studies
+    with different type layouts, the reference's per-study closure under
+    its vmap: its gram builds and fused-EI steps take all S in one
+    launch."""
     def mixed(x: Tensor, y: Tensor, params: KernelParams) -> Tensor:
         return mixed_matern52(x, y, params, cont_mask, cat_mask)
 

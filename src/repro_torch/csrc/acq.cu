@@ -16,7 +16,10 @@
 //
 // The mixed form (search spaces with categorical coordinates) takes the two
 // (d,) 0/1 type masks and splits each row while loading it: xc = x * cont,
-// xk = x * cat.  K and the gradient's radial factor s carry
+// xk = x * cat.  The masks are one pair for the batch (mask_step = 0) or
+// one pair a study (mask_step = d): the CTAs of study b stage theirs from
+// cont + b * mask_step, so studies with different type layouts share one
+// launch.  K and the gradient's radial factor s carry
 //   cat = exp(-0.5 |xk - xbk|^2 / rho)
 // (divided by rho, the reference's definition), which is never
 // differentiated, and the distance z and the gradient use the continuous
@@ -247,7 +250,7 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
                      const float* __restrict__ shift_p,
                      float* __restrict__ ei_out, float* __restrict__ grad_out,
                      float* __restrict__ part, int* __restrict__ counters,
-                     int r, int n, int d, int tps, int vec) {
+                     int r, int n, int d, int tps, int vec, int mask_step) {
   constexpr int C = kTileOutputs / R;
   constexpr int kGroupWarps = C / 32;      // warps sharing a row group
   static_assert(C % 32 == 0 && (R / 4) * C == kThreads, "tile");
@@ -290,8 +293,8 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
   // Candidate rows (mixed: split by the masks) and their norms.
   if constexpr (kMixed) {
     for (int c = tid; c < d; c += kThreads) {
-      cms[c] = cont_mask[c];
-      kms[c] = cat_mask[c];
+      cms[c] = cont_mask[(size_t)b * mask_step + c];
+      kms[c] = cat_mask[(size_t)b * mask_step + c];
     }
     __syncthreads();
   }
@@ -497,7 +500,7 @@ struct Args {
   const float *sigma2, *rho, *shift;
   float *ei, *grad, *part;
   int* counters;
-  int batch, r, n, d, tps, shared;
+  int batch, r, n, d, tps, shared, mask_step;
 };
 
 template <int R, bool kMixed>
@@ -523,7 +526,7 @@ int launch(const Args& a, cudaStream_t st) {
   fused_ei_grad_kernel<R, kMixed><<<grid, kThreads, a.shared, st>>>(
       a.x, a.xb, a.amask, a.alpha, a.abuf, a.cont_mask, a.cat_mask, a.sigma2,
       a.rho, a.shift, a.ei, a.grad, a.part, a.counters, a.r, a.n, a.d, a.tps,
-      vec);
+      vec, a.mask_step);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -535,7 +538,7 @@ int launch_rows(const Args& a, int rows, cudaStream_t st) {
       sizeof(float) * layout(rows, kTileOutputs / rows, a.d, kMixed).total);
   if (a.n < 1 || a.d < 1 || a.tps < 1 || a.batch > 65535 ||
       (a.r + rows - 1) / rows > 65535 || a.shared != want ||
-      a.shared > kMaxDynamic)
+      a.shared > kMaxDynamic || (a.mask_step != 0 && a.mask_step != a.d))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch<kRows, kMixed>(a, st);
 }
@@ -554,20 +557,23 @@ REPRO_EXPORT int repro_fused_ei_grad(
     int batch, int r, int n, int d, int rows, int tps, int shared,
     void* stream) {
   const Args a{x, xb, amask, alpha, abuf, nullptr, nullptr, sigma2, rho,
-               shift, ei, grad, part, counters, batch, r, n, d, tps, shared};
+               shift, ei, grad, part, counters, batch, r, n, d, tps, shared,
+               0};
   return launch_rows<false>(a, rows, static_cast<cudaStream_t>(stream));
 }
 
-// The mixed form: as repro_fused_ei_grad, plus the (d,) type masks shared
-// by every study of the batch.
+// The mixed form: as repro_fused_ei_grad, plus the type masks, (d,) for
+// every study of the batch (mask_step = 0) or one (d,) pair a study at a
+// step of d floats (mask_step = d).
 REPRO_EXPORT int repro_fused_ei_grad_mixed(
     const float* x, const float* xb, const float* cont_mask,
     const float* cat_mask, const float* amask, const float* alpha,
     const float* abuf, const float* sigma2, const float* rho,
     const float* shift, float* ei, float* grad, float* part, int* counters,
     int batch, int r, int n, int d, int rows, int tps, int shared,
-    void* stream) {
+    int mask_step, void* stream) {
   const Args a{x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho,
-               shift, ei, grad, part, counters, batch, r, n, d, tps, shared};
+               shift, ei, grad, part, counters, batch, r, n, d, tps, shared,
+               mask_step};
   return launch_rows<true>(a, rows, static_cast<cudaStream_t>(stream));
 }

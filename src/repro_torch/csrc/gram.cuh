@@ -11,7 +11,10 @@
 // diagonal.  x is (batch, n, d) and y (batch, m, d), each with its own row
 // and batch stride (batch stride 0: one buffer shared by the batch, as the
 // lag refit's 18 candidates share x_buf); sigma2, rho, noise2 and n are
-// read per matrix from device memory with a stride (0: one value for all).
+// read per matrix from device memory with a stride (0: one value for all),
+// and so are the mixed form's (d,) type masks: a stride of 0 shares one
+// pair of masks, a stride of d gives each matrix its own (a stacked
+// engine whose studies have different type layouts).
 //
 // What bounds it on the H100: the bytes of the output.  A 1024^2 Gram is
 // 4 MB (1.25 us at 3.35 TB/s); the lag refit's 18 padded Grams are 75.5 MB
@@ -35,7 +38,8 @@
 //     exactly symmetric in this arithmetic: fmaf is commutative in its two
 //     factors and |x_i|^2 and |x_j|^2 are the same chains, so the mirror
 //     keeps the bits of a full build.
-//   * Shared x over the batch: when x and y have batch stride 0, a CTA
+//   * Shared x over the batch: when x, y (and the masks) have batch stride
+//     0, a CTA
 //     computes each element's distance (and the mixed form's categorical
 //     squared distance) once and runs the epilogue and the stores for a
 //     group of matrices, reusing the rho-only part of the epilogue while
@@ -70,8 +74,8 @@ enum Layout { kTileLayout = 0, kColumnLayout = 1 };
 struct Args {
   const float* x;
   const float* y;
-  const float* cont;       // mixed form: (d,) 0/1 type masks
-  const float* cat;
+  const float* cont;       // mixed form: 0/1 type masks, (d,) per matrix
+  const float* cat;        //   at a step of mask_step floats (0: shared)
   const float* sigma2;
   const float* rho;
   const float* noise2;     // null: the plain gram, no padding
@@ -81,6 +85,7 @@ struct Args {
   int batch, n, m, d;
   int s2_step, rho_step, noise_step, n_step, n_fixed;
   int symmetric, per_group, tiles_m;
+  int mask_step;           // 0 or d; d only with one matrix a CTA
 };
 
 // The epilogue, as the kernels this design replaces wrote it:
@@ -171,9 +176,11 @@ __global__ void __launch_bounds__(kThreads, 2) gram_tile_kernel(const Args a) {
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
   const int b0 = blockIdx.y * a.per_group;
   const int b_end = min(b0 + a.per_group, a.batch);
-  // per_group > 1 only where x and y have batch stride 0.
+  // per_group > 1 only where x, y and the masks have batch stride 0.
   const float* x = a.x + b0 * a.x_batch;
   const float* y = a.y + b0 * a.y_batch;
+  const float* cont = kMixed ? a.cont + (size_t)b0 * a.mask_step : nullptr;
+  const float* cat = kMixed ? a.cat + (size_t)b0 * a.mask_step : nullptr;
 
   float cross[4][4], crossk[4][4];
 #pragma unroll
@@ -190,8 +197,8 @@ __global__ void __launch_bounds__(kThreads, 2) gram_tile_kernel(const Args a) {
       ys[c][r] = (j0 + r < a.m) ? y[(j0 + r) * a.y_row + c0 + c] : 0.f;
     }
     if (kMixed && t < cw) {
-      cms[t] = a.cont[c0 + t];
-      kms[t] = a.cat[c0 + t];
+      cms[t] = cont[c0 + t];
+      kms[t] = cat[c0 + t];
     }
     __syncthreads();
     if (t < 2 * kTile) {
@@ -303,13 +310,15 @@ gram_column_kernel(const Args a) {
   const int b_end = min(b0 + a.per_group, a.batch);
   const float* x = a.x + b0 * a.x_batch + i * a.x_row;
   const float* y = a.y + b0 * a.y_batch;
+  const float* cont = kMixed ? a.cont + (size_t)b0 * a.mask_step : nullptr;
+  const float* cat = kMixed ? a.cat + (size_t)b0 * a.mask_step : nullptr;
   float xx = 0.f, kk = 0.f;
   float yy[kColMaxM], ll[kColMaxM], cross[kColMaxM], crossk[kColMaxM];
 #pragma unroll
   for (int j = 0; j < kColMaxM; ++j) yy[j] = ll[j] = cross[j] = crossk[j] = 0.f;
   for (int c = 0; c < a.d; ++c) {
     const float xv = x[c];
-    const float cm = kMixed ? a.cont[c] : 1.f, km = kMixed ? a.cat[c] : 0.f;
+    const float cm = kMixed ? cont[c] : 1.f, km = kMixed ? cat[c] : 0.f;
     const float xc = kMixed ? xv * cm : xv, xk = xv * km;
     xx = fmaf(xc, xc, xx);
     if (kMixed) kk = fmaf(xk, xk, kk);
@@ -361,14 +370,15 @@ int launch(const Args& a, int layout, int grid_x, int grid_y, void* stream) {
       layout == kColumnLayout ? (a.n + kColThreads - 1) / kColThreads
       : a.symmetric           ? tiles_n * (tiles_n + 1) / 2
                               : tiles_n * tiles_m;
-  const bool shared = a.x_batch == 0 && a.y_batch == 0;
+  const bool shared = a.x_batch == 0 && a.y_batch == 0 && a.mask_step == 0;
   const bool ok =
       (layout == kTileLayout || (layout == kColumnLayout && a.m <= kColMaxM))
       && grid_x == want_x && a.tiles_m == tiles_m && a.per_group >= 1
       && (long long)grid_y * a.per_group >= a.batch
       && (long long)(grid_y - 1) * a.per_group < a.batch
       && (a.per_group == 1 || shared) && (!a.symmetric || a.n == a.m)
-      && a.d >= 0 && grid_y <= 65535;
+      && (a.mask_step == 0 || a.mask_step == a.d) && a.d >= 0
+      && grid_y <= 65535;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(grid_x, grid_y);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

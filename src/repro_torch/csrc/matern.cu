@@ -26,6 +26,7 @@ REPRO_EXPORT int repro_matern52_gram(
   const repro::gram::Args a{x, y, nullptr, nullptr, sigma2, rho, noise2,
                             n_active, out, x_row, x_batch, y_row, y_batch,
                             batch, n, m, d, s2_step, rho_step, noise_step,
-                            n_step, n_fixed, symmetric, per_group, tiles_m};
+                            n_step, n_fixed, symmetric, per_group, tiles_m,
+                            0};
   return repro::gram::launch<false>(a, layout, grid_x, grid_y, stream);
 }

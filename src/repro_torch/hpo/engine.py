@@ -1,0 +1,338 @@
+"""The batched GP suggest/absorb engine shared by the HPO orchestrators.
+
+Counterpart of `repro/hpo/engine.py` with `mesh="none"`, for the lazy-GP
+tier (the q-fantasy protocol and the neural-basis tier come with later
+slices).  `StudyEngine` owns ONE stacked `LazyGPState` with a leading study
+axis (DESIGN.md §7) and advances it:
+
+  * `suggest_all` — the acquisition ascent of every study at once: each
+    ascent step is one fused-EI launch for all S studies.
+  * `suggest`     — one study's ascent (routed, per-study requests).
+  * `absorb`      — one observation routed to its study.
+  * `absorb_round`— at most one observation per study (flagged), one gram
+    launch for every flagged study's covariance column, the bordered
+    update as batched matvecs.
+  * `advance`     — the serving round: `absorb_round`, then `suggest_all`
+    from the updated posteriors.
+  * lag events    — after an absorb, each flagged study whose lag counter
+    is due is refit (grid LML, then refactor) or, fully lazy, re-anchored
+    (refactor under its current params), one study at a time.
+
+The reference's engine donates the stacked buffers to its fused round; the
+port writes the absorbed rows in place (`gp.append_stacked`), so a round
+copies no (S, n_max, n_max) buffer.  Studies that are not flagged keep
+every bit.  `study_state` returns a copy, so a snapshot a caller holds
+never changes under later in-place writes.
+
+**Mixed spaces** (DESIGN.md §10): when any study's space has discrete dims
+(or `cfg.mixed` forces it), the engine keeps the stacked per-study
+`TypeDescriptor` (S, d) and one mixed-kernel closure over its (S, d) masks:
+studies with different type layouts advance in the same launches, and a
+slot's new layout is a row write (`set_desc`).
+
+Host-side per-study telemetry: `n` and `since_refit` are mirrored in host
+numpy arrays (they evolve with the appends the engine itself makes), so
+the capacity guards and the lag policy never read the device; a round's
+observations go to the device in one copy that does not wait for it.
+`clamp_count` is data-dependent and reads the device (`clamp_counts()`
+fetches all studies in one transfer).
+
+Draws: the restart seeds and the top-t jitter are drawn from the engine's
+`torch.Generator` (seeded from `cfg.seed`, on the engine's device) unless
+the caller passes them (`seeds (S, R, d)` / `jitter (S, top_t, d)`, or one
+study's slices to `suggest`), as the tests pass the reference's own draws.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import acquisition as acq_mod
+from repro_torch.core import descriptor as desc_mod
+from repro_torch.core import gp as gp_mod
+from repro_torch.core.kernels import KERNELS, make_mixed_kernel
+from repro_torch.hpo import mesh as mesh_mod
+
+Tensor = torch.Tensor
+
+
+class StudyEngine:
+    """Stacked lazy-GP state of S studies and the batched transitions.
+
+    `cfg` is duck-typed (`SchedulerConfig` works): it needs n_max, kernel,
+    lag, rho0, noise2, acq and seed; optionally mixed, mesh ("none") and
+    inv_refresh.  Runs on the card unless `device` says otherwise.
+    """
+
+    def __init__(self, dim: int, cfg, n_studies: int,
+                 descs: "list[desc_mod.TypeDescriptor] | None" = None, *,
+                 device: str | torch.device = "cuda"):
+        if n_studies < 1:
+            raise ValueError(f"n_studies must be >= 1, got {n_studies}")
+        self.cfg = cfg
+        self.dim = dim
+        self.n_studies = n_studies
+        self.device = gp_mod.resolve_device(device)
+        self.mixed = bool(getattr(cfg, "mixed", False)) or (
+            descs is not None and any(d.has_discrete for d in descs))
+        if self.mixed and cfg.kernel != "matern52":
+            raise ValueError(
+                f"mixed spaces require kernel='matern52', got {cfg.kernel!r}")
+        self.gp_cfg = gp_mod.GPConfig(
+            n_max=cfg.n_max, dim=dim, kernel=cfg.kernel, lag=cfg.lag,
+            noise2=cfg.noise2, rho0=cfg.rho0, device=str(self.device))
+        devices = (torch.cuda.device_count() if self.device.type == "cuda"
+                   else 1)
+        self.mesh = mesh_mod.build(getattr(cfg, "mesh", "none"), n_studies,
+                                   cfg.acq.restarts, devices)
+        self.state = gp_mod.init_pool_state(self.gp_cfg, n_studies)
+        # Mixed mode: the stacked descriptor is data, and the kernel closes
+        # over its (S, d) mask tensors, so `set_desc` rewrites a row that
+        # every later launch reads.
+        if self.mixed:
+            if descs is None:
+                descs = [desc_mod.all_continuous(dim)] * n_studies
+            if len(descs) != n_studies:
+                raise ValueError(
+                    f"got {len(descs)} descriptors for {n_studies} studies")
+            if any(d.dim != dim for d in descs):
+                raise ValueError(f"descriptors must have width {dim}")
+            self.desc = desc_mod.stack_descriptors(
+                [d.to(self.device) for d in descs])
+            self.kernel = make_mixed_kernel(self.desc.cont_mask,
+                                            self.desc.cat_mask)
+        else:
+            self.desc = None
+            self.kernel = KERNELS[cfg.kernel]
+        self._lo = torch.zeros((dim,), device=self.device)
+        self._hi = torch.ones((dim,), device=self.device)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(getattr(cfg, "seed", 0)))
+        # Per-row observation costs (tell `cost=`, default 1.0); the
+        # neural-basis tier trains on them once it is ported.
+        self._cost_host = np.ones((n_studies, cfg.n_max), np.float32)
+
+    # -- state + host-side counter mirrors ----------------------------------
+    @property
+    def state(self) -> gp_mod.LazyGPState:
+        return self._state
+
+    @state.setter
+    def state(self, st: gp_mod.LazyGPState) -> None:
+        """Install a stacked state; re-syncs the host mirrors from it."""
+        if not st.is_batched or st.n_studies != self.n_studies:
+            raise ValueError(f"expected a stacked state of {self.n_studies} "
+                             f"studies, got x_buf {tuple(st.x_buf.shape)}")
+        self._state = st
+        self._n_host = st.n.cpu().numpy().astype(np.int64)
+        self._sr_host = st.since_refit.cpu().numpy().astype(np.int64)
+
+    def n(self, study: int) -> int:
+        return int(self._n_host[study])
+
+    def since_refit(self, study: int) -> int:
+        return int(self._sr_host[study])
+
+    def clamp_count(self, study: int) -> int:
+        return int(self._state.clamp_count[study])
+
+    def clamp_counts(self) -> np.ndarray:
+        """All studies' conditioning-floor counters in one transfer."""
+        return self._state.clamp_count.cpu().numpy()
+
+    def sync(self) -> None:
+        """Block until every queued launch has written the state."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def study_state(self, study: int) -> gp_mod.LazyGPState:
+        """Study `study` as a single-study state with its own buffers (a
+        snapshot: later in-place rounds do not change it)."""
+        return gp_mod.unstack_state(self._state, study, n=self.n(study),
+                                    since_refit=self.since_refit(study),
+                                    copy=True)
+
+    # -- slot-level state swap (evict/restore, DESIGN.md §9) ----------------
+    def load_slot(self, slot: int, sub: gp_mod.LazyGPState) -> None:
+        """Copy single-study state `sub` into slot `slot`, bit for bit; the
+        host mirrors change for that slot only."""
+        gp_mod.write_study(self._state, slot, sub)
+        self._n_host[slot] = int(sub.n)
+        self._sr_host[slot] = int(sub.since_refit)
+
+    def reset_slot(self, slot: int) -> None:
+        """Blank a slot for a new tenant (an empty single-study state)."""
+        self.load_slot(slot, gp_mod.init_state(self.gp_cfg))
+        self._cost_host[slot] = 1.0
+
+    def set_desc(self, slot: int, desc: desc_mod.TypeDescriptor) -> None:
+        """Install a (possibly different) type layout for one slot: a row
+        write into the stacked descriptor, which the mixed kernel's masks
+        are.  No-op outside mixed mode, where every slot is all-continuous
+        by construction, and an error there for a discrete layout."""
+        if self.desc is None:
+            if desc.has_discrete:
+                raise ValueError(
+                    "engine was built without mixed-space support; "
+                    "construct it with a discrete space or cfg.mixed=True")
+            return
+        if desc.dim != self.dim:
+            raise ValueError(f"descriptor width {desc.dim}, engine {self.dim}")
+        for name in desc_mod.FIELDS:
+            getattr(self.desc, name)[slot] = getattr(desc, name)
+
+    # -- suggest ------------------------------------------------------------
+    def _lane(self, study: int) -> gp_mod.LazyGPState:
+        """Views of one study's rows with its host counts (no copy)."""
+        return gp_mod.unstack_state(self._state, study, n=self.n(study),
+                                    since_refit=self.since_refit(study))
+
+    def _kernel_for(self, lanes):
+        """The kernel of one study (an int) or of a slice of studies."""
+        if self.desc is None:
+            return self.kernel
+        return make_mixed_kernel(self.desc.cont_mask[lanes],
+                                 self.desc.cat_mask[lanes])
+
+    def _tensor(self, a) -> Tensor | None:
+        """Caller-given draws as a float32 tensor on the engine's device."""
+        if a is None:
+            return None
+        if not isinstance(a, Tensor):
+            a = torch.from_numpy(np.array(a, np.float32))
+        return a.to(self.device, torch.float32, non_blocking=True)
+
+    def suggest(self, study: int, top_t: int = 1, *, seeds=None,
+                jitter=None) -> tuple[Tensor, Tensor]:
+        """Top-t EI local maxima for one study: ((top_t, d), (top_t,));
+        `seeds (R, d)` / `jitter (top_t, d)` when given."""
+        return acq_mod.optimize_acquisition(
+            self._lane(study), self._kernel_for(study), self._lo, self._hi,
+            self.cfg.acq, top_t, generator=self._gen,
+            seeds=self._tensor(seeds), jitter=self._tensor(jitter),
+            desc=(None if self.desc is None
+                  else desc_mod.index_descriptor(self.desc, study)))
+
+    def suggest_all(self, top_t: int = 1, *, seeds=None,
+                    jitter=None) -> tuple[Tensor, Tensor]:
+        """Batched suggestion for every study: ((S, top_t, d), (S, top_t));
+        `seeds (S, R, d)` / `jitter (S, top_t, d)` when given."""
+        return acq_mod.optimize_acquisition(
+            self._state, self.kernel, self._lo, self._hi, self.cfg.acq, top_t,
+            generator=self._gen, seeds=self._tensor(seeds),
+            jitter=self._tensor(jitter), desc=self.desc)
+
+    # -- absorb -------------------------------------------------------------
+    def _upload(self, flags: np.ndarray, xs, ys
+                ) -> tuple[Tensor, Tensor, Tensor]:
+        """flags, xs and ys to the device in one copy that does not wait
+        for the card; xs already on the device (the last round's
+        suggestions) stay there."""
+        on_device = isinstance(xs, Tensor)
+        width = 2 if on_device else self.dim + 2
+        packed = np.empty((flags.shape[0], width), np.float32)
+        if not on_device:
+            packed[:, :self.dim] = xs
+        packed[:, -2] = ys
+        packed[:, -1] = flags
+        dev = torch.from_numpy(packed).to(self.device, non_blocking=True)
+        x = (xs.to(self.device, torch.float32) if on_device
+             else dev[:, :self.dim])
+        return dev[:, -1] > 0, x, dev[:, -2]
+
+    def _admit(self, flags, costs) -> tuple[np.ndarray, np.ndarray]:
+        """Check every flagged study's capacity before anything is written
+        (a full study leaves every lane untouched), then record the costs."""
+        flags = np.asarray(flags, bool)
+        flagged = np.flatnonzero(flags)
+        for s in flagged:
+            gp_mod.ensure_capacity(self.n(s), self.cfg.n_max)
+        if costs is None:
+            costs = np.ones((self.n_studies,), np.float32)
+        costs = np.asarray(costs, np.float32)
+        for s in flagged:
+            self._cost_host[s, self.n(s)] = costs[s]
+        return flags, flagged
+
+    def _append(self, flags: np.ndarray, flagged: np.ndarray, xs, ys) -> None:
+        if flagged.size:
+            f, x, y = self._upload(flags, xs, ys)
+            gp_mod.append_stacked(self._state, self.kernel, x, y, f)
+            self._n_host[flagged] += 1
+            self._sr_host[flagged] += 1
+
+    def absorb(self, study: int, x, y, cost: float = 1.0) -> None:
+        """Routed absorb of one observation (+ the study's lag policy): the
+        stacked append on that study's rows alone."""
+        gp_mod.ensure_capacity(self.n(study), self.cfg.n_max)
+        self._cost_host[study, self.n(study)] = cost
+        lanes = slice(study, study + 1)
+        x = x[None] if isinstance(x, Tensor) else np.asarray(x)[None]
+        f, xs, ys = self._upload(np.ones(1, bool), x, [y])
+        gp_mod.append_stacked(gp_mod.lanes(self._state, lanes),
+                              self._kernel_for(lanes), xs, ys, f)
+        self._n_host[study] += 1
+        self._sr_host[study] += 1
+        self._refit_flagged([study])
+
+    def absorb_round(self, flags, xs, ys, costs=None) -> None:
+        """Masked batched absorb: at most one new observation per study.
+
+        `flags (S,)` bool selects the studies that append; `xs (S, d)` /
+        `ys (S,)` carry the observations (ignored where the flag is off);
+        `xs` may be a tensor on the engine's device, which is not copied
+        back.  `costs (S,)` (optional) records each flagged observation's
+        cost.
+        """
+        flags, flagged = self._admit(flags, costs)
+        self._append(flags, flagged, xs, ys)
+        self._refit_flagged(flagged)
+
+    def advance(self, flags, xs, ys, top_t: int = 1, costs=None, *,
+                seeds=None, jitter=None) -> tuple[Tensor, Tensor]:
+        """The serving round: the masked absorb of `absorb_round`, then a
+        suggestion for EVERY study from the updated posteriors,
+        ((S, top_t, d), (S, top_t)); then the lag policy of the flagged
+        studies.  Reads nothing back from the device unless a lag event
+        is due (or top_t > 1, whose dedup copies one mask to the host)."""
+        flags, flagged = self._admit(flags, costs)
+        self._append(flags, flagged, xs, ys)
+        units, vals = self.suggest_all(top_t, seeds=seeds, jitter=jitter)
+        self._refit_flagged(flagged)
+        return units, vals
+
+    def cost_row(self, study: int) -> np.ndarray:
+        """The study's per-row tell costs (they ride eviction snapshots)."""
+        return self._cost_host[study].copy()
+
+    def set_cost_row(self, study: int, costs) -> None:
+        self._cost_host[study] = np.asarray(costs, np.float32)
+
+    # -- lag policy -----------------------------------------------------------
+    def _refit_flagged(self, flagged) -> None:
+        """Apply the per-study lag policy after an absorb (host mirrors).
+
+        lag > 0: grid refit of the kernel params + refactor every `lag`
+        appends.  lag <= 0 (the paper's fully lazy mode): no param refit,
+        but every `inv_refresh` appends the factor and its maintained
+        inverse are rebuilt from the Gram under the current params,
+        re-anchoring the float32 drift of the bordered updates (DESIGN.md
+        §4).  One study at a time, through the single-study path.
+        """
+        lag = self.cfg.lag
+        inv_refresh = getattr(self.cfg, "inv_refresh", 0)
+        if lag <= 0 and inv_refresh <= 0:
+            return
+        for s in flagged:
+            if lag > 0:
+                if self.since_refit(s) >= lag:
+                    self._refactor(int(s), refit=True)
+            elif self.since_refit(s) >= inv_refresh:
+                self._refactor(int(s), refit=False)
+
+    def _refactor(self, study: int, *, refit: bool) -> None:
+        st, kern = self._lane(study), self._kernel_for(study)
+        params = gp_mod.refit_params(st, kern) if refit else None
+        gp_mod.write_study(self._state, study,
+                           gp_mod.refactor(st, kern, params))
+        self._sr_host[study] = 0

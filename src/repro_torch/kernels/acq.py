@@ -11,7 +11,8 @@ One ascent iteration for the whole (r, d) restart batch:
     dEI/dx  = analytic, with dEI/dvar zeroed where var hit VAR_FLOOR
 
 The mixed form (a search space with categorical coordinates) splits each
-row by the space's (d,) 0/1 type masks, xc = x * cont_mask and
+row by the space's 0/1 type masks, (d,) for the whole batch or (..., d)
+one pair a study, xc = x * cont_mask and
 xk = x * cat_mask, takes K and the gradient over xc, and multiplies K and
 the gradient's radial factor by cat = exp(-|xk - xbk|^2 / 2 rho), which is
 never differentiated: the gradient is zero on the categorical coordinates.
@@ -40,7 +41,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 Tensor = torch.Tensor
 
@@ -50,7 +51,7 @@ LAUNCHES_MIXED = 0  # mixed-form launches, counted apart
 _SIGNATURES = {
     "repro_fused_ei_grad": (_build.ptr,) * 12 + (_build.cint,) * 7
     + (_build.ptr,),
-    "repro_fused_ei_grad_mixed": (_build.ptr,) * 14 + (_build.cint,) * 7
+    "repro_fused_ei_grad_mixed": (_build.ptr,) * 14 + (_build.cint,) * 8
     + (_build.ptr,),
 }
 # csrc/acq.cu: a CTA of 128 threads owns ROWS candidate rows x 512 / ROWS
@@ -133,8 +134,9 @@ def ei_grad_torch(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
 
 def split_rows(x: Tensor, x_buf: Tensor, cont_mask: Tensor,
                cat_mask: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """The mixed form's operands (xc, xbc, xk, xbk) for `ei_grad_torch`."""
-    cm, km = cont_mask.to(x.dtype), cat_mask.to(x.dtype)
+    """The mixed form's operands (xc, xbc, xk, xbk) for `ei_grad_torch`;
+    the masks are (d,), or (..., d) one pair a study."""
+    cm, km = (ref.per_row(m.to(x.dtype)) for m in (cont_mask, cat_mask))
     return x * cm, x_buf * cm, x * km, x_buf * km
 
 
@@ -227,7 +229,9 @@ def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
             alpha: Tensor, a_buf: Tensor, sigma2, rho, shift,
             masks: tuple[Tensor, ...]) -> tuple[tuple[Tensor, Tensor], bool]:
     """Check the operands and launch C entry `entry` (the masks, if any,
-    go right after x_buf).  Returns ((ei, grad), whether it launched)."""
+    go right after x_buf: (d,) for the batch, or (*lead, d) one pair a
+    study, read at a step of d floats).  Returns ((ei, grad), whether it
+    launched)."""
     dev = x.device
     ops_ = (x, x_buf, amask, alpha, a_buf, *masks)
     for t in ops_:
@@ -241,7 +245,8 @@ def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
     if (x.shape[:-2] != lead or x_buf.shape[-1] != d
             or amask.shape != (*lead, n) or alpha.shape != (*lead, n)
             or a_buf.shape != (*lead, n, n) or n < 1 or d < 1
-            or any(m.shape != (d,) for m in masks)):
+            or any(m.shape not in ((d,), (*lead, d)) for m in masks)
+            or len({m.shape for m in masks}) > 1):
         raise ValueError(
             f"fused EI kernel shapes: x {tuple(x.shape)}, x_buf "
             f"{tuple(x_buf.shape)}, amask {tuple(amask.shape)}, alpha "
@@ -258,6 +263,7 @@ def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
     lib = _build.load(SOURCE, _SIGNATURES)
     scal = [_scalar(v, lead, dev) for v in (sigma2, rho, shift)]
     x, x_buf, amask, alpha, a_buf, *masks = (t.contiguous() for t in ops_)
+    mask_step = d if masks and masks[0].ndim > 1 else 0
     # The current stream's handle, without building a Python Stream object
     # (the public `torch.cuda.current_stream(dev)` costs several us a call).
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -267,7 +273,8 @@ def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
         amask.data_ptr(), alpha.data_ptr(), a_buf.data_ptr(),
         *(s.data_ptr() for s in scal), ei.data_ptr(), grad.data_ptr(),
         part.data_ptr(), counters.data_ptr(), batch, r, n, d, plan.rows,
-        plan.tiles_per_slice, plan.shared_bytes, stream)
+        plan.tiles_per_slice, plan.shared_bytes,
+        *((mask_step,) if masks else ()), stream)
     _build.check(lib, status, entry)
     return (ei, grad), True
 
@@ -288,8 +295,8 @@ def fused_ei_grad_mixed_cuda(x: Tensor, x_buf: Tensor, amask: Tensor,
                              cont_mask: Tensor, cat_mask: Tensor
                              ) -> tuple[Tensor, Tensor]:
     """Launch the mixed form on the unsplit x (r, d) / x_buf (n, d) and the
-    (d,) type masks; float32 CUDA.  Computes `ei_grad_torch` of
-    `split_rows(x, x_buf, cont_mask, cat_mask)`."""
+    type masks, (d,) or (*lead, d); float32 CUDA.  Computes `ei_grad_torch`
+    of `split_rows(x, x_buf, cont_mask, cat_mask)`."""
     global LAUNCHES_MIXED
     out, launched = _launch("repro_fused_ei_grad_mixed", x, x_buf, amask,
                             alpha, a_buf, sigma2, rho, shift,

@@ -21,7 +21,8 @@ scalars or (B,); the result is (n, m) when nothing is batched, else
 expanded buffer (`x_buf.expand(G, n, d)`, batch stride 0) is never
 copied: a batch that shares x computes each distance once for all its
 matrices.  The shared pieces of both gram wrappers (`launch_plan`,
-`launch`) live here; `mixed.py` adds its masks.
+`launch`) live here; `mixed.py` adds its masks, (d,) for the batch or
+(B, d), one pair a matrix.
 """
 from __future__ import annotations
 
@@ -152,9 +153,9 @@ def launch(lib_name: str, signatures: dict, entry: str, x: Tensor, y: Tensor,
            sigma2, rho, masks: tuple[Tensor, ...] = (), noise2=None,
            n_active=None) -> tuple[Tensor, bool]:
     """Check the operands of one gram call and launch C entry `entry` of
-    library `lib_name` (the masks, if any, go right after y).  `noise2`
-    selects the masked form, with `n_active` an int or a (B,) int tensor.
-    Returns (out, whether it launched)."""
+    library `lib_name` (the masks, (d,) or (B, d), and their step go right
+    after y).  `noise2` selects the masked form, with `n_active` an int or
+    a (B,) int tensor.  Returns (out, whether it launched)."""
     dev = x.device
     tensors = (x, y, *masks)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -166,10 +167,16 @@ def launch(lib_name: str, signatures: dict, entry: str, x: Tensor, y: Tensor,
     (x_row, x_batch), (y_row, y_batch) = _layout(x, "x"), _layout(y, "y")
     n, d = x.shape[-2:]
     m = y.shape[-2]
-    if y.shape[-1] != d or any(k.shape != (d,) for k in masks):
+    if y.shape[-1] != d or any(k.shape[-1:] != (d,) or k.ndim > 2
+                               or k.shape != masks[0].shape for k in masks):
         raise ValueError(f"gram kernel takes (.., n, d) x (.., m, d) with (d,) "
-                         f"masks, got {[tuple(t.shape) for t in tensors]}")
+                         f"or (B, d) masks, got "
+                         f"{[tuple(t.shape) for t in tensors]}")
     masks = [k.contiguous() for k in masks]
+    # Masks per matrix: a (B, d) pair read at a step of d floats (one matrix
+    # a CTA); a (d,) or (1, d) pair is shared by the batch (step 0).
+    mask_rows = masks[0].shape[0] if masks and masks[0].ndim == 2 else 0
+    mask_step = d if mask_rows > 1 else 0
     per = [_per_matrix(sigma2, dev, torch.float32, "sigma2"),
            _per_matrix(rho, dev, torch.float32, "rho")]
     masked = noise2 is not None
@@ -181,11 +188,12 @@ def launch(lib_name: str, signatures: dict, entry: str, x: Tensor, y: Tensor,
         else:
             n_fixed = int(n_active)
     lengths = ({t.shape[0] for t in (x, y) if t.ndim == 3}
-               | {length for _, length, _ in (*per, n_per)}) - {0, 1}
+               | {length for _, length, _ in (*per, n_per)} | {mask_rows}) \
+        - {0, 1}
     if len(lengths) > 1:
         raise ValueError(f"gram kernel: batch lengths {sorted(lengths)} differ")
     batch = lengths.pop() if lengths else 1
-    batched = x.ndim == 3 or y.ndim == 3 or any(
+    batched = x.ndim == 3 or y.ndim == 3 or mask_rows > 0 or any(
         v is not None and v.ndim == 1 for v, _, _ in (*per, n_per))
     out = torch.empty((batch, n, m) if batched else (n, m), dtype=torch.float32,
                       device=dev)
@@ -193,7 +201,8 @@ def launch(lib_name: str, signatures: dict, entry: str, x: Tensor, y: Tensor,
         return out, False
     symmetric = (x.data_ptr() == y.data_ptr() and n == m and x_row == y_row
                  and x_batch == y_batch)
-    plan = launch_plan(n, m, d, batch, symmetric, x_batch == 0 and y_batch == 0)
+    plan = launch_plan(n, m, d, batch, symmetric,
+                       x_batch == 0 and y_batch == 0 and mask_step == 0)
     (s2, _, s2_step), (rh, _, rho_step) = per[:2]
     noise, _, noise_step = per[2] if masked else (None, 0, 0)
     n_t, _, n_step = n_per
@@ -201,7 +210,7 @@ def launch(lib_name: str, signatures: dict, entry: str, x: Tensor, y: Tensor,
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     status = getattr(lib, entry)(
         x.data_ptr(), y.data_ptr(), *(k.data_ptr() for k in masks),
-        s2.data_ptr(), rh.data_ptr(),
+        *((mask_step,) if masks else ()), s2.data_ptr(), rh.data_ptr(),
         None if noise is None else noise.data_ptr(),
         None if n_t is None else n_t.data_ptr(), out.data_ptr(),
         batch, n, m, d, x_row, x_batch, y_row, y_batch, s2_step, rho_step,

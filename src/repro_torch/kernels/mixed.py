@@ -13,7 +13,9 @@ scales the Matérn gradient but has no gradient of its own (dxk = dyk = 0,
 and drho leaves out the factor's rho), because the ascent moves one-hot
 coordinates by round-and-repair projection, never by gradient steps.
 Shapes, the batch axis and `masked_gram` as in `matern.py`, whose
-`launch` both wrappers share; the masks stay (d,) for the whole batch.
+`launch` both wrappers share.  The masks are (d,), shared by the batch,
+or (B, d), one pair a matrix: a stacked engine whose studies have
+different type layouts builds all their grams in one launch.
 """
 from __future__ import annotations
 
@@ -27,14 +29,15 @@ Tensor = torch.Tensor
 
 SOURCE = "mixed"
 LAUNCHES = 0      # kernel launches since the caller last set it to 0
-_SIGNATURES = {"repro_mixed_gram": (_build.ptr,) * 9 + _GEOMETRY}
+_SIGNATURES = {"repro_mixed_gram": (_build.ptr,) * 4 + (_build.cint,)
+               + (_build.ptr,) * 5 + _GEOMETRY}
 
 
 def mixed_gram_cuda(x: Tensor, y: Tensor, sigma2, rho, cont_mask: Tensor,
                     cat_mask: Tensor) -> Tensor:
     """Launch the kernel: x (n, d) or (B, n, d), y (m, d) or (B, m, d),
-    masks (d,), float32 CUDA, sigma2 / rho scalars or (B,) -> (n, m) or
-    (B, n, m)."""
+    masks (d,) or (B, d), float32 CUDA, sigma2 / rho scalars or (B,) ->
+    (n, m) or (B, n, m)."""
     global LAUNCHES
     out, launched = launch(SOURCE, _SIGNATURES, "repro_mixed_gram", x, y,
                            sigma2, rho, (cont_mask, cat_mask))
@@ -45,8 +48,8 @@ def mixed_gram_cuda(x: Tensor, y: Tensor, sigma2, rho, cont_mask: Tensor,
 def masked_gram_cuda(x_buf: Tensor, n, sigma2, rho, noise2, cont_mask: Tensor,
                      cat_mask: Tensor) -> Tensor:
     """Launch the masked form on x_buf (n_max, d) or (B, n_max, d): the
-    identity-padded K + noise2 I with n an int or a (B,) int tensor, and
-    sigma2 / rho / noise2 scalars or (B,)."""
+    identity-padded K + noise2 I with n an int or a (B,) int tensor,
+    sigma2 / rho / noise2 scalars or (B,) and masks (d,) or (B, d)."""
     global LAUNCHES
     out, launched = launch(SOURCE, _SIGNATURES, "repro_mixed_gram", x_buf,
                            x_buf, sigma2, rho, (cont_mask, cat_mask),
@@ -79,7 +82,7 @@ class _MixedGram(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y, sigma2, rho, cont_mask, cat_mask = ctx.saved_tensors
-        cm, km = cont_mask.float(), cat_mask.float()
+        cm, km = ref.per_row(cont_mask.float()), ref.per_row(cat_mask.float())
         xc, yc = x.float() * cm, y.float() * cm
         xk, yk = x.float() * km, y.float() * km
         g32 = g.float()
@@ -107,9 +110,9 @@ class _MixedGram(torch.autograd.Function):
 
 def mixed_gram(x: Tensor, y: Tensor, sigma2, rho, cont_mask: Tensor,
                cat_mask: Tensor) -> Tensor:
-    """(.., n, d) x (.., m, d) mixed covariance under the (d,) type masks
-    and scalar or (B,) sigma2 / rho; differentiable in x, y, sigma2 and rho
-    on the continuous block."""
+    """(.., n, d) x (.., m, d) mixed covariance under the (d,) or (B, d)
+    type masks and scalar or (B,) sigma2 / rho; differentiable in x, y,
+    sigma2 and rho on the continuous block."""
     return _MixedGram.apply(x, y, scalar_on(sigma2, x), scalar_on(rho, x),
                             cont_mask.to(x.dtype), cat_mask.to(x.dtype))
 
@@ -117,7 +120,8 @@ def mixed_gram(x: Tensor, y: Tensor, sigma2, rho, cont_mask: Tensor,
 def masked_gram(x_buf: Tensor, n, sigma2, rho, noise2, cont_mask: Tensor,
                 cat_mask: Tensor) -> Tensor:
     """Identity-padded K + noise2 I of the mixed kernel over x_buf (n_max, d)
-    or (B, n_max, d), as `matern.masked_gram`: one launch on the card; on
+    or (B, n_max, d) under (d,) or (B, d) masks, as `matern.masked_gram`:
+    one launch on the card; on
     the CPU, or where a gradient is asked for, the gram above padded by
     `ref.pad_identity`."""
     cm, km = cont_mask.to(x_buf.dtype), cat_mask.to(x_buf.dtype)

@@ -25,8 +25,10 @@ no size envelopes: a kernel takes any n, or its wrapper raises.
   padded_append_row  | padded buffers    | ‡                 | no
   lazy_append        | padded buffers    | ‡                 | no
   lazy_append_rows   | padded buffers    | ‡                 | no
+  lazy_append_stacked| stacked buffers   | ‡                 | yes
   fused_ei_grad      | (r,d) + padded    | csrc/acq.cu       | yes
-                     |  + (d,) masks     | (mixed form)      | yes
+                     |  + (d,)/(..,d)    | (mixed form)      | yes
+                     |  masks            |                   |
 
   ‡  matmul-only against the maintained inverse factor (`torch.matmul`,
      as the reference leaves them to XLA): no kernel below the entry point.
@@ -37,16 +39,17 @@ the identity, and right-hand sides are zero beyond the active block.  They
 take `n` as a Python int, the host-side counter the GP state keeps
 (`masked_gram` also an (S,) int tensor).  The masked Gram, the factor, the
 inverse and the solve take a leading batch axis, which the lag refit uses
-to score its grid of candidate hyper-parameters with one launch of each;
-the batched study axis of the reference's appends comes with the pool
-slice.
+to score its grid of candidate hyper-parameters with one launch of each.
 
 The appends are matmuls against the maintained inverse `li_buf = L^{-1}`:
 the row solve is `q = L^{-1} p` and the inverse grows by the closed-form
-bordered row `[-(1/d) q^T L^{-1}, 1/d]`.  They return new buffers: the
-input buffers belong to the caller (the lag refit scores 18 candidate
-states off one base state), so a row is written in place only into this
-call's own copy.
+bordered row `[-(1/d) q^T L^{-1}, 1/d]`.  The single-study appends return
+new buffers: the input buffers belong to the caller (the lag refit scores
+18 candidate states off one base state), so a row is written in place only
+into this call's own copy.  `lazy_append_stacked` is the stacked engine's
+append over S studies (the reference's vmap with `where(flag, new, old)`):
+it writes its rows in place into the stacked buffers, as the reference's
+engine donates them, so a round copies no (S, n_max, n_max) buffer.
 """
 from __future__ import annotations
 
@@ -75,7 +78,8 @@ CLAMP_EPS = ref.CLAMP_EPS
 
 __all__ = ["CLAMP_EPS", "chol_append", "cholesky", "fused_ei_grad",
            "fused_supported", "gp_posterior_solve", "kernel_gram",
-           "lazy_append", "lazy_append_rows", "masked_gram", "matern52_gram",
+           "lazy_append", "lazy_append_rows", "lazy_append_stacked",
+           "masked_gram", "matern52_gram",
            "mixed_gram",
            "padded_append_row", "padded_cholesky", "padded_tri_inverse",
            "padded_trsv", "tri_inverse", "trsv", "write_append_row"]
@@ -127,9 +131,10 @@ def kernel_gram(kernel_fn, x: Tensor, y: Tensor, params) -> Tensor:
     `gram_kernel` (set in `repro_torch.core.kernels`; the reference calls
     the same tag `pallas_gram`): "matern52" for the Matérn-2.5 kernel,
     "mixed" for the mixed kernel, whose closure also carries its
-    `cont_mask` / `cat_mask`.  Anything else uses the kernel's own torch
-    formulation.  `params` needs `.sigma2` and `.rho`; a tagged kernel
-    also takes (B,) params and (B, n, d) / (B, m, d) operands.
+    `cont_mask` / `cat_mask`, (d,) or (B, d).  Anything else uses the
+    kernel's own torch formulation.  `params` needs `.sigma2` and `.rho`;
+    a tagged kernel also takes (B,) params and (B, n, d) / (B, m, d)
+    operands.
     """
     tag = getattr(kernel_fn, "gram_kernel", None)
     if tag == "matern52":
@@ -217,6 +222,52 @@ def padded_append_row(l_buf: Tensor, li_buf: Tensor, p_pad: Tensor, c,
     return l_new, li_new, d, clamped
 
 
+def lazy_append_stacked(l_buf: Tensor, li_buf: Tensor, alpha: Tensor,
+                        p_pad: Tensor, c: Tensor, resid: Tensor, n: Tensor,
+                        flag: Tensor) -> tuple[Tensor, Tensor]:
+    """Alg. 3 on S stacked studies in place: row n_s of each flagged
+    study's factor and inverse, and its alpha refresh, as `lazy_append`
+    computes them for one study.
+
+    Args:
+      l_buf, li_buf: (S, n_max, n_max) stacked factor and inverse factor,
+        written in place.
+      alpha: (S, n_max), written in place.
+      p_pad: (S, n_max) new covariance columns, zero beyond each study's n.
+      c: (S,) self-covariances + noise.
+      resid: (S, n_max) residuals including the new rows, zero beyond them.
+      n: (S,) int tensor on the buffers' device: study s's row lands at n_s.
+      flag: (S,) bool tensor: the studies that append.  The others keep
+        every bit (their row is written back unchanged, clamped to the
+        last row where such a study is full).
+
+    Returns (d (S,), clamped (S,) int32), meaningful on flagged studies.
+    Batched matvecs and one indexed write a buffer; nothing is read back
+    to the host.
+    """
+    n_studies, n_max = l_buf.shape[0], l_buf.shape[-1]
+    dev = l_buf.device
+    lanes = torch.arange(n_studies, device=dev)
+    idx = torch.arange(n_max, device=dev)
+    nn = n[:, None]
+    q = (li_buf @ p_pad[..., None])[..., 0]                 # L^{-1} p
+    d2 = c - torch.sum(q * q, dim=-1)
+    clamped = (d2 < CLAMP_EPS).to(torch.int32)
+    d = torch.sqrt(torch.clamp(d2, min=CLAMP_EPS))
+    r = -(q[:, None, :] @ li_buf)[:, 0, :] / d[:, None]    # before li's row
+    row = torch.clamp(n, max=n_max - 1).long()
+    keep = ~flag[:, None]
+    for buf, new, diag in ((l_buf, q, d), (li_buf, r, 1.0 / d)):
+        new = torch.where(idx < nn, new,
+                          torch.where(idx == nn, diag[:, None], 0.0))
+        buf[lanes, row] = torch.where(keep, buf[lanes, row], new)
+    z = (li_buf @ resid[..., None])[..., 0]
+    new_alpha = (z[:, None, :] @ li_buf)[:, 0, :]          # == li^T z
+    alpha.copy_(torch.where(keep, alpha,
+                            torch.where(idx <= nn, new_alpha, 0.0)))
+    return d, clamped
+
+
 def _refresh_alpha(li_new: Tensor, resid: Tensor, active: Tensor) -> Tensor:
     """alpha = L'^{-T} (L'^{-1} r) as two matvecs, zero past the active rows."""
     z = li_new @ resid
@@ -292,8 +343,8 @@ def fused_ei_grad(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
     the masks (in the kernel's loads on the card, in `acq.split_rows` on
     the CPU) and the gradient is taken on the continuous block, so it is
     zero on the categorical coordinates by construction.  Batched: a
-    leading axis on every tensor and (G,) scalars, one launch (the masks
-    stay (d,), shared by the batch).
+    leading axis on every tensor and (G,) scalars, one launch; the masks
+    are (d,), shared by the batch, or (G, d), one type layout a study.
     """
     return acq_kernels.fused_ei_grad(x, x_buf, amask.to(x.dtype), alpha,
                                      a_buf, sigma2, rho, shift,

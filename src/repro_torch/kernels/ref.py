@@ -32,6 +32,12 @@ def per_matrix(v):
     return v
 
 
+def per_row(mask: Tensor) -> Tensor:
+    """A type mask against (..., n, d) rows: a (B, d) stack as (B, 1, d),
+    one mask a matrix; a (d,) mask as it is."""
+    return mask[..., None, :] if mask.ndim > 1 else mask
+
+
 def matern52_gram(x: Tensor, y: Tensor, sigma2, rho) -> Tensor:
     """Pairwise Matérn-2.5 covariance, (.., n, d) x (.., m, d) -> (.., n, m),
     sigma2 / rho scalars or (B,)."""
@@ -163,8 +169,10 @@ def mixed_gram(x: Tensor, y: Tensor, sigma2, rho, cont_mask: Tensor,
     On feasible one-hot blocks d2_cat is twice the number of differing
     groups, so the factor is the Hamming kernel exp(-h / rho).  The factor
     carries no gradient (`detach`, the reference's stop_gradient).  Shapes
-    as `matern52_gram`."""
+    as `matern52_gram`; the masks are (d,), or (B, d) with one pair a
+    matrix."""
     rho = per_matrix(rho)
+    cont_mask, cat_mask = per_row(cont_mask), per_row(cat_mask)
     xc, yc = x * cont_mask, y * cont_mask
     xx = torch.sum(xc * xc, dim=-1)[..., :, None]
     yy = torch.sum(yc * yc, dim=-1)[..., None, :]

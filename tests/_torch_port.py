@@ -15,6 +15,10 @@ import torch
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
+# GP buffers (factor, inverse, alpha) of a port run against the reference's
+# after the same appends and lag events, as tests/test_torch_bayesopt.py
+# holds them: float32 sums in another order, compounded over the rounds.
+TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def t(a, dtype=torch.float32) -> torch.Tensor:
@@ -72,3 +76,57 @@ def seeded_states(rng: np.random.Generator, n0: int, dim: int, n_max: int):
                           implementation="xla")
     st = jgp.refactor(st, jmatern52, implementation="xla")
     return st, convert.state_from_numpy(jax_state_leaves(st), device=CPU)
+
+
+def engine_draws(key, n_studies: int, restarts: int, dim: int,
+                 top_t: int = 1):
+    """The draws the reference's stacked engine makes from `key` on the
+    unit cube (its vmapped ascent: study s's restart seeds from keys[s],
+    its top-t backfill jitter from fold_in(keys[s], 1)), as numpy arrays
+    to hand to the port: (keys, seeds (S, R, d), jitter (S, top_t, d))."""
+    keys = jax.random.split(key, n_studies)
+    seeds = np.stack([np.asarray(jax.random.uniform(
+        k, (restarts, dim), dtype=jnp.float32)) for k in keys])
+    jitter = np.stack([np.asarray(jax.random.normal(
+        jax.random.fold_in(k, 1), (top_t, dim), dtype=jnp.float32))
+        for k in keys])
+    return keys, seeds, jitter
+
+
+def assert_engines_match(jeng, teng) -> None:
+    """Every study of a port engine against the reference engine's: the
+    host and device counters and the clamp counts exactly, the points,
+    observations and the grid-picked params bit for bit, the factor, the
+    inverse and alpha at TOL."""
+    assert jeng.n_studies == teng.n_studies
+    np.testing.assert_array_equal(teng.clamp_counts(), jeng.clamp_counts())
+    np.testing.assert_array_equal(n(teng.state.n), n(jeng.state.n))
+    np.testing.assert_array_equal(n(teng.state.since_refit),
+                                  n(jeng.state.since_refit))
+    for s in range(jeng.n_studies):
+        js, ts = jeng.study_state(s), teng.study_state(s)
+        assert (teng.n(s), teng.since_refit(s)) == (jeng.n(s),
+                                                     jeng.since_refit(s))
+        assert (ts.n, ts.since_refit) == (int(js.n), int(js.since_refit))
+        for leaf in ("x_buf", "y_buf"):
+            np.testing.assert_array_equal(n(getattr(ts, leaf)),
+                                          n(getattr(js, leaf)),
+                                          err_msg=f"study {s} {leaf}")
+        for leaf in ("l_buf", "li_buf", "alpha"):
+            np.testing.assert_allclose(n(getattr(ts, leaf)),
+                                       n(getattr(js, leaf)), **TOL,
+                                       err_msg=f"study {s} {leaf}")
+        for p in ("sigma2", "rho", "noise2"):
+            assert float(getattr(ts.params, p)) == \
+                float(getattr(js.params, p)), f"study {s} {p}"
+
+
+def scaled_levy(u) -> np.ndarray:
+    """Levy on [-10, 10]^d, read from unit-cube rows u (..., d), at 0.05 x
+    its scale, as tests/test_torch_bayesopt.py runs it: at the raw scale
+    EI underflows, and in that lower tail the reference's float32 1 + erf
+    leaves an artifact that its ascent follows and the port's erfc does
+    not (ROADMAP queue 3, EI underflow)."""
+    from repro_torch.core.levy import neg_levy
+    x = torch.from_numpy(-10.0 + 20.0 * np.asarray(u, np.float32))
+    return (0.05 * neg_levy(x)).numpy().astype(np.float32)

@@ -22,7 +22,9 @@ FORBIDDEN = re.compile(
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.convert, repro_torch.hpo.space\n"
+            "repro_torch.convert, repro_torch.hpo.space, "
+            "repro_torch.hpo.engine, repro_torch.hpo.mesh, "
+            "repro_torch.hpo.pool\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
