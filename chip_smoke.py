@@ -110,8 +110,12 @@ Phases, each printing one JSON line:
                bit to a launch under its own masks (`stacked_mask_checks`),
                one round against the single-study path on every lane
                (`lane_parity`, with the 16 single-study steps timed beside
-               the batched round), one round with half the studies
-               unflagged (their every bit kept) and one round under
+               the batched round; a lane that left for another basin
+               prints the fused EI and its gradient at its restart seeds
+               from the S = 16 launch and from an S = 1 launch, whether
+               they are equal, and each launch plan: `ei_at_seeds`), one
+               round with half the studies unflagged (their every bit
+               kept) and one round under
                `torch.cuda.set_sync_debug_mode("error")`.
   8. profile — four more rounds of each path under torch.profiler: device
                busy share and device time by kernel; then one Cholesky
@@ -128,11 +132,38 @@ Phases, each printing one JSON line:
                kernel, whose device ms go beside its event ms; one call of
                the general solve at each of its shapes, each exactly one
                device kernel; one more round of each engine by device
-               time per kernel, with its busy share.
+               time per kernel, with its busy share; last, one ask_q(8)
+               of each engine by device time per kernel (just before its
+               fantasy phase).
                Nothing is profiled before the paths' timings are taken.
+  9. fantasy — the q-fantasy protocol (`ask_q`, `truncate_slot`,
+               `refantasize`) on each engine the engine phases leave
+               (phases `fantasy` and `fantasy_mixed`, last: run before the
+               profile checks, they left torch.profiler recording nothing
+               in a later session), against a twin engine loaded from its
+               `study_state` snapshots: every engine call held to its exact
+               launches (`fantasy_counts`: 21 fused EI and two grams a
+               suggestion of an ask, one gram with the pessimistic liar,
+               two a replay, none a truncate); an ask_q(8) rolled back
+               alone, the pessimistic liar, an ask past capacity
+               (GPCapacityError) and an ask_q(8) under
+               `set_sync_debug_mode("error")`, each leaving every lane
+               torch.equal to the twin's; then 4 advance rounds with every
+               study flagged, slots 4 and 12 rolled back before each and
+               replayed after, their tells pending points out of order, a
+               foreign tell, a release and one more ask_q(2), and a drain:
+               every leaf of every lane then torch.equal to the twin's,
+               alpha included.  Each ask's points distinct and on the
+               slot's lattice.  Uncounted: the path's gram shapes (m = 1,
+               8, 9, 31, 32 against n_max = 1024) held to the plain
+               version and, at the slot's own params, to the expansion's
+               float32 bound (`expansion_bound`), and host-clock times
+               (median of 3): ask_q at q = 1, 8, 32 beside q times one
+               routed suggest, truncate_slot, refantasize at p = 7 and 31.
 Then the `{"kernels": [...]}` line (seven kernels: L X = I and the general
 solve, two C entries of `csrc/trsv.cu`, count apart; launches per path:
-main, mixed, append, engine, engine_mixed), the nvidia-smi line and, last,
+main, mixed, append, engine, engine_mixed, fantasy, fantasy_mixed), the
+nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
@@ -2033,6 +2064,10 @@ def lane_parity(eng, studies, units, gen) -> dict:
                                                  / b.abs().max()))
         if (lane.n, lane.since_refit) != (st.n, st.since_refit):
             raise AssertionError(f"lane {s}: counters {lane.n} vs {st.n}")
+    if diverged:
+        at_seeds = ei_at_seeds(eng, seeds, [d["lane"] for d in diverged])
+        for d in diverged:
+            d["at_seeds"] = at_seeds[d["lane"]]
     if not (worst["l_buf"] <= TOL_LANE_FACTOR
             and worst["li_buf"] <= TOL_LANE_INVERSE
             and worst["alpha"] <= TOL_LANE_INVERSE
@@ -2044,6 +2079,47 @@ def lane_parity(eng, studies, units, gen) -> dict:
             "batched_round_ms": batched_ms,
             "sequential_ms": sequential_ms,
             "sequential_over_batched": sequential_ms / batched_ms}, got_u
+
+
+def ei_at_seeds(eng, seeds, lanes) -> dict:
+    """For each lane in `lanes`: the fused EI value and gradient at the
+    lane's own restart seeds (projected onto its lattice, as the ascent
+    starts) from one launch over all S lanes of the engine's state and
+    from one launch on that lane alone, whether they are torch.equal, and
+    the `acq.launch_plan` of each (its k-split sets the sum order).  Equal
+    values point at the state (its conditioning) for a lane that left for
+    another basin, unequal ones at the sum order."""
+    from repro_torch.core import acquisition as acq_mod
+    from repro_torch.core import gp
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.kernels import acq
+    st, cfg = eng.state, eng.cfg.acq
+    x0 = seeds if eng.desc is None else project_units(seeds, eng.desc)
+    every = acq_mod._make_eval_batch(st, eng.kernel, cfg, True,
+                                     acq_mod._f_best(st), gp._ymean(st))
+    v_all, g_all = every(x0)
+    r, d, mixed = x0.shape[1], eng.dim, eng.desc is not None
+
+    def plan(batch):
+        p = acq.launch_plan(batch, r, st.n_max, d, mixed)
+        return {"slices": p.slices, "tiles_per_slice": p.tiles_per_slice,
+                "grid": list(p.grid)}
+
+    out = {}
+    for s in lanes:
+        lane = eng._lane(s)
+        one = acq_mod._make_eval_batch(lane, eng._kernel_for(s), cfg, True,
+                                       acq_mod._f_best(lane), gp._ymean(lane))
+        v1, g1 = one(x0[s])
+        out[s] = {"ei_s16": v_all[s].tolist(), "ei_s1": v1.tolist(),
+                  "ei_equal": bool(torch.equal(v_all[s], v1)),
+                  "grad_equal": bool(torch.equal(g_all[s], g1)),
+                  "ei_max_abs_diff": max_abs(v_all[s], v1),
+                  "grad_max_abs_diff": max_abs(g_all[s], g1),
+                  "grad_norm_s16": torch.linalg.vector_norm(
+                      g_all[s], dim=-1).tolist(),
+                  "plan_s16": plan(eng.n_studies), "plan_s1": plan(1)}
+    return out
 
 
 def unflagged_round(eng, studies, units) -> dict:
@@ -2244,6 +2320,401 @@ def profile_engine(name, eng, studies, units) -> None:
           "device_idle_ms": split["idle_ms"],
           "device_busy_share": split["busy_ms"] / wall,
           "by_kernel": split["by_name"][:12]})
+
+
+# --- the fantasy phases: the q-fantasy protocol on both engines -------------
+
+FANTASY_SLOTS = (4, 12)   # slots that serve q-asks: in the mixed engine slot
+# 4 holds the mixed workload and slot 12 Levy-6d
+FANTASY_ROUNDS = 4        # advance rounds of the twin script
+FANTASY_ASK = 8           # the q of the script's asks
+FANTASY_TIMED_Q = (1, 8, 32)   # ask widths timed
+FANTASY_TIMED_P = (7, 31)      # refantasize widths timed
+FANTASY_GRAM_M = (1, 8, 9, 31, 32)   # gram widths held to the plain version
+TIMING_REPS = 3
+
+
+def fantasy_counts(mixed: bool, steps: int, asked: int = 0, replays: int = 0,
+                   liar: str = "mean") -> dict:
+    """Launches of fantasy calls: each suggestion of an ask is `steps` + 1
+    fused-EI launches, then one gram for the liar's posterior (the mean
+    liar only) and one for the fantasy row's column block; a refantasize
+    is those two grams for all its points; a truncate launches nothing."""
+    counts = engine_counts(mixed, 0, 0, 0, steps)
+    gram, ei = ("mixed", "acq_mixed") if mixed else ("matern", "acq")
+    per = 2 if liar == "mean" else 1
+    counts[gram] = per * (asked + replays)
+    counts[ei] = asked * (steps + 1)
+    return counts
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total[k] + more[k] for k in total}
+
+
+def lanes_equal(a, b) -> list[int]:
+    """Slots of engines a and b whose leaves or counters differ."""
+    from repro_torch.core import gp
+    out = []
+    for s in range(a.n_studies):
+        sa, sb = a.study_state(s), b.study_state(s)
+        same = all(torch.equal(u, v) for u, v in zip(gp._leaves(sa),
+                                                      gp._leaves(sb)))
+        if not (same and (sa.n, sa.since_refit) == (sb.n, sb.since_refit)
+                and int(a.state.n[s]) == int(b.state.n[s])):
+            out.append(s)
+    return out
+
+
+def twin_engine(eng):
+    """A second engine with eng's configuration, each slot loaded from
+    eng's `study_state` snapshot (and, mixed, its descriptor row): bit for
+    bit eng's state, no second prefill."""
+    from repro_torch.core.descriptor import index_descriptor
+    from repro_torch.hpo.engine import StudyEngine
+    descs = None
+    if eng.desc is not None:
+        descs = [index_descriptor(eng.desc, s) for s in range(eng.n_studies)]
+    twin = StudyEngine(eng.dim, eng.cfg, eng.n_studies, descs)
+    for s in range(eng.n_studies):
+        twin.load_slot(s, eng.study_state(s))
+    if lanes_equal(eng, twin):
+        raise AssertionError("twin engine: loaded lanes differ")
+    return twin
+
+
+class FantasySlot:
+    """The pool's fantasy bookkeeping for one slot (pending points in
+    append order; the rollback before a real append, the replay after),
+    with each engine call held to its exact launches."""
+
+    def __init__(self, run, eng, study: int, space, mixed: bool):
+        self.run, self.eng, self.study = run, eng, study
+        self.space, self.mixed, self.points = space, mixed, []
+
+    def ask(self, q: int, sync_free: bool = False) -> torch.Tensor:
+        """ask_q(q); `sync_free` runs it under set_sync_debug_mode("error"),
+        so a device read on its path raises."""
+        def call():
+            if not sync_free:
+                return self.eng.ask_q(self.study, q)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return self.eng.ask_q(self.study, q)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        steps = self.eng.cfg.acq.ascent_steps
+        units, vals = self.run(call, fantasy_counts(self.mixed, steps,
+                                                    asked=q))
+        check_asked(units, vals, self.space)
+        self.points.extend(units.cpu().numpy())
+        return units
+
+    def rollback(self) -> None:
+        if self.points:
+            n_real = self.eng.n(self.study) - len(self.points)
+            self.run(lambda: self.eng.truncate_slot(self.study, n_real),
+                     fantasy_counts(self.mixed, 0))
+
+    def replay(self) -> None:
+        if self.points:
+            self.run(lambda: self.eng.refantasize(self.study,
+                                                  np.stack(self.points)),
+                     fantasy_counts(self.mixed, 0, replays=1))
+
+    def take(self, i: int) -> np.ndarray:
+        return self.points.pop(i % len(self.points))
+
+
+def check_asked(units, vals, space) -> None:
+    """One ask's points: finite, pairwise distinct, on the slot's lattice."""
+    u = units.cpu().numpy()
+    if not (np.isfinite(u).all() and torch.isfinite(vals).all()):
+        raise AssertionError("ask_q: non-finite points or values")
+    if len({tuple(row) for row in u.tolist()}) != u.shape[0]:
+        raise AssertionError(f"ask_q: {u.shape[0]} points not distinct")
+    if not np.array_equal(space.project(u), u):
+        raise AssertionError("ask_q: points off the slot's lattice")
+
+
+def expansion_bound(x, y, params, exact, cont_mask=None, cat_mask=None):
+    """Elementwise bound of the float32 error of a Matérn (or mixed) gram
+    built by the expansion |x|^2 + |y|^2 - 2 x.y, as both the kernel and
+    the plain version build it: the squared distance carries at most
+    gamma (|x| + |y|)^2 of round-off, gamma = (d + 2) 2^-24, which moves K
+    by |dK/dsq| = sigma2 5 / (6 rho^2) (1 + z) e^-z (twice that, for the
+    slope between the exact and the rounded distance), the categorical
+    factor by K / (2 rho) times its own; plus 16 ulps of sigma2 for the
+    epilogue.  `exact` is K in float64."""
+    u = 2.0 ** -24
+    gamma = (x.shape[-1] + 2) * u
+    x, y = x.double(), y.double()
+    s2, rho = params.sigma2.double(), params.rho.double()
+    cm = 1.0 if cont_mask is None else cont_mask.double()
+    xc, yc = x * cm, y * cm
+    sq = torch.cdist(xc, yc) ** 2
+    z = math.sqrt(5.0) * torch.sqrt(sq) / rho
+    size = (xc.norm(dim=-1)[:, None] + yc.norm(dim=-1)[None, :]) ** 2
+    out = 2.0 * s2 * 5.0 / (6.0 * rho * rho) * (1.0 + z) * torch.exp(-z) \
+        * gamma * size + 16.0 * u * s2
+    if cat_mask is not None:
+        km = cat_mask.double()
+        sizek = ((x * km).norm(dim=-1)[:, None]
+                 + (y * km).norm(dim=-1)[None, :]) ** 2
+        out = out + exact.abs() / (2.0 * rho) * gamma * sizek
+    return out
+
+
+def fantasy_gram_shapes(eng, study: int) -> dict:
+    """The gram launches of the fantasy path at n_max = 1024: a point
+    buffer against m = 1 (an ask's step), 8, 9 (past the column layout),
+    31 and 32 (replays) points, through `ops.kernel_gram`, twice: on the
+    kernels phase's inputs (`gram_forms`: sigma2 1, rho 0.25), held to the
+    plain version at TOL_MATERN (or `held_to_plain`'s float64 rule); and
+    on the slot's own points and refit params, where rho can be 0.05 and
+    the expansion's round-off is amplified 400-fold, each element of the
+    kernel and of the plain version within `expansion_bound` of float64."""
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.kernels import matern, ops
+    form = gram_forms(eng.device)["mixed_gram" if eng.mixed
+                                  else "matern52_gram"]
+    st, kern = eng.study_state(study), eng._kernel_for(study)
+    masks = ((kern.cont_mask, kern.cat_mask) if eng.mixed else ())
+    p = st.params
+    p64 = type(p)(p.sigma2.double(), p.rho.double(), p.noise2.double())
+    gen = torch.Generator(device=st.device)
+    gen.manual_seed(21)
+    out = {}
+    for m in FANTASY_GRAM_M:
+        y = torch.rand((m, eng.dim), generator=gen, device=st.device)
+        if eng.mixed:
+            y = project_units(y, eng._desc_for(study))
+        x, fp = form["x"], form["params"]
+        got = ops.kernel_gram(form["kern"], x, y, fp)
+        ok, res = held_to_plain(
+            got, form["plain"](x, y, fp.sigma2, fp.rho),
+            form["plain"](x.double(), y.double(), fp.sigma2.double(),
+                          fp.rho.double()), TOL_MATERN)
+        ok = ok or res["kernel_err_vs_f64"] <= 2.0 * res["plain_err_vs_f64"]
+        got = ops.kernel_gram(kern, st.x_buf, y, p)
+        plain = kern(st.x_buf, y, p)
+        exact = kern(st.x_buf.double(), y.double(), p64)
+        room = expansion_bound(st.x_buf, y, p, exact, *masks)
+        over = {name: float(((v.double() - exact).abs() / room).max())
+                for name, v in (("kernel", got), ("plain", plain))}
+        if not ok or max(over.values()) > 1.0:
+            raise AssertionError(f"fantasy gram m = {m}: {res}, "
+                                 f"error over bound {over}")
+        out[f"{st.n_max}x{m}"] = dict(
+            **res, layout=matern.launch_plan(st.n_max, m, eng.dim, 1, False,
+                                             False).layout,
+            slot_params={"sigma2": float(p.sigma2), "rho": float(p.rho)},
+            slot_max_abs_err=max_abs(got, plain),
+            slot_err_over_bound=over)
+    return out
+
+
+def host_ms(fn, reps: int = TIMING_REPS, after=None) -> float:
+    """Median host-clock ms of `fn` (ended by `torch.cuda.synchronize()`),
+    `after` run untimed between repeats."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if after is not None:
+            after()
+    return statistics.median(times)
+
+
+def fantasy_times(eng, study: int) -> dict:
+    """Informational: ask_q at q = 1, 8, 32 (each rolled back after)
+    beside q routed suggests on the same slot, one truncate_slot after an
+    ask_q(8), and refantasize at p = 7 and 31."""
+    n_real = eng.n(study)
+
+    def back():
+        eng.truncate_slot(study, n_real)
+
+    suggest_ms = host_ms(lambda: eng.suggest(study))
+    asks = {}
+    for q in FANTASY_TIMED_Q:
+        ms = host_ms(lambda: eng.ask_q(study, q), after=back)
+        asks[str(q)] = {"ask_q_ms": ms, "per_suggestion_ms": ms / q,
+                        "q_routed_suggests_ms": q * suggest_ms}
+    truncs = []
+    for _ in range(TIMING_REPS):
+        eng.ask_q(study, FANTASY_ASK)
+        truncs.append(host_ms(back, reps=1))
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(22)
+    points = torch.rand((max(FANTASY_TIMED_P), eng.dim), generator=gen,
+                        device=eng.device)
+    if eng.desc is not None:
+        from repro_torch.core.descriptor import project_units
+        points = project_units(points, eng._desc_for(study))
+    replays = {str(p): host_ms(lambda: eng.refantasize(study, points[:p]),
+                               after=back) for p in FANTASY_TIMED_P}
+    if eng.n(study) != n_real:
+        raise AssertionError("fantasy times: the slot was not rolled back")
+    return {"routed_suggest_ms": suggest_ms, "ask_q": asks,
+            "truncate_slot_ms": statistics.median(truncs),
+            "refantasize_ms": replays}
+
+
+def profile_fantasy(name, eng, study: int) -> None:
+    """One ask_q(8) (rolled back after) under torch.profiler, device busy
+    time by kernel beside its host clock; run just before the fantasy
+    phase of its engine, after every other profile check."""
+    n_real = eng.n(study)
+
+    def back():
+        eng.truncate_slot(study, n_real)
+
+    split = device_split(lambda: (eng.ask_q(study, FANTASY_ASK), back()))
+    wall = host_ms(lambda: eng.ask_q(study, FANTASY_ASK), reps=1, after=back)
+    emit({"phase": "profile", "path": name, "call": f"ask_q({FANTASY_ASK})",
+          "wall_ms": wall, "device_span_ms": split["span_ms"],
+          "device_busy_ms": split["busy_ms"],
+          "device_busy_share": split["busy_ms"] / wall,
+          "by_kernel": split["by_name"][:8]})
+
+
+def fantasy_path(dev, eng, studies, mixed: bool):
+    """Phases fantasy and fantasy_mixed, on the engine an engine phase left
+    (n_max = 1024, 16 studies, 48 restarts x 20 steps) and a twin loaded
+    from its snapshots.  Counted (counters set to 0 first; each call of
+    the fantasy engine held to its exact launches, `fantasy_counts` /
+    `engine_counts`; the twin's calls counted apart): an ask_q(8) rolled
+    back alone (every lane then equal to the twin's), the same with the
+    pessimistic liar, an ask_q past capacity (GPCapacityError, every lane
+    equal), an ask_q(8) under set_sync_debug_mode("error"), then the twin
+    script: 4 advance rounds with every study flagged, the fantasy slots
+    rolled back before each and their survivors replayed after, each
+    slot's tell one of its pending points out of order (one round a
+    foreign point), a release and one more ask_q(2) mid-way, and a drain
+    of every survivor through routed absorbs; the twin takes the same
+    real tells and no fantasies, and every leaf of every lane must end
+    torch.equal to its.  Uncounted: the path's gram shapes against the
+    plain version and the times.  Returns (counts, line)."""
+    from repro_torch.core import gp
+    name = "fantasy_mixed" if mixed else "fantasy"
+    steps = eng.cfg.acq.ascent_steps
+    t0 = time.perf_counter()
+    twin = twin_engine(eng)
+    zero = fantasy_counts(mixed, 0)
+    a_total, b_total = dict(zero), dict(zero)
+
+    def run(fn, want, total=None):
+        total = a_total if total is None else total
+        before = read_counts()
+        out = fn()
+        got = diff_counts(read_counts(), before)
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        total.update(add_counts(total, got))
+        return out
+
+    reset_counts()
+    slot, other = (FantasySlot(run, eng, s, studies[s].space, mixed)
+                   for s in FANTASY_SLOTS)
+    # 1-2. The rollback alone: ask_q(8), truncate_slot, every lane equal.
+    slot.ask(FANTASY_ASK)
+    slot.rollback()
+    slot.points.clear()
+    if lanes_equal(eng, twin):
+        raise AssertionError(f"{name}: rollback alone: lanes "
+                             f"{lanes_equal(eng, twin)} differ")
+    cfg = eng.cfg
+    eng.cfg = dataclasses.replace(cfg, fantasy=gp.FantasyConfig("pessimistic"))
+    run(lambda: eng.ask_q(slot.study, 2),
+        fantasy_counts(mixed, steps, asked=2, liar="pessimistic"))
+    run(lambda: eng.truncate_slot(slot.study, twin.n(slot.study)), zero)
+    eng.cfg = cfg
+    # 5. Capacity: the fullest slot cannot take an ask past n_max.
+    full = int(np.argmax([eng.n(s) for s in range(eng.n_studies)]))
+    try:
+        run(lambda: eng.ask_q(full, N_MAX - eng.n(full) + 1), zero)
+    except gp.GPCapacityError:
+        pass
+    else:
+        raise AssertionError(f"{name}: ask_q past capacity did not raise")
+    if lanes_equal(eng, twin):
+        raise AssertionError(f"{name}: rollbacks left lanes "
+                             f"{lanes_equal(eng, twin)} different")
+    # 4. One ask under the sync check: no device read on the path.
+    other.ask(FANTASY_ASK, sync_free=True)
+    slot.ask(FANTASY_ASK)
+    # 3. The twin script.
+    flags = np.ones(eng.n_studies, bool)
+    units, _ = run(eng.suggest_all, engine_counts(mixed, 0, 0, 1, steps))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    rng = np.random.default_rng(24)
+    foreign, released = 0, 0
+    for r in range(FANTASY_ROUNDS):
+        xs = units[:, 0].cpu().numpy()
+        for fs in (slot, other):
+            fs.rollback()
+            if r == 2 and fs is slot:
+                xs[fs.study] = fs.space.sample(rng, 1)[0]      # foreign
+                foreign += 1
+            else:
+                xs[fs.study] = fs.take(2 * r + 1)              # out of order
+        ys = np.array([st.objective(xs[s:s + 1])[0]
+                       for s, st in enumerate(studies)], np.float32)
+        seeds = torch.rand((eng.n_studies, cfg.acq.restarts, eng.dim),
+                           generator=gen, device=dev)
+        due = lag_due(eng, flags)
+        want = engine_counts(mixed, 1, due, 1, steps)
+        units, _ = run(lambda: eng.advance(flags, xs, ys, seeds=seeds), want)
+        run(lambda: twin.advance(flags, xs, ys, seeds=seeds), want, b_total)
+        for fs in (slot, other):
+            fs.replay()
+        if r == 1:
+            slot.rollback()
+            slot.take(0)                                       # release
+            released += 1
+            slot.replay()
+            slot.ask(2)
+    for fs in (slot, other):
+        while fs.points:
+            fs.rollback()
+            x = fs.take(len(fs.points) // 2)
+            y = float(studies[fs.study].objective(x[None])[0])
+            due = lag_due(eng, np.arange(eng.n_studies) == fs.study)
+            want = engine_counts(mixed, 1, due, 0, steps)
+            run(lambda: eng.absorb(fs.study, x, y), want)
+            run(lambda: twin.absorb(fs.study, x, y), want, b_total)
+            fs.replay()
+    eng.sync()
+    counted = read_counts()
+    if counted != add_counts(a_total, b_total):
+        raise AssertionError(f"{name}: counters {counted}, calls "
+                             f"{a_total} + twin {b_total}")
+    differ = lanes_equal(eng, twin)
+    if differ:
+        raise AssertionError(f"{name}: after the drain lanes {differ} differ "
+                             f"from the never-fantasized twin")
+    gram, ei = ("mixed", "acq_mixed") if mixed else ("matern", "acq")
+    if not (a_total[gram] and a_total[ei]):
+        raise AssertionError(f"{name}: the path launched {a_total}")
+    line = {"phase": name, "slots": list(FANTASY_SLOTS),
+            "n_real": [eng.n(s) for s in FANTASY_SLOTS],
+            "rounds": FANTASY_ROUNDS, "foreign_tells": foreign,
+            "releases": released, "launches": a_total,
+            "twin_launches": b_total,
+            "lanes_equal_to_twin": "every leaf of every lane, alpha included",
+            "gram_shapes": fantasy_gram_shapes(eng, slot.study),
+            "nvidia_smi": nvidia_smi_line(),
+            "times": fantasy_times(eng, slot.study)}
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    return a_total, line
 
 
 def trsv_launches(dev) -> dict:
@@ -2588,6 +3059,14 @@ def main(argv: list[str] | None = None) -> int:
     trsv_row["host_gap_ms"] = trsv_row["ms"] - trsv_row["device_ms"]
     gram_device = gram_launches(dev)
     ei_device = ei_launches(dev)
+    # The fantasy phases run last: with them before the profile checks,
+    # torch.profiler recorded no device activity in tri_inverse_launches
+    # in two runs (PERF.md, PR 21).
+    for name, (_, eng, studies, _, _) in engines.items():
+        fantasy = "fantasy_mixed" if eng.mixed else "fantasy"
+        profile_fantasy(fantasy, eng, FANTASY_SLOTS[0])
+        launches_by_path[fantasy], _ = fantasy_path(dev, eng, studies,
+                                                    eng.mixed)
     # Device time beside the event time from the kernels phase (the gram's
     # from its 1024^2 call): the difference is the wrapper's host work
     # while the card idles.

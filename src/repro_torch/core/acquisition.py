@@ -1,12 +1,13 @@
 """Acquisition functions and their multi-start optimizer.
 
-Counterpart of `repro/core/acquisition.py` (no restart sharding and no
-q-fantasies yet).  Expected Improvement (paper Sec. 3.2.1) and a
-multi-start projected-gradient ascent that returns the argmax (sequential
-BO) or the top-t distinct local maxima (paper Sec. 3.4), for one study or
-for a stacked state of S studies (the reference's vmap): there each ascent
-step is one fused-EI launch for all S studies, with (S, d) type masks
-where their layouts differ.
+Counterpart of `repro/core/acquisition.py` (no restart sharding yet).
+Expected Improvement (paper Sec. 3.2.1) and a multi-start
+projected-gradient ascent that returns the argmax (sequential BO) or the
+top-t distinct local maxima (paper Sec. 3.4), for one study or for a
+stacked state of S studies (the reference's vmap): there each ascent step
+is one fused-EI launch for all S studies, with (S, d) type masks where
+their layouts differ.  `suggest_q` is the q-suggestion of the fantasy
+protocol: q ascents, each followed by a fantasy row.
 
 Each ascent step is one `ops.fused_ei_grad` call for the whole restart
 batch (the fused kernel on the card), with the loop invariants — f_best,
@@ -34,7 +35,7 @@ import torch
 
 from repro_torch.core import descriptor as desc_mod
 from repro_torch.core import gp as gp_mod
-from repro_torch.core.kernels import KernelFn, make_mixed_kernel
+from repro_torch.core.kernels import KernelFn
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -301,15 +302,50 @@ def _optimize_each(state, kernel, lo, hi, cfg, top_t, *, generator, seeds,
     study axis); reads each study's n from the device."""
     outs = []
     for s in range(state.n_studies):
-        kern = kernel
-        if getattr(kernel, "gram_kernel", None) == "mixed" \
-                and kernel.cont_mask.ndim > 1:
-            kern = make_mixed_kernel(kernel.cont_mask[s], kernel.cat_mask[s])
         outs.append(optimize_acquisition(
-            gp_mod.unstack_state(state, s), kern, lo, hi, cfg, top_t,
+            gp_mod.unstack_state(state, s), gp_mod.study_kernel(kernel, s),
+            lo, hi, cfg, top_t,
             generator=generator,
             seeds=None if seeds is None else seeds[s],
             jitter=None if jitter is None else jitter[s],
             desc=(desc_mod.index_descriptor(desc, s)
                   if desc is not None and desc.is_batched else desc)))
     return tuple(torch.stack(v) for v in zip(*outs))
+
+
+def suggest_q(state: gp_mod.LazyGPState, kernel: KernelFn, lo: Tensor,
+              hi: Tensor, cfg: AcqConfig, q: int, *, liar: str = "mean",
+              generator: torch.Generator | None = None,
+              seeds: Tensor | None = None, jitter: Tensor | None = None,
+              desc: desc_mod.TypeDescriptor | None = None,
+              in_place: bool = False
+              ) -> tuple[Tensor, Tensor, gp_mod.LazyGPState]:
+    """Sequential-fantasy q-suggestion (qEI, DESIGN.md §12) for one study.
+
+    q steps, each the ascent of `optimize_acquisition(top_t=1)` against the
+    current (fantasized) posterior, then its pick appended as a fantasy row
+    (`gp.fantasize` with the `liar` value taken against that state), so
+    step i + 1 suggests where the variance has collapsed at the first i
+    picks.  Step i draws `seeds[i] (R, d)` / `jitter[i] (1, d)` when given
+    (the reference splits its key into q keys, one a step), else from
+    `generator`; `desc` projects every step onto a mixed space's lattice.
+    The picks stay on the device: no step reads anything back.
+
+    Returns `(xs (q, d), vals (q,), fantasized state)`; the input state is
+    left as it is unless `in_place`, which writes the fantasy rows into
+    its buffers (the engine's views of one study).
+    """
+    if q < 1:
+        raise ValueError(f"q must be >= 1, got {q}")
+    gp_mod.ensure_capacity(state.n, state.n_max, q)
+    st = state if in_place else gp_mod._copy(state)
+    xs, vals = [], []
+    for i in range(q):
+        x, v = optimize_acquisition(
+            st, kernel, lo, hi, cfg, 1, generator=generator,
+            seeds=None if seeds is None else seeds[i],
+            jitter=None if jitter is None else jitter[i], desc=desc)
+        st = gp_mod.fantasize(st, kernel, x, liar, in_place=True)
+        xs.append(x[0])
+        vals.append(v[0])
+    return torch.stack(xs), torch.stack(vals), st

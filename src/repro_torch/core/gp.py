@@ -1,17 +1,19 @@
 """Lazy Gaussian process regression (the paper's surrogate model).
 
-Counterpart of `repro/core/gp.py` (the fantasy layer comes with a later
-slice).  Fixed-shape padded buffers hold the observed points, the
-observations, the identity-padded Cholesky factor and its maintained
-inverse; `append` is the paper's O(n^2) Alg. 3 step; `refactor` /
-`refit_params` are the lag-event refactorization with kernel
-hyper-parameter re-estimation by log marginal likelihood.
+Counterpart of `repro/core/gp.py`.  Fixed-shape padded buffers hold the
+observed points, the observations, the identity-padded Cholesky factor and
+its maintained inverse; `append` is the paper's O(n^2) Alg. 3 step;
+`refactor` / `refit_params` are the lag-event refactorization with kernel
+hyper-parameter re-estimation by log marginal likelihood; `fantasize` /
+`truncate` are the fantasy rows of the q-suggestion protocol and their
+rollback.
 
 The active count `n` and the lag counter `since_refit` of one study are
 Python ints in the state: the BO loop is driven from the host, and a
 device counter would make every capacity or lag check wait for the card.
 `clamp_count` stays a 0-d int32 tensor on the device.  Transitions return
-new states and never write a buffer of their input state.
+new states and never write a buffer of their input state, except where a
+caller asks for `in_place` (the engine's fantasy rows and rollback).
 
 Stacked studies (DESIGN.md §7): `init_pool_state` / `stack_states` build a
 state whose leaves carry a leading study axis S, with `n`, `since_refit`
@@ -358,6 +360,150 @@ def append_batch(state: LazyGPState, kernel: KernelFn, xs: Tensor,
     for i in range(xs.shape[0]):
         state = _append_row_only(state, kernel, xs[i], ys[i])
     return dataclasses.replace(state, alpha=_recompute_alpha(state))
+
+
+# ---------------------------------------------------------------------------
+# Fantasy rows: the q-suggestion protocol (DESIGN.md §12).
+# ---------------------------------------------------------------------------
+
+FANTASY_LIARS = ("mean", "pessimistic")
+
+
+@dataclasses.dataclass(frozen=True)
+class FantasyConfig:
+    """Liar policy for pending-trial fantasies (Snoek et al. 2012).
+
+    * "mean"        — kriging believer: the liar value is the posterior mean
+                      at the fantasy point, so the mean surface is (nearly)
+                      unchanged and only the variance collapses there.
+    * "pessimistic" — constant liar: the worst (max) active observation, so
+                      the fantasized point actively repels later suggestions.
+    """
+
+    liar: str = "mean"
+
+    def __post_init__(self):
+        if self.liar not in FANTASY_LIARS:
+            raise ValueError(
+                f"unknown fantasy liar {self.liar!r}; "
+                f"expected one of {FANTASY_LIARS}")
+
+
+def _copy(state: LazyGPState) -> LazyGPState:
+    """The state over its own buffers (counters too where they are
+    tensors)."""
+    def own(v):
+        return v.clone() if isinstance(v, Tensor) else v
+    return _with_leaves(state, [leaf.clone() for leaf in _leaves(state)],
+                        own(state.n), own(state.since_refit))
+
+
+def study_kernel(kernel: KernelFn, study: int) -> KernelFn:
+    """Study `study`'s kernel out of one that covers a stack: the mixed
+    closure over (S, d) masks gives the closure over row `study`'s."""
+    if getattr(kernel, "gram_kernel", None) == "mixed" \
+            and kernel.cont_mask.ndim > 1:
+        return make_mixed_kernel(kernel.cont_mask[study],
+                                 kernel.cat_mask[study])
+    return kernel
+
+
+def fantasy_values(state: LazyGPState, kernel: KernelFn, xs: Tensor,
+                   liar: str = "mean") -> Tensor:
+    """Liar observations for fantasy points `xs (q, d)` against one study's
+    state, all computed against the *input* state (exact for q = 1, the
+    per-step path of the q-suggest loop)."""
+    if liar not in FANTASY_LIARS:
+        raise ValueError(f"unknown fantasy liar {liar!r}; "
+                         f"expected one of {FANTASY_LIARS}")
+    if liar == "pessimistic":
+        worst = torch.amax(torch.where(_active_mask(state), state.y_buf,
+                                       -math.inf))
+        if state.n == 0:
+            worst = torch.zeros_like(worst)
+        return worst.expand(xs.shape[0]).clone()
+    mean, _ = posterior(state, kernel, xs)
+    return mean
+
+
+def fantasize(state: LazyGPState, kernel: KernelFn, xs: Tensor,
+              liar: str = "mean", *, in_place: bool = False) -> LazyGPState:
+    """Append q fantasy rows `xs (q, d)`: full bordered appends (the factor,
+    the inverse and alpha all see them, so an ascent on the fantasized
+    state is the ordinary ascent), but `since_refit` and `clamp_count` stay
+    as they are: fantasies are scratch state that must never trigger a lag
+    refit, and their rollback (`truncate`) has no telemetry to un-count.
+
+    The liar values are taken against the input state; x and y land at
+    rows n .. n + q - 1; one gram build covers the whole point buffer
+    against `xs`, column i masked to the rows below n + i; then the rows
+    and one alpha refresh (`ops.lazy_append_rows_`).  `in_place` writes
+    them into the state's own buffers (the engine's views of one study's
+    rows) and returns a state over those buffers; otherwise the input is
+    left as it is.  Stacked: `xs (S, q, d)` appends q rows to each study
+    (one study after another, reading each study's n from the device).
+    """
+    if state.is_batched:
+        counts = state.n.tolist()
+        for count in counts:
+            ensure_capacity(count, state.n_max, xs.shape[1])
+        out = state if in_place else _copy(state)
+        for s, count in enumerate(counts):
+            fantasize(unstack_state(out, s, n=count), study_kernel(kernel, s),
+                      xs[s], liar, in_place=True)
+        out.n.add_(xs.shape[1])
+        return out
+    q, n, n_max = xs.shape[0], state.n, state.n_max
+    ensure_capacity(n, n_max, q)
+    ys = fantasy_values(state, kernel, xs, liar)
+    st = state if in_place else _copy(state)
+    st.x_buf[n:n + q] = xs
+    st.y_buf[n:n + q] = ys
+    idx = torch.arange(n_max, device=st.device)
+    p_all = ops.kernel_gram(kernel, st.x_buf, xs, st.params)   # (n_max, q)
+    cols = torch.where(idx[:, None] < n + torch.arange(q, device=st.device),
+                       p_all, 0.0)
+    cs = kernel(xs[:, None, :], xs[:, None, :], st.params)[:, 0, 0] \
+        + st.params.noise2
+    mask_new = idx < n + q
+    ymean = torch.sum(torch.where(mask_new, st.y_buf, 0.0)) / (n + q)
+    resid = torch.where(mask_new, st.y_buf - ymean, 0.0)
+    ops.lazy_append_rows_(st.l_buf, st.li_buf, st.alpha, cols.T, cs, resid, n)
+    return dataclasses.replace(st, n=n + q)
+
+
+def truncate(state: LazyGPState, n_real, *, in_place: bool = False,
+             alpha: Tensor | None = None) -> LazyGPState:
+    """Roll back every row >= n_real to the identity-padded empty state.
+
+    Appends write only row n of `l_buf` / `li_buf` / `x_buf` / `y_buf`, and
+    before the rolled-back rows were appended they were exactly identity
+    (factor, inverse) and exactly zero (points, observations); re-padding
+    therefore restores those four buffers bit for bit.  Alpha is
+    recomputed against the restored inverse, or set to `alpha` where the
+    caller kept the pre-fantasy vector (the engine does): the recompute is
+    another float32 evaluation than the fused append's, so it may differ
+    from the pre-fantasy alpha in the last bit.  `since_refit` and
+    `clamp_count` are untouched, since `fantasize` never advanced them.
+    `in_place` re-pads the state's own buffers.  Stacked: `n_real (S,)`.
+    """
+    if state.is_batched:
+        out = state if in_place else _copy(state)
+        counts = [int(v) for v in n_real]
+        for s, count in enumerate(counts):
+            truncate(unstack_state(out, s, n=count), count, in_place=True,
+                     alpha=None if alpha is None else alpha[s])
+        out.n.copy_(torch.tensor(counts, dtype=torch.int32))
+        return out
+    n_real = int(n_real)
+    st = dataclasses.replace(state if in_place else _copy(state), n=n_real)
+    st.x_buf[n_real:].zero_()
+    st.y_buf[n_real:].zero_()
+    for buf in (st.l_buf, st.li_buf):
+        buf[n_real:].zero_()
+        torch.diagonal(buf)[n_real:].fill_(1.0)
+    st.alpha.copy_(_recompute_alpha(st) if alpha is None else alpha)
+    return st
 
 
 def posterior(state: LazyGPState, kernel: KernelFn, x_star: Tensor,

@@ -1,8 +1,8 @@
 """The batched GP suggest/absorb engine shared by the HPO orchestrators.
 
 Counterpart of `repro/hpo/engine.py` with `mesh="none"`, for the lazy-GP
-tier (the q-fantasy protocol and the neural-basis tier come with later
-slices).  `StudyEngine` owns ONE stacked `LazyGPState` with a leading study
+tier and its q-fantasy protocol (the neural-basis tier comes with a later
+slice).  `StudyEngine` owns ONE stacked `LazyGPState` with a leading study
 axis (DESIGN.md §7) and advances it:
 
   * `suggest_all` — the acquisition ascent of every study at once: each
@@ -17,6 +17,24 @@ axis (DESIGN.md §7) and advances it:
   * lag events    — after an absorb, each flagged study whose lag counter
     is due is refit (grid LML, then refactor) or, fully lazy, re-anchored
     (refactor under its current params), one study at a time.
+  * `ask_q` / `truncate_slot` / `refantasize` — the fantasy protocol
+    (DESIGN.md §12), routed to one slot: q suggestions, each appended as a
+    fantasy row; the rollback to the real rows; the pending points
+    appended again after a real tell.
+
+**Fantasy rows** live in the slot's own rows of the stacked buffers and
+are written there in place (no (n_max, n_max) buffer is copied); the
+host `n` mirror and the device `state.n` both count them, so the caller
+(the pool's real ledger) must roll them back before a real append lands.
+The rollback re-pads x, y, the factor and its inverse bit for bit
+(`gp.truncate`).  Alpha cannot be re-padded: the reference recomputes it,
+which differs from the fused append's alpha in the last bit when no real
+append follows (a release).  So the engine copies a slot's alpha when the
+slot takes its first fantasy row on top of real rows, and a truncate back
+to that count puts the copy back: every leaf is then restored bit for bit,
+whether or not a real append follows.  A truncate to any other count
+recomputes alpha as `gp.truncate` does; a real append, a slot load or a
+new state drops the copy.
 
 The reference's engine donates the stacked buffers to its fused round; the
 port writes the absorbed rows in place (`gp.append_stacked`), so a round
@@ -111,6 +129,8 @@ class StudyEngine:
         # Per-row observation costs (tell `cost=`, default 1.0); the
         # neural-basis tier trains on them once it is ported.
         self._cost_host = np.ones((n_studies, cfg.n_max), np.float32)
+        # Fantasy-active slots: slot -> (real count, alpha at that count).
+        self._alpha_kept: dict[int, tuple[int, Tensor]] = {}
 
     # -- state + host-side counter mirrors ----------------------------------
     @property
@@ -124,6 +144,7 @@ class StudyEngine:
             raise ValueError(f"expected a stacked state of {self.n_studies} "
                              f"studies, got x_buf {tuple(st.x_buf.shape)}")
         self._state = st
+        self._alpha_kept = {}
         self._n_host = st.n.cpu().numpy().astype(np.int64)
         self._sr_host = st.since_refit.cpu().numpy().astype(np.int64)
 
@@ -157,6 +178,7 @@ class StudyEngine:
         """Copy single-study state `sub` into slot `slot`, bit for bit; the
         host mirrors change for that slot only."""
         gp_mod.write_study(self._state, slot, sub)
+        self._alpha_kept.pop(slot, None)
         self._n_host[slot] = int(sub.n)
         self._sr_host[slot] = int(sub.since_refit)
 
@@ -202,6 +224,12 @@ class StudyEngine:
             a = torch.from_numpy(np.array(a, np.float32))
         return a.to(self.device, torch.float32, non_blocking=True)
 
+    def _desc_for(self, study: int) -> desc_mod.TypeDescriptor | None:
+        """One study's row of the stacked descriptor (mixed mode)."""
+        if self.desc is None:
+            return None
+        return desc_mod.index_descriptor(self.desc, study)
+
     def suggest(self, study: int, top_t: int = 1, *, seeds=None,
                 jitter=None) -> tuple[Tensor, Tensor]:
         """Top-t EI local maxima for one study: ((top_t, d), (top_t,));
@@ -210,8 +238,7 @@ class StudyEngine:
             self._lane(study), self._kernel_for(study), self._lo, self._hi,
             self.cfg.acq, top_t, generator=self._gen,
             seeds=self._tensor(seeds), jitter=self._tensor(jitter),
-            desc=(None if self.desc is None
-                  else desc_mod.index_descriptor(self.desc, study)))
+            desc=self._desc_for(study))
 
     def suggest_all(self, top_t: int = 1, *, seeds=None,
                     jitter=None) -> tuple[Tensor, Tensor]:
@@ -255,6 +282,8 @@ class StudyEngine:
         return flags, flagged
 
     def _append(self, flags: np.ndarray, flagged: np.ndarray, xs, ys) -> None:
+        for s in flagged:
+            self._alpha_kept.pop(int(s), None)
         if flagged.size:
             f, x, y = self._upload(flags, xs, ys)
             gp_mod.append_stacked(self._state, self.kernel, x, y, f)
@@ -266,6 +295,7 @@ class StudyEngine:
         stacked append on that study's rows alone."""
         gp_mod.ensure_capacity(self.n(study), self.cfg.n_max)
         self._cost_host[study, self.n(study)] = cost
+        self._alpha_kept.pop(study, None)
         lanes = slice(study, study + 1)
         x = x[None] if isinstance(x, Tensor) else np.asarray(x)[None]
         f, xs, ys = self._upload(np.ones(1, bool), x, [y])
@@ -300,6 +330,80 @@ class StudyEngine:
         units, vals = self.suggest_all(top_t, seeds=seeds, jitter=jitter)
         self._refit_flagged(flagged)
         return units, vals
+
+    # -- fantasy protocol (q-suggestion serving, DESIGN.md §12) -------------
+    @property
+    def liar(self) -> str:
+        """The fantasy liar (`cfg.fantasy`), read at each call."""
+        return getattr(self.cfg, "fantasy", gp_mod.FantasyConfig()).liar
+
+    def _keep_alpha(self, study: int) -> None:
+        """Copy the slot's alpha before its first fantasy row on top of
+        real rows (once: later fantasy rows sit on fantasy rows)."""
+        if study not in self._alpha_kept:
+            self._alpha_kept[study] = (self.n(study),
+                                       self._state.alpha[study].clone())
+
+    def _set_n(self, study: int, count: int) -> None:
+        """The slot's count on the host mirror and on the device (a fill
+        kernel: no copy from the host, no read back)."""
+        self._n_host[study] = count
+        self._state.n[study].fill_(count)
+
+    def ask_q(self, study: int, q: int, *, seeds=None,
+              jitter=None) -> tuple[Tensor, Tensor]:
+        """q suggestions for one slot: ((q, d) points, (q,) acq values).
+
+        q rounds of suggest-then-fantasize (`acquisition.suggest_q`) on the
+        slot's rows, which keep the q fantasy rows: the slot's host and
+        device counts grow by q, and the caller rolls the rows back
+        (`truncate_slot`) before any real append lands.  Capacity is
+        checked before anything is written.  Draws: `seeds (q, R, d)` /
+        `jitter (q, 1, d)` when given, else the engine's generator.
+        """
+        if q < 1:
+            raise ValueError(f"q must be >= 1, got {q}")
+        gp_mod.ensure_capacity(self.n(study), self.cfg.n_max, q)
+        self._keep_alpha(study)
+        xs, vals, _ = acq_mod.suggest_q(
+            self._lane(study), self._kernel_for(study), self._lo, self._hi,
+            self.cfg.acq, q, liar=self.liar, generator=self._gen,
+            seeds=self._tensor(seeds), jitter=self._tensor(jitter),
+            desc=self._desc_for(study), in_place=True)
+        self._set_n(study, self.n(study) + q)
+        return xs, vals
+
+    def truncate_slot(self, study: int, n_real: int) -> None:
+        """Roll slot `study` back to its first `n_real` rows (re-padding,
+        `gp.truncate`).  Back to the count it had before its first fantasy
+        row, alpha is the copy kept then, so every leaf of the slot is
+        restored bit for bit; to any other count alpha is recomputed."""
+        n_real = int(n_real)
+        if not 0 <= n_real <= self.n(study):
+            raise ValueError(f"truncate to {n_real} rows: slot {study} "
+                             f"holds {self.n(study)}")
+        alpha = None
+        kept = self._alpha_kept.get(study)
+        if kept is not None and n_real <= kept[0]:
+            del self._alpha_kept[study]
+            if n_real == kept[0]:
+                alpha = kept[1]
+        gp_mod.truncate(self._lane(study), n_real, in_place=True, alpha=alpha)
+        self._set_n(study, n_real)
+
+    def refantasize(self, study: int, xs) -> None:
+        """Append pending fantasy points `xs (p, d)` to one slot in one
+        `gp.fantasize` call (the tell-time replay: after `truncate_slot`
+        and the real absorb, the liar values are taken against the updated
+        posterior).  Capacity is checked first."""
+        xs = self._tensor(xs)
+        if xs.shape[0] == 0:
+            return
+        gp_mod.ensure_capacity(self.n(study), self.cfg.n_max, xs.shape[0])
+        self._keep_alpha(study)
+        gp_mod.fantasize(self._lane(study), self._kernel_for(study), xs,
+                         self.liar, in_place=True)
+        self._set_n(study, self.n(study) + xs.shape[0])
 
     def cost_row(self, study: int) -> np.ndarray:
         """The study's per-row tell costs (they ride eviction snapshots)."""

@@ -3,16 +3,17 @@
 
 Only `SchedulerConfig` is here so far: the `StudyEngine`
 (`repro_torch.hpo.engine`) reads its GP shape, lag policy, acquisition
-settings and seed.  The reference's `implementation` knob has no
-counterpart (the tensor's device picks a kernel or its plain version), and
-`fantasy` / `neural` come with the slices that port the q-fantasy protocol
-and the neural-basis tier.
+settings, fantasy liar and seed.  The reference's `implementation` knob
+has no counterpart (the tensor's device picks a kernel or its plain
+version), and `neural` comes with the slice that ports the neural-basis
+tier.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.core import acquisition as acq_mod
+from repro_torch.core import gp as gp_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,3 +43,7 @@ class SchedulerConfig:
     acq: acq_mod.AcqConfig = dataclasses.field(
         default_factory=lambda: acq_mod.AcqConfig(restarts=48,
                                                   ascent_steps=20))
+    fantasy: gp_mod.FantasyConfig = dataclasses.field(
+        default_factory=gp_mod.FantasyConfig)  # liar policy for q-asks
+    # (DESIGN.md §12): "mean" = kriging believer, "pessimistic" = constant
+    # liar; the engine reads it at each ask

@@ -25,6 +25,7 @@ no size envelopes: a kernel takes any n, or its wrapper raises.
   padded_append_row  | padded buffers    | ‡                 | no
   lazy_append        | padded buffers    | ‡                 | no
   lazy_append_rows   | padded buffers    | ‡                 | no
+  lazy_append_rows_  | padded buffers    | ‡ (in place)      | no
   lazy_append_stacked| stacked buffers   | ‡                 | yes
   fused_ei_grad      | (r,d) + padded    | csrc/acq.cu       | yes
                      |  + (d,)/(..,d)    | (mixed form)      | yes
@@ -46,10 +47,12 @@ the row solve is `q = L^{-1} p` and the inverse grows by the closed-form
 bordered row `[-(1/d) q^T L^{-1}, 1/d]`.  The single-study appends return
 new buffers: the input buffers belong to the caller (the lag refit scores
 18 candidate states off one base state), so a row is written in place only
-into this call's own copy.  `lazy_append_stacked` is the stacked engine's
-append over S studies (the reference's vmap with `where(flag, new, old)`):
-it writes its rows in place into the stacked buffers, as the reference's
-engine donates them, so a round copies no (S, n_max, n_max) buffer.
+into this call's own copy; `lazy_append_rows_` writes into the buffers it
+is given (the engine's fantasy rows).  `lazy_append_stacked` is the
+stacked engine's append over S studies (the reference's vmap with
+`where(flag, new, old)`): it writes its rows in place into the stacked
+buffers, as the reference's engine donates them, so a round copies no
+(S, n_max, n_max) buffer.
 """
 from __future__ import annotations
 
@@ -78,7 +81,8 @@ CLAMP_EPS = ref.CLAMP_EPS
 
 __all__ = ["CLAMP_EPS", "chol_append", "cholesky", "fused_ei_grad",
            "fused_supported", "gp_posterior_solve", "kernel_gram",
-           "lazy_append", "lazy_append_rows", "lazy_append_stacked",
+           "lazy_append", "lazy_append_rows", "lazy_append_rows_",
+           "lazy_append_stacked",
            "masked_gram", "matern52_gram",
            "mixed_gram",
            "padded_append_row", "padded_cholesky", "padded_tri_inverse",
@@ -177,14 +181,20 @@ def masked_gram(x_buf: Tensor, n, kernel_fn, params) -> Tensor:
     return ref.pad_identity(kernel_fn(x_buf, x_buf, params), n, params.noise2)
 
 
+def _put_append_row(buf: Tensor, q: Tensor, d, n: int) -> None:
+    """Replace row n of the padded triangular buffer by [q^T, d, 0, ...],
+    in place."""
+    idx = torch.arange(buf.shape[-1], device=buf.device)
+    row = torch.where(idx < n, q, 0.0)
+    row[n] = d
+    buf[n] = row
+
+
 def write_append_row(buf: Tensor, q: Tensor, d, n: int) -> Tensor:
     """A copy of the padded triangular buffer with row n replaced by
     [q^T, d, 0, ...]."""
-    idx = torch.arange(buf.shape[-1], device=buf.device)
     out = buf.clone()      # this call's own buffer: written in place below
-    row = torch.where(idx < n, q, 0.0)
-    row[n] = d
-    out[n] = row
+    _put_append_row(out, q, d, n)
     return out
 
 
@@ -209,17 +219,24 @@ def padded_append_row(l_buf: Tensor, li_buf: Tensor, p_pad: Tensor, c,
     Returns (l_new, li_new, d, clamped) where `clamped` is 1 (int32) iff
     d^2 hit the CLAMP_EPS conditioning floor.
     """
+    q, r, d, clamped = _bordered_row(li_buf, p_pad, c)
+    return (write_append_row(l_buf, q, d, n),
+            write_append_row(li_buf, r, 1.0 / d, n), d, clamped)
+
+
+def _bordered_row(li_buf: Tensor, p_pad: Tensor, c
+                  ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The new rows of one Alg. 3 append: (q, r, d, clamped) with row n of
+    L' = [q^T, d] and row n of L'^{-1} = [r^T, 1/d]."""
     # Rows >= n of li are identity and p is zero there, so q is exact and
     # already zero beyond the active block.
     q = li_buf @ p_pad
     d2 = c - q @ q
     clamped = (d2 < CLAMP_EPS).to(torch.int32)
     d = torch.sqrt(torch.clamp(d2, min=CLAMP_EPS))
-    l_new = write_append_row(l_buf, q, d, n)
     # Bordered inverse: row n of L'^{-1} is [-(1/d) q^T L^{-1}, 1/d].
     r = -(q @ li_buf) / d
-    li_new = write_append_row(li_buf, r, 1.0 / d, n)
-    return l_new, li_new, d, clamped
+    return q, r, d, clamped
 
 
 def lazy_append_stacked(l_buf: Tensor, li_buf: Tensor, alpha: Tensor,
@@ -299,17 +316,30 @@ def lazy_append_rows(l_buf: Tensor, li_buf: Tensor, p_pads: Tensor, cs: Tensor,
     `resid` includes all q new rows.  Returns (l_new, li_new, alpha,
     ds (q,), clamped count).
     """
-    q_rows = p_pads.shape[0]
+    l_new, li_new = l_buf.clone(), li_buf.clone()
+    alpha = torch.empty_like(resid)
+    ds, clamped = lazy_append_rows_(l_new, li_new, alpha, p_pads, cs, resid, n)
+    return l_new, li_new, alpha, ds, clamped
+
+
+def lazy_append_rows_(l_buf: Tensor, li_buf: Tensor, alpha: Tensor,
+                      p_pads: Tensor, cs: Tensor, resid: Tensor, n: int
+                      ) -> tuple[Tensor, Tensor]:
+    """`lazy_append_rows` in place: rows n .. n + q - 1 of `l_buf` and
+    `li_buf` and all of `alpha` are written into the given buffers (one
+    study's rows of a stacked state, as the engine's fantasies write them),
+    so no (n_max, n_max) buffer is copied.  Returns (ds (q,), clamped
+    count)."""
     ds, clamped = [], 0
-    l_new, li_new = l_buf, li_buf
-    for i in range(q_rows):
-        l_new, li_new, d, cl = padded_append_row(l_new, li_new, p_pads[i],
-                                                 cs[i], n + i)
+    for i in range(p_pads.shape[0]):
+        q, r, d, cl = _bordered_row(li_buf, p_pads[i], cs[i])
+        _put_append_row(l_buf, q, d, n + i)
+        _put_append_row(li_buf, r, 1.0 / d, n + i)
         ds.append(d)
         clamped = clamped + cl
     idx = torch.arange(l_buf.shape[-1], device=l_buf.device)
-    alpha = _refresh_alpha(li_new, resid, idx < n + q_rows)
-    return l_new, li_new, alpha, torch.stack(ds), clamped
+    alpha.copy_(_refresh_alpha(li_buf, resid, idx < n + p_pads.shape[0]))
+    return torch.stack(ds), clamped
 
 
 # ---------------------------------------------------------------------------

@@ -93,11 +93,15 @@ def engine_draws(key, n_studies: int, restarts: int, dim: int,
     return keys, seeds, jitter
 
 
-def assert_engines_match(jeng, teng) -> None:
+def assert_engines_match(jeng, teng, pending: dict | None = None) -> None:
     """Every study of a port engine against the reference engine's: the
     host and device counters and the clamp counts exactly, the points,
     observations and the grid-picked params bit for bit, the factor, the
-    inverse and alpha at TOL."""
+    inverse and alpha at TOL.  `pending` maps a study to its count of
+    fantasy rows on top (the last rows), whose points are each package's
+    own picks and whose observations are liar values: those rows are held
+    at TOL."""
+    pending = pending or {}
     assert jeng.n_studies == teng.n_studies
     np.testing.assert_array_equal(teng.clamp_counts(), jeng.clamp_counts())
     np.testing.assert_array_equal(n(teng.state.n), n(jeng.state.n))
@@ -108,10 +112,13 @@ def assert_engines_match(jeng, teng) -> None:
         assert (teng.n(s), teng.since_refit(s)) == (jeng.n(s),
                                                      jeng.since_refit(s))
         assert (ts.n, ts.since_refit) == (int(js.n), int(js.since_refit))
+        real = ts.n - pending[s] if s in pending else ts.n_max
         for leaf in ("x_buf", "y_buf"):
-            np.testing.assert_array_equal(n(getattr(ts, leaf)),
-                                          n(getattr(js, leaf)),
+            got, want = n(getattr(ts, leaf)), n(getattr(js, leaf))
+            np.testing.assert_array_equal(got[:real], want[:real],
                                           err_msg=f"study {s} {leaf}")
+            np.testing.assert_allclose(got[real:], want[real:], **TOL,
+                                       err_msg=f"study {s} {leaf}")
         for leaf in ("l_buf", "li_buf", "alpha"):
             np.testing.assert_allclose(n(getattr(ts, leaf)),
                                        n(getattr(js, leaf)), **TOL,
@@ -130,3 +137,56 @@ def scaled_levy(u) -> np.ndarray:
     from repro_torch.core.levy import neg_levy
     x = torch.from_numpy(-10.0 + 20.0 * np.asarray(u, np.float32))
     return (0.05 * neg_levy(x)).numpy().astype(np.float32)
+
+
+def mixed_space4():
+    """A width-4 mixed space (a float, a 4-level Int, a 2-way
+    Categorical), as tests/test_torch_engine_mixed.py uses."""
+    from repro_torch.hpo.space import Categorical, Dim, Int, SearchSpace
+    return SearchSpace((Dim("a", 0.0, 1.0), Int("k", 0, 3),
+                        Categorical("c", ("p", "q"))))
+
+
+def jax_space(space):
+    """The reference's SearchSpace of a port SearchSpace."""
+    from repro.hpo import space as jspace
+    from repro_torch.hpo.space import space_to_dicts
+    return jspace.space_from_dicts(space_to_dicts(space))
+
+
+def kernel_pair(space=None):
+    """(reference kernel, port kernel): Matérn-2.5, or the mixed kernel
+    over `space`'s type masks."""
+    from repro.core.kernels import make_mixed_kernel as jmixed
+    from repro.core.kernels import matern52 as jmatern52
+    from repro_torch.core.kernels import make_mixed_kernel, matern52
+    if space is None:
+        return jmatern52, matern52
+    jd, td = jax_space(space).descriptor(), space.descriptor()
+    return (jmixed(jd.cont_mask, jd.cat_mask),
+            make_mixed_kernel(td.cont_mask, td.cat_mask))
+
+
+def sine_objective(xs) -> np.ndarray:
+    """The objective of `seeded_states`: sin(3 sum x) + 0.1 x_0, O(1)
+    values on the unit cube."""
+    xs = np.asarray(xs, np.float32)
+    return (np.sin(3.0 * xs.sum(-1)) + 0.1 * xs[..., 0]).astype(np.float32)
+
+
+def levy_states(xs: np.ndarray, n_max: int, space=None,
+                objective=scaled_levy):
+    """The same GP state over points `xs (n0, d)` in both packages: the
+    reference's appends and refactor on `objective`'s values (0.05 x Levy
+    unless told; Matérn, or the mixed kernel over `space`), carried to the
+    port bit for bit through `convert`.  Returns (jax_state, torch_state,
+    jax_kernel, torch_kernel)."""
+    from repro.core import gp as jgp
+    from repro_torch import convert
+    jkern, tkern = kernel_pair(space)
+    cfg = jgp.GPConfig(n_max=n_max, dim=xs.shape[1], implementation="xla")
+    st = jgp.append_batch(jgp.init_state(cfg), jkern, j(xs),
+                          j(objective(xs)), implementation="xla")
+    st = jgp.refactor(st, jkern, implementation="xla")
+    return (st, convert.state_from_numpy(jax_state_leaves(st), device=CPU),
+            jkern, tkern)
