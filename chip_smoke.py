@@ -110,10 +110,11 @@ Phases, each printing one JSON line:
                bit to a launch under its own masks (`stacked_mask_checks`),
                one round against the single-study path on every lane
                (`lane_parity`, with the 16 single-study steps timed beside
-               the batched round; a lane that left for another basin
-               prints the fused EI and its gradient at its restart seeds
-               from the S = 16 launch and from an S = 1 launch, whether
-               they are equal, and each launch plan: `ei_at_seeds`), one
+               the batched round, the count of lanes that left for
+               another basin, at most a quarter; and `ei_at_seeds`: every
+               lane's fused EI and gradient at its restart seeds from the
+               S = 16 launch torch.equal to an S = 1 launch on the same
+               operands, the two launch plans with the same k-split), one
                round with half the studies unflagged (their every bit
                kept) and one round under
                `torch.cuda.set_sync_debug_mode("error")`.
@@ -132,10 +133,38 @@ Phases, each printing one JSON line:
                kernel, whose device ms go beside its event ms; one call of
                the general solve at each of its shapes, each exactly one
                device kernel; one more round of each engine by device
-               time per kernel, with its busy share; last, one ask_q(8)
-               of each engine by device time per kernel (just before its
-               fantasy phase).
+               time per kernel, with its busy share; both fused-EI forms
+               at S = 16 and S = 1 (r = 48, n = 1024) by device time and
+               events a launch, beside the plain version and the bound
+               (`ei_engine_times`); then, at the start of each neural phase,
+               one nb_suggest (busy share) and the device kernels of one
+               refit step (`profile_neural`); last, one ask_q(8) of each
+               engine by device time per kernel (just before its fantasy
+               phase).
                Nothing is profiled before the paths' timings are taken.
+ 8a. neural — the neural-basis tier (`promote_slot`, `nb_*`) on each
+               engine the engine phases leave (phases `neural` and
+               `neural_mixed`, after the profile checks and before the
+               fantasy phases, which keep the escalated slot unflagged):
+               the fullest slot (the mixed workload's layout in the mixed
+               engine) filled to n_max with real tells, an ask_q(1) that
+               must raise StudySaturatedError and leave the lane
+               torch.equal, the promotion (ledger 1024, cap 2048,
+               `NeuralConfig()`, params from a seeded generator), then 40
+               rounds of one `advance` of the GP slots (the escalated
+               slot's flag off; exactly the engine phase's launches) and
+               one `nb_suggest` + `nb_absorb` (no hand kernel; the 32nd
+               absorb refits).  Held: the frozen GP lane torch.equal to
+               its copy from before the promotion; the card's state (chol,
+               w_y, w_c, s2, the posterior at 64 probes) within twice the
+               CPU float32 replay's error against a CPU float64 replay of
+               the same absorbs, or within the head's float32
+               perturbation bound (`held_f64_rule`); nb_ask_q(8) +
+               nb_rollback, nb_grow at n == cap and the JSON round trip
+               bit for bit.  Host-clock times (median of 3): nb_suggest at
+               n = 1024 and 4096 beside the GP's routed suggest at 1024,
+               nb_absorb, nb_refit at 1024 and 4096, promote_slot,
+               nb_ask_q(8), nb_refantasize(7).
   9. fantasy — the q-fantasy protocol (`ask_q`, `truncate_slot`,
                `refantasize`) on each engine the engine phases leave
                (phases `fantasy` and `fantasy_mixed`, last: run before the
@@ -162,8 +191,8 @@ Phases, each printing one JSON line:
                routed suggest, truncate_slot, refantasize at p = 7 and 31.
 Then the `{"kernels": [...]}` line (seven kernels: L X = I and the general
 solve, two C entries of `csrc/trsv.cu`, count apart; launches per path:
-main, mixed, append, engine, engine_mixed, fantasy, fantasy_mixed), the
-nvidia-smi line and, last,
+main, mixed, append, engine, engine_mixed, neural, neural_mixed, fantasy,
+fantasy_mixed), the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
@@ -171,9 +200,9 @@ before printing a result.
     python3 chip_smoke.py --digests [SRC]
 
 prints only the digests of the grams', the fused EI's (shared masks) and
-L X = I's bits, built from the `repro_torch` under SRC (this checkout's
-`src` by default): run it on an unpacked parent's `src` and on this one
-for an A/B of the bits.
+L X = I's bits, and the fused EI's times at S = 16 and 1 (r = 48), built
+from the `repro_torch` under SRC (this checkout's `src` by default): run it
+on an unpacked parent's `src` and on this one for an A/B.
 """
 from __future__ import annotations
 
@@ -544,8 +573,10 @@ def ei_digests(dev) -> dict:
     standardized states (a generator seeded 16: the Levy-5d state, then
     the mixed workload's, each with 64 candidates; the mixed form under
     the space's (d,) masks), one study and the same study stacked three
-    times.  Uses only entry points the parent tree also has, so the same
-    call on an unpacked parent shows whether the shared-mask bits moved."""
+    times, and whether each lane of the three is the single launch's bits
+    (the kernels phase requires it).  Uses only entry points the parent
+    tree also has, so the same call on an unpacked parent shows whether
+    the shared-mask bits moved."""
     from repro_torch.core import gp
     from repro_torch.core.descriptor import project_units
     from repro_torch.kernels import acq
@@ -565,9 +596,71 @@ def ei_digests(dev) -> dict:
                 *a, desc.cont_mask, desc.cat_mask), margs)):
         three = [torch.stack([torch.as_tensor(a, device=dev)] * 3)
                  for a in args]
+        outs = {}
         for key, a in ((tag, args), (f"{tag} x3", three)):
-            out[key] = digest(torch.cat([v.reshape(-1) for v in launch(*a)]))
+            outs[key] = launch(*a)
+            out[key] = digest(torch.cat([v.reshape(-1) for v in outs[key]]))
+        # Each lane of the batch of 3 against the single launch: bit for
+        # bit where the k-split does not depend on the batch.
+        out[f"{tag} x3 lanes equal"] = all(
+            torch.equal(b[i], a) for a, b in zip(outs[tag], outs[f"{tag} x3"])
+            for i in range(3))
     return out
+
+
+def ei_engine_times(dev) -> dict:
+    """Both fused-EI forms at the engine's shapes, r = 48 candidates against
+    n = 1024: S = 16 studies (the refactored standardized states of
+    `ei_digests` stacked 16 times; the mixed form with (16, d) masks, as
+    the mixed engine launches it) and S = 1 (a routed suggest or an ask's
+    ascent, (d,) masks): the device ms of one launch (torch.profiler), the
+    CUDA-event ms (median of 20), the plain version's ms, the bound and
+    the plan.  Uses only entry points the parent tree has, so the same
+    call on an unpacked parent times the parent's plan on the same card."""
+    from repro_torch.core import gp
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.kernels import acq
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    desc = mixed_space().descriptor().to(dev)
+    st, kern = levy_state(dev, gen)
+    fargs = ei_args(gp.refactor(st, kern),
+                    torch.rand((48, DIM), generator=gen, device=dev))
+    mst, mkern, _ = mixed_state(dev, gen)
+    margs = ei_args(gp.refactor(mst, mkern), project_units(
+        torch.rand((48, MIXED_DIM), generator=gen, device=dev), desc))
+    out = {}
+    for s in (ENGINE_STUDIES, 1):
+        cm, km = (m.expand(s, MIXED_DIM).contiguous() if s > 1 else m
+                  for m in (desc.cont_mask, desc.cat_mask))
+        for tag, launch, args in (
+                ("float", acq.fused_ei_grad_cuda, fargs),
+                ("mixed", lambda *a: acq.fused_ei_grad_mixed_cuda(*a, cm, km),
+                 margs)):
+            batch = ([torch.stack([torch.as_tensor(a, device=dev)] * s)
+                      .contiguous() for a in args] if s > 1 else list(args))
+            d = args[0].shape[-1]
+            r, n = 48, N_MAX
+            split = device_split(lambda: launch(*batch))
+            plan = acq.launch_plan(s, r, n, d, tag == "mixed")
+            if tag == "mixed":
+                b_ms, b_by = bound(s * r * (2.0 * n * n + n * (8 * d + 45)),
+                                   4 * s * (r * d + n * d + 2 * d + 2 * n
+                                            + n * n + r + r * d))
+            else:
+                b_ms, b_by = bound(s * r * (2.0 * n * n + n * (4 * d + 40)),
+                                   4 * s * (r * d + n * d + 2 * n + n * n
+                                            + r + r * d))
+            out[f"{tag} S={s}"] = {
+                "device_ms": split["busy_ms"],
+                "event_ms": median_ms(lambda: launch(*batch)),
+                "plain_ms": median_ms(lambda: plain_ei(
+                    batch, *((cm, km) if tag == "mixed" else ()))),
+                "bound_ms": b_ms, "bound_by": b_by, "slices": plan.slices,
+                "tiles_per_slice": plan.tiles_per_slice,
+                "grid": list(plan.grid)}
+    return out
+
 
 def grid_params(dev):
     """The lag refit's 18 candidates as (G,) device vectors, in
@@ -1761,9 +1854,11 @@ ENGINE_STUDIES = 16       # studies stacked in one engine
 ENGINE_ROUNDS = 32        # serving rounds with every study flagged
 ENGINE_SPREAD = 8         # study s is prefilled to N_SEED - 8 s points
 TOL_LANE_SUGGEST = 1e-3   # a batched suggestion against the single-study
-# path on the same lane and seeds, in unit coordinates: the fused EI's
-# launch plan cuts its sums by the batch (`acq.launch_plan`), so the two
-# ascents agree to its tolerance, not bit for bit.  On an ill-conditioned
+# path on the same lane and seeds, in unit coordinates: the fused EI sums a
+# lane as a single launch does (`ei_at_seeds` holds that bit for bit), but
+# the hoisted operands (A, f_best, the mean) and the absorbed rows come from
+# batched reductions and products, so the two ascents agree to their
+# round-off, not bit for bit.  On an ill-conditioned
 # posterior (raw values, rho 0.05) the round-off can send an ascent to
 # another basin; such a lane's value must then be the single-study EI at
 # the batched lane's own point, and at most a quarter of the lanes may
@@ -2064,16 +2159,14 @@ def lane_parity(eng, studies, units, gen) -> dict:
                                                  / b.abs().max()))
         if (lane.n, lane.since_refit) != (st.n, st.since_refit):
             raise AssertionError(f"lane {s}: counters {lane.n} vs {st.n}")
-    if diverged:
-        at_seeds = ei_at_seeds(eng, seeds, [d["lane"] for d in diverged])
-        for d in diverged:
-            d["at_seeds"] = at_seeds[d["lane"]]
+    at_seeds = ei_at_seeds(eng, seeds)
     if not (worst["l_buf"] <= TOL_LANE_FACTOR
             and worst["li_buf"] <= TOL_LANE_INVERSE
             and worst["alpha"] <= TOL_LANE_INVERSE
             and len(diverged) <= n_studies // 4):
         raise AssertionError(f"lane parity: {worst}, diverged {diverged}")
-    return {"max_dev": worst, "diverged": diverged, "tol": {
+    return {"max_dev": worst, "diverged_lanes": len(diverged),
+            "diverged": diverged, "at_seeds": at_seeds, "tol": {
                 "suggest": TOL_LANE_SUGGEST, "l_buf": TOL_LANE_FACTOR,
                 "li_buf_alpha": TOL_LANE_INVERSE},
             "batched_round_ms": batched_ms,
@@ -2081,44 +2174,62 @@ def lane_parity(eng, studies, units, gen) -> dict:
             "sequential_over_batched": sequential_ms / batched_ms}, got_u
 
 
-def ei_at_seeds(eng, seeds, lanes) -> dict:
-    """For each lane in `lanes`: the fused EI value and gradient at the
-    lane's own restart seeds (projected onto its lattice, as the ascent
-    starts) from one launch over all S lanes of the engine's state and
-    from one launch on that lane alone, whether they are torch.equal, and
-    the `acq.launch_plan` of each (its k-split sets the sum order).  Equal
-    values point at the state (its conditioning) for a lane that left for
-    another basin, unequal ones at the sum order."""
+def ei_at_seeds(eng, seeds) -> dict:
+    """Every lane's fused EI value and gradient at its restart seeds
+    (projected onto its lattice, as the ascent starts): one launch over all
+    S lanes of the engine's state, against one launch on that lane alone
+    with the same operands (the lane's rows of the stacked ones).  The two
+    must be torch.equal, with the same k-split in their `acq.launch_plan`
+    (slices and k-tiles a slice): a lane of the batch is summed in the
+    single launch's order.  Also reported, not held: whether the lane's own
+    hoist (`_make_eval_batch` on the lane's views, as the single-study
+    path computes A, f_best and the mean) gives the same bits."""
     from repro_torch.core import acquisition as acq_mod
     from repro_torch.core import gp
     from repro_torch.core.descriptor import project_units
     from repro_torch.kernels import acq
     st, cfg = eng.state, eng.cfg.acq
     x0 = seeds if eng.desc is None else project_units(seeds, eng.desc)
-    every = acq_mod._make_eval_batch(st, eng.kernel, cfg, True,
-                                     acq_mod._f_best(st), gp._ymean(st))
-    v_all, g_all = every(x0)
+    args = stacked_engine_args(st, x0)
+    masks = () if eng.desc is None else (eng.desc.cont_mask, eng.desc.cat_mask)
+    launch = acq.fused_ei_grad_cuda if not masks else \
+        acq.fused_ei_grad_mixed_cuda
+    v_all, g_all = launch(*args, *masks)
     r, d, mixed = x0.shape[1], eng.dim, eng.desc is not None
-
-    def plan(batch):
-        p = acq.launch_plan(batch, r, st.n_max, d, mixed)
-        return {"slices": p.slices, "tiles_per_slice": p.tiles_per_slice,
-                "grid": list(p.grid)}
-
-    out = {}
-    for s in lanes:
+    plans = {b: acq.launch_plan(b, r, st.n_max, d, mixed)
+             for b in (1, eng.n_studies)}
+    same_split = all((p.slices, p.tiles_per_slice) == (plans[1].slices,
+                                                       plans[1].tiles_per_slice)
+                     for p in plans.values())
+    lanes, unequal, own_unequal = {}, [], []
+    for s in range(eng.n_studies):
+        v1, g1 = launch(*(a[s] for a in args), *(m[s] for m in masks))
+        equal = bool(torch.equal(v_all[s], v1) and torch.equal(g_all[s], g1))
         lane = eng._lane(s)
-        one = acq_mod._make_eval_batch(lane, eng._kernel_for(s), cfg, True,
+        own = acq_mod._make_eval_batch(lane, eng._kernel_for(s), cfg, True,
                                        acq_mod._f_best(lane), gp._ymean(lane))
-        v1, g1 = one(x0[s])
-        out[s] = {"ei_s16": v_all[s].tolist(), "ei_s1": v1.tolist(),
-                  "ei_equal": bool(torch.equal(v_all[s], v1)),
-                  "grad_equal": bool(torch.equal(g_all[s], g1)),
-                  "ei_max_abs_diff": max_abs(v_all[s], v1),
-                  "grad_max_abs_diff": max_abs(g_all[s], g1),
-                  "grad_norm_s16": torch.linalg.vector_norm(
-                      g_all[s], dim=-1).tolist(),
-                  "plan_s16": plan(eng.n_studies), "plan_s1": plan(1)}
+        vo, go = own(x0[s])
+        own_equal = bool(torch.equal(v_all[s], vo) and torch.equal(g_all[s], go))
+        if not equal:
+            unequal.append(s)
+        if not own_equal:
+            own_unequal.append(s)
+            lanes[s] = {"own_hoist_ei_max_abs_diff": max_abs(v_all[s], vo),
+                        "own_hoist_grad_max_abs_diff": max_abs(g_all[s], go)}
+    out = {"lanes_equal_to_single_launch": not unequal,
+           "unequal_lanes": unequal, "same_k_split": same_split,
+           "plan_s1": {"slices": plans[1].slices,
+                       "tiles_per_slice": plans[1].tiles_per_slice,
+                       "grid": list(plans[1].grid)},
+           f"plan_s{eng.n_studies}": {
+               "slices": plans[eng.n_studies].slices,
+               "tiles_per_slice": plans[eng.n_studies].tiles_per_slice,
+               "grid": list(plans[eng.n_studies].grid)},
+           "own_hoist_unequal_lanes": own_unequal, "own_hoist": lanes}
+    if unequal or not same_split:
+        raise AssertionError(f"fused EI at the seeds: lanes {unequal} of the "
+                             f"S = {eng.n_studies} launch differ from their "
+                             f"single launches: {out}")
     return out
 
 
@@ -2507,9 +2618,17 @@ def fantasy_gram_shapes(eng, study: int) -> dict:
         if not ok or max(over.values()) > 1.0:
             raise AssertionError(f"fantasy gram m = {m}: {res}, "
                                  f"error over bound {over}")
+        d, nm = eng.dim, st.n_max
+        b_ms, b_by = (bound(nm * m * (4 * d + 20), 4 * (nm * d + m * d + 2 * d
+                                                         + nm * m))
+                      if eng.mixed else
+                      bound(nm * m * (2 * d + 15), 4 * (nm * d + m * d + nm * m)))
         out[f"{st.n_max}x{m}"] = dict(
             **res, layout=matern.launch_plan(st.n_max, m, eng.dim, 1, False,
                                              False).layout,
+            ms=median_ms(lambda: ops.kernel_gram(kern, st.x_buf, y, p)),
+            plain_ms=median_ms(lambda: kern(st.x_buf, y, p)),
+            bound_ms=b_ms, bound_by=b_by,
             slot_params={"sigma2": float(p.sigma2), "rho": float(p.rho)},
             slot_max_abs_err=max_abs(got, plain),
             slot_err_over_bound=over)
@@ -2636,7 +2755,9 @@ def fantasy_path(dev, eng, studies, mixed: bool):
     run(lambda: eng.truncate_slot(slot.study, twin.n(slot.study)), zero)
     eng.cfg = cfg
     # 5. Capacity: the fullest slot cannot take an ask past n_max.
-    full = int(np.argmax([eng.n(s) for s in range(eng.n_studies)]))
+    gp_tier = np.array([eng.tier(s) == 0 for s in range(eng.n_studies)])
+    full = int(np.argmax([eng.n(s) if gp_tier[s] else -1
+                          for s in range(eng.n_studies)]))
     try:
         run(lambda: eng.ask_q(full, N_MAX - eng.n(full) + 1), zero)
     except gp.GPCapacityError:
@@ -2649,8 +2770,9 @@ def fantasy_path(dev, eng, studies, mixed: bool):
     # 4. One ask under the sync check: no device read on the path.
     other.ask(FANTASY_ASK, sync_free=True)
     slot.ask(FANTASY_ASK)
-    # 3. The twin script.
-    flags = np.ones(eng.n_studies, bool)
+    # 3. The twin script (a slot escalated by the neural phase keeps its
+    # flag off: its GP lane is frozen).
+    flags = gp_tier
     units, _ = run(eng.suggest_all, engine_counts(mixed, 0, 0, 1, steps))
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
@@ -2715,6 +2837,340 @@ def fantasy_path(dev, eng, studies, mixed: bool):
     line["seconds"] = time.perf_counter() - t0
     emit(line)
     return a_total, line
+
+
+# --- the neural phases: the escalation tier on both engines -----------------
+
+NEURAL_ROUNDS = 40        # GP advances beside escalated suggest + absorb
+NEURAL_PROBES = 64        # posterior probe points held to float64
+NEURAL_BIG_N = 4096       # the second ledger of the flat-in-n suggest
+NEURAL_ASK = 8            # nb_ask_q's q
+NEURAL_REPLAY = 7         # nb_refantasize's p
+NEURAL_PROFILE_STEPS = 10  # refit steps profiled for the kernels a step
+NEURAL_KEEP = 32          # rows a GP slot flagged in the neural rounds keeps
+# free for the fantasy phase after them; a fuller slot's flag is off
+U32 = 2.0 ** -24
+
+
+def neural_replay(start, absorbs, ncfg, dtype):
+    """The escalated slot replayed on the CPU in `dtype` from the same
+    inputs: the promotion (its ledger and params, one refit) and every
+    absorb as `nb_absorb` runs it (growth when full, `nb_append`, a refit
+    when `refit_every` appends have gathered)."""
+    from repro_torch.core import neural_basis as nb
+    xs, ys, logcs, params = start
+    n0, d = xs.shape
+    cap = nb.nb_capacity(n0, ncfg)
+    st = nb.nb_init(d, cap, ncfg, params=params, device="cpu")
+    st = nb._replace(st, x_buf=torch.cat([xs, xs.new_zeros(cap - n0, d)]),
+                     y_buf=torch.cat([ys, ys.new_zeros(cap - n0)]),
+                     c_buf=torch.cat([logcs, logcs.new_zeros(cap - n0)]),
+                     n=torch.tensor(n0, dtype=torch.int32))
+    st = nb._replace(st, **{k: getattr(st, k).to(dtype) for k in nb.FIELDS
+                            if k not in nb.COUNTERS})
+    st = nb.nb_refit(st, ncfg)
+    for x, y, logc in absorbs:
+        if int(st.n) == st.cap:
+            st = nb.nb_grow(st)
+        st = nb.nb_append(st, x.to(dtype), y, logc, ncfg)
+        if int(st.since_refit) >= ncfg.refit_every:
+            st = nb.nb_refit(st, ncfg)
+    return st
+
+
+def held_f64_rule(card, cpu32, exact, kappa) -> dict:
+    """The card's float32 value against the CPU float64 replay: within
+    twice the CPU float32 replay's error there (the repo's 2x rule), or,
+    for a value that carries the head's conditioning, within the float32
+    perturbation bound 2 kappa(A) 2^-24 max|exact| (A = ptp + noise2 I of
+    the float64 run).  An ulp of float32 in ptp moves the head's factor and
+    weights by about kappa 2^-24 of their size, each run by its own
+    draw of round-off, so two such errors can differ by more than 2x."""
+    card, cpu32 = card.double().cpu(), cpu32.double()
+    err = float((card - exact).abs().max())
+    cpu_err = float((cpu32 - exact).abs().max())
+    room = 2.0 * kappa * U32 * float(exact.abs().max())
+    by = ("2x" if err <= 2.0 * cpu_err else
+          "kappa bound" if err <= room else None)
+    return {"card_err": err, "cpu32_err": cpu_err, "bound": room,
+            "held_by": by}
+
+
+def profile_neural(name, eng, slot: int) -> dict:
+    """One nb_suggest of the escalated slot under torch.profiler (device
+    busy share of its host clock), and the device kernels of one refit
+    step: a refit of NEURAL_PROFILE_STEPS steps less one of 0 (the head's
+    rebuild alone), on the slot's state."""
+    from repro_torch.core import neural_basis as nb
+    st = eng.nb_state(slot)
+    split = device_split(lambda: eng.nb_suggest(slot))
+    wall = host_ms(lambda: eng.nb_suggest(slot), reps=1)
+    refit = {k: device_split(lambda: nb.nb_refit(st, dataclasses.replace(
+        eng.neural, refit_steps=k))) for k in (0, NEURAL_PROFILE_STEPS)}
+
+    def kernels(split_):
+        return sum(e["count"] for e in split_["by_name"])
+    per_step = (kernels(refit[NEURAL_PROFILE_STEPS]) - kernels(refit[0])) \
+        / NEURAL_PROFILE_STEPS
+    busy = (refit[NEURAL_PROFILE_STEPS]["busy_ms"] - refit[0]["busy_ms"]) \
+        / NEURAL_PROFILE_STEPS
+    line = {"phase": "profile", "path": name, "call": "nb_suggest",
+            "wall_ms": wall, "device_busy_ms": split["busy_ms"],
+            "device_busy_share": split["busy_ms"] / wall,
+            "device_kernels": sum(e["count"] for e in split["by_name"]),
+            "by_kernel": split["by_name"][:8],
+            "refit_kernels_per_step": per_step,
+            "refit_device_busy_ms_per_step": busy,
+            "refit_step_by_kernel":
+                refit[NEURAL_PROFILE_STEPS]["by_name"][:12]}
+    emit(line)
+    return line
+
+
+def neural_path(dev, eng, studies, mixed: bool):
+    """Phases neural and neural_mixed: the neural-basis tier on the engine
+    an engine phase left (16 studies, n_max = 1024, 48 restarts x 20
+    steps, `NeuralConfig()`).  The fullest slot (of the mixed workload's
+    layout in the mixed engine) is filled to n_max with real tells (costs
+    1..3); an ask_q(1) must raise StudySaturatedError and leave its lane
+    equal.  It is promoted with params from a seeded generator (ledger
+    1024, cap 2048), profiled (`profile_neural`), then 40 rounds each run
+    one `advance` of the GP slots (flagged: those with room for the rounds
+    and NEURAL_KEEP rows more; the escalated slot's flag 0), held to
+    exactly the engine phase's launches, and one `nb_suggest` + `nb_absorb`
+    on the escalated slot, which launch no hand kernel; the 32nd absorb
+    refits.  Held after the rounds: the frozen GP lane torch.equal to its
+    copy from before the promotion; the card's state within the float64
+    rule (`held_f64_rule`) of the same absorbs replayed on the CPU (chol,
+    w_y, w_c, s2, the posterior at 64 probe points); nb_ask_q(8) then
+    nb_rollback every leaf torch.equal to the snapshot; nb_refantasize at
+    p = 7 (rolled back too); nb_grow at n == cap bitwise and zero-padded;
+    nb_to_json / nb_from_json bitwise; and no hand kernel launched by any
+    of them.  Host-clock times (median of 3).  Returns (counts, line)."""
+    from repro_torch.core import gp
+    from repro_torch.core import neural_basis as nb
+    from repro_torch.core.descriptor import project_units
+    name = "neural_mixed" if mixed else "neural"
+    t_start = time.perf_counter()
+    cfg, ncfg = eng.cfg, eng.neural
+    steps, d = cfg.acq.ascent_steps, eng.dim
+    slot = max((s for s in range(eng.n_studies) if eng.tier(s) == 0
+                and (not mixed or studies[s].tag == "mixed")), key=eng.n)
+    space, objective = studies[slot].space, studies[slot].objective
+    rng = np.random.default_rng(40)
+
+    # 1. Fill the slot to n_max with real tells, then saturate.
+    while eng.n(slot) < N_MAX:
+        x = space.sample(rng, 1)[0]
+        eng.absorb(slot, x, float(objective(x[None])[0]),
+                   cost=float(1.0 + 2.0 * rng.uniform()))
+    eng.sync()
+    lane = eng.study_state(slot)
+    gp_suggest_ms = host_ms(lambda: eng.suggest(slot))
+    try:
+        eng.ask_q(slot, 1)
+    except gp.StudySaturatedError:
+        pass
+    else:
+        raise AssertionError(f"{name}: ask_q on a full slot did not raise")
+    if not all(torch.equal(a, b) for a, b in zip(
+            gp._leaves(eng.study_state(slot)), gp._leaves(lane))):
+        raise AssertionError(f"{name}: the saturated ask changed the lane")
+
+    # 2. Promote (median of 3, each from the same ledger, costs and params).
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    init = nb.nb_init(d, ncfg.cap0, ncfg, generator=gen, device=dev)
+    params = {k: getattr(init, k) for k in nb.PARAMS}
+    costs = eng.cost_row(slot)
+
+    def promote():
+        if eng.tier(slot):
+            eng.clear_nb_slot(slot)
+            eng.set_cost_row(slot, costs)
+        eng.promote_slot(slot, params=params)
+
+    promote_ms = host_ms(promote)
+    start = (lane.x_buf[:N_MAX].cpu(), lane.y_buf[:N_MAX].cpu(),
+             torch.from_numpy(np.log(np.maximum(costs[:N_MAX], 1e-12))),
+             {k: v.cpu() for k, v in params.items()})
+    promoted = eng.nb_state(slot)
+    if (eng.nb_n(slot), promoted.cap) != (N_MAX, nb.nb_capacity(N_MAX, ncfg)):
+        raise AssertionError(f"{name}: promoted {eng.nb_n(slot)} rows, "
+                             f"cap {promoted.cap}")
+    suggest_ms = {str(N_MAX): host_ms(lambda: eng.nb_suggest(slot))}
+    profile = profile_neural(name, eng, slot)
+
+    # 3. The rounds: the GP slots with room for them (and NEURAL_KEEP rows
+    # more) flagged, the escalated slot not.
+    flags = np.array([eng.tier(s) == 0
+                      and eng.n(s) + NEURAL_ROUNDS + NEURAL_KEEP <= N_MAX
+                      for s in range(eng.n_studies)])
+    if not flags.any():
+        raise AssertionError(f"{name}: no GP slot has room for the rounds")
+    units, _ = eng.suggest_all()
+    absorbs, nb_suggest_times, absorb_times, refits = [], [], [], []
+    reset_counts()
+    for r in range(NEURAL_ROUNDS):
+        xs = units[:, 0].cpu().numpy()
+        ys = np.array([st.objective(xs[s:s + 1])[0]
+                       for s, st in enumerate(studies)], np.float32)
+        due = lag_due(eng, flags)
+        before = read_counts()
+        units, _ = eng.advance(flags, xs, ys)
+        got = diff_counts(read_counts(), before)
+        want = engine_counts(mixed, 1, due, 1, steps)
+        if got != want:
+            raise AssertionError(f"{name} round {r}: launches {got}, "
+                                 f"expected {want}")
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, v = eng.nb_suggest(slot)
+        torch.cuda.synchronize()
+        nb_suggest_times.append(1e3 * (time.perf_counter() - t0))
+        x = u[0].cpu().numpy()
+        if not (np.isfinite(x).all() and torch.isfinite(v).all()
+                and (x >= 0).all() and (x <= 1).all()
+                and np.array_equal(space.project(x[None])[0], x)):
+            raise AssertionError(f"{name} round {r}: suggestion {x}, {v}")
+        y = float(objective(x[None])[0])
+        c = float(1.0 + 2.0 * rng.uniform())
+        t0 = time.perf_counter()
+        eng.nb_absorb(slot, x, y, cost=c)
+        torch.cuda.synchronize()
+        absorb_times.append(1e3 * (time.perf_counter() - t0))
+        refits.append(eng._nb_sr[slot] == 0)
+        absorbs.append((torch.from_numpy(x.copy()), y,
+                        float(np.float32(np.log(max(c, 1e-12))))))
+        got = diff_counts(read_counts(), before)
+        if any(got.values()):
+            raise AssertionError(f"{name} round {r}: nb_suggest + nb_absorb "
+                                 f"launched {got}")
+    counts = read_counts()
+    if [i + 1 for i, f in enumerate(refits) if f] != [ncfg.refit_every]:
+        raise AssertionError(f"{name}: refits after absorbs "
+                             f"{[i + 1 for i, f in enumerate(refits) if f]}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            gp._leaves(eng.study_state(slot)), gp._leaves(lane))):
+        raise AssertionError(f"{name}: the frozen GP lane changed")
+
+    # 4. The card's state against the CPU replays.
+    card = eng.nb_state(slot)
+    exact = neural_replay(start, absorbs, ncfg, torch.float64)
+    cpu32 = neural_replay(start, absorbs, ncfg, torch.float32)
+    for k in ("x_buf", "y_buf", "c_buf", "n", "since_refit"):
+        if not torch.equal(getattr(card, k).cpu(), getattr(cpu32, k)):
+            raise AssertionError(f"{name}: ledger {k} differs from the replay")
+    probes = torch.rand((NEURAL_PROBES, d), generator=gen, device=dev)
+    if mixed:
+        probes = project_units(probes, eng._desc_for(slot))
+    a64 = exact.ptp + ncfg.noise2 * torch.eye(exact.ptp.shape[0],
+                                              dtype=torch.float64)
+    kappa = float(torch.linalg.cond(a64))
+    held = {k: held_f64_rule(getattr(card, k), getattr(cpu32, k),
+                             getattr(exact, k), kappa)
+            for k in ("chol", "w_y", "w_c", "s2")}
+    for tag, a, b, c in zip(("mean", "var"), nb.nb_posterior(card, probes),
+                            nb.nb_posterior(cpu32, probes.cpu()),
+                            nb.nb_posterior(exact, probes.cpu().double())):
+        held[f"posterior_{tag}"] = held_f64_rule(a, b, c, kappa)
+    params_ratio = {k: float((getattr(card, k).double().cpu()
+                              - getattr(exact, k)).abs().max())
+                    / max(float((getattr(cpu32, k).double()
+                                 - getattr(exact, k)).abs().max()), 1e-300)
+                    for k in nb.PARAMS}
+    if not all(h["held_by"] for h in held.values()):
+        raise AssertionError(f"{name}: state against float64: {held}")
+
+    # 5. nb_ask_q(8), then nb_rollback: every leaf as it was.
+    snap = {k: getattr(card, k).clone() for k in nb.FIELDS}
+    n_real = eng.nb_n(slot)
+
+    def as_before() -> bool:
+        st = eng.nb_state(slot)
+        return eng.nb_n(slot) == n_real and all(
+            torch.equal(getattr(st, k), v) for k, v in snap.items())
+
+    asked, vals = eng.nb_ask_q(slot, NEURAL_ASK)
+    a = asked.cpu().numpy()
+    if not (np.isfinite(a).all() and torch.isfinite(vals).all()
+            and (a >= 0).all() and (a <= 1).all()
+            and np.array_equal(space.project(a), a)):
+        raise AssertionError(f"{name}: nb_ask_q points {a}, values {vals}")
+    if eng.nb_n(slot) != n_real + NEURAL_ASK:
+        raise AssertionError(f"{name}: nb_ask_q rows {eng.nb_n(slot)}")
+    eng.nb_rollback(slot)
+    if not as_before():
+        raise AssertionError(f"{name}: nb_rollback is not the snapshot")
+    back = lambda: eng.nb_rollback(slot)  # noqa: E731
+    ask_ms = host_ms(lambda: eng.nb_ask_q(slot, NEURAL_ASK), after=back)
+    eng.nb_refantasize(slot, asked[:NEURAL_REPLAY])
+    if eng.nb_n(slot) != n_real + NEURAL_REPLAY:
+        raise AssertionError(f"{name}: nb_refantasize rows {eng.nb_n(slot)}")
+    eng.nb_rollback(slot)
+    refantasize_ms = host_ms(
+        lambda: eng.nb_refantasize(slot, asked[:NEURAL_REPLAY]), after=back)
+    if not as_before():
+        raise AssertionError(f"{name}: rollback after the replay")
+
+    # 6. Growth at n == cap, the JSON round trip, the flat-in-n times.
+    full = nb.nb_from_data(lane.x_buf, lane.y_buf,
+                           np.zeros(N_MAX, np.float32), ncfg, cap=N_MAX,
+                           params=params, device=dev)
+    grown = nb.nb_grow(full, ncfg)
+    kept = all(getattr(grown, k) is getattr(full, k) for k in nb.FIELDS
+               if k not in ("x_buf", "y_buf", "c_buf"))
+    padded = all(torch.equal(getattr(grown, k)[:N_MAX], getattr(full, k))
+                 and not getattr(grown, k)[N_MAX:].any()
+                 for k in ("x_buf", "y_buf", "c_buf"))
+    if not (kept and padded and grown.cap == 2 * N_MAX):
+        raise AssertionError(f"{name}: nb_grow kept {kept}, padded {padded}")
+    again = nb.nb_from_json(nb.nb_to_json(card), device=dev)
+    if not all(torch.equal(getattr(again, k), getattr(card, k))
+               for k in nb.FIELDS):
+        raise AssertionError(f"{name}: the JSON round trip changed a leaf")
+    big_x = space.sample(rng, NEURAL_BIG_N)
+    big = nb.nb_from_data(big_x, objective(big_x),
+                          np.zeros(NEURAL_BIG_N, np.float32), ncfg,
+                          params=params, device=dev)
+    desc = eng._desc_for(slot)
+    suggest_ms[str(NEURAL_BIG_N)] = host_ms(
+        lambda: nb.nb_suggest(big, desc, acq=cfg.acq, generator=gen))
+    refit_ms = {str(N_MAX): host_ms(lambda: nb.nb_refit(promoted, ncfg)),
+                str(NEURAL_BIG_N): host_ms(lambda: nb.nb_refit(big, ncfg))}
+    if read_counts() != counts:
+        raise AssertionError(f"{name}: the nb_* calls launched "
+                             f"{diff_counts(read_counts(), counts)}")
+    calm = [ms for ms, f in zip(absorb_times, refits) if not f]
+    line = {"phase": name, "slot": slot, "layout": studies[slot].tag,
+            "neural": dataclasses.asdict(ncfg), "rounds": NEURAL_ROUNDS,
+            "ledger": [N_MAX, eng.nb_n(slot)], "cap": card.cap,
+            "launches": counts,
+            "per_round_launches": engine_counts(mixed, 1, 0, 1, steps),
+            "flagged_gp_slots": int(flags.sum()), "nb_launches": 0, "frozen_lane_equal": True,
+            "kappa_head": kappa, "held_f64": held,
+            "params_err_over_cpu32": params_ratio,
+            "ask_distinct_points": len({tuple(r) for r in a.tolist()}),
+            "rollback_equal": True, "grow_bitwise": True,
+            "json_bitwise": True, "nvidia_smi": nvidia_smi_line(),
+            "times_ms": {
+                "nb_suggest": suggest_ms,
+                "nb_suggest_rounds_median": statistics.median(
+                    nb_suggest_times),
+                "gp_routed_suggest": {str(N_MAX): gp_suggest_ms},
+                "nb_absorb_no_refit": statistics.median(calm),
+                "nb_absorb_with_refit": [ms for ms, f in zip(absorb_times,
+                                                             refits) if f],
+                "nb_refit": refit_ms, "promote_slot": promote_ms,
+                f"nb_ask_q({NEURAL_ASK})": ask_ms,
+                f"nb_refantasize({NEURAL_REPLAY})": refantasize_ms},
+            "profile": {k: profile[k] for k in (
+                "device_busy_share", "device_kernels",
+                "refit_kernels_per_step", "refit_device_busy_ms_per_step")}}
+    line["seconds"] = time.perf_counter() - t_start
+    emit(line)
+    return counts, line
 
 
 def trsv_launches(dev) -> dict:
@@ -2968,14 +3424,16 @@ def digests_only(dev, src: str) -> int:
     """`chip_smoke.py --digests [SRC]`: build the kernels of the
     `repro_torch` under SRC (this checkout's `src` by default; an unpacked
     parent's for an A/B) and print the digests of `gram_digests`,
-    `ei_digests` and `inverse_digests`, which use only entry points older
+    `ei_digests` and `inverse_digests`, and the fused EI's times at the
+    engine's shapes (`ei_engine_times`), which use only entry points older
     trees have."""
     import repro_torch
     from repro_torch.kernels import _build
     _build.build()
     emit({"phase": "digests", "src": src, "package": repro_torch.__file__,
           "nvidia_smi": nvidia_smi_line(), "gram": gram_digests(dev),
-          "ei": ei_digests(dev), "inverse": inverse_digests(dev)})
+          "ei": ei_digests(dev), "inverse": inverse_digests(dev),
+          "ei_engine": ei_engine_times(dev)})
     return 0
 
 
@@ -3027,8 +3485,11 @@ def main(argv: list[str] | None = None) -> int:
     digests = gram_digests(dev)
     line, gram_batched = gram_checks(dev, digests)
     emit(line)
-    emit({"phase": "kernels", "kernel": "fused_ei_grad digests",
-          **ei_digests(dev)})
+    ei_bits = ei_digests(dev)
+    emit({"phase": "kernels", "kernel": "fused_ei_grad digests", **ei_bits})
+    if not (ei_bits["float x3 lanes equal"] and ei_bits["mixed x3 lanes equal"]):
+        raise AssertionError(f"fused EI: a lane of the batch of 3 differs from "
+                             f"its single launch: {ei_bits}")
     for row in rows:
         if row["name"] in gram_batched:
             row["batched"] = gram_batched[row["name"]]
@@ -3059,6 +3520,16 @@ def main(argv: list[str] | None = None) -> int:
     trsv_row["host_gap_ms"] = trsv_row["ms"] - trsv_row["device_ms"]
     gram_device = gram_launches(dev)
     ei_device = ei_launches(dev)
+    emit({"phase": "profile", "kernel": "fused_ei_grad at r=48, n=1024",
+          **ei_engine_times(dev)})
+    # The neural phases run after every profile check and before the
+    # fantasy phases, each profiling its tier first (`profile_neural`);
+    # they leave one slot of each engine escalated, which the fantasy
+    # phases keep unflagged.
+    for name, (_, eng, studies, _, _) in engines.items():
+        neural = "neural_mixed" if eng.mixed else "neural"
+        launches_by_path[neural], _ = neural_path(dev, eng, studies,
+                                                  eng.mixed)
     # The fantasy phases run last: with them before the profile checks,
     # torch.profiler recorded no device activity in tri_inverse_launches
     # in two runs (PERF.md, PR 21).

@@ -1,5 +1,5 @@
-"""Carry a `LazyGPState` and a `TypeDescriptor` between the two packages as
-numpy arrays.
+"""Carry a `LazyGPState`, a `TypeDescriptor` and a `NeuralBasisState`
+between the two packages as numpy arrays.
 
 The keys are the tree-path names under which the reference's checkpoint
 store writes a `LazyGPState` (`repro/checkpoint/store.py`,
@@ -8,7 +8,9 @@ later use the same names.  The GP state and its kernel params are what
 weights are to a model.  A stacked state (a study engine's, DESIGN.md §7)
 and a stacked descriptor go under the same names with a leading S on
 every leaf; the stacked state's `n` and `since_refit` then stay (S,)
-int32 tensors on the device.
+int32 tensors on the device.  A `NeuralBasisState` goes under its field
+names (the keys of the reference's `nb_to_json`): float32 leaves and 0-d
+int32 counters, each the shape the reference holds.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import torch
 from repro_torch.core.descriptor import TypeDescriptor
 from repro_torch.core.gp import LazyGPState, resolve_device
 from repro_torch.core.kernels import KernelParams
+from repro_torch.core.neural_basis import COUNTERS as NB_COUNTERS
+from repro_torch.core.neural_basis import FIELDS as NB_KEYS
+from repro_torch.core.neural_basis import NeuralBasisState
 
 BUFFERS = (".x_buf", ".y_buf", ".l_buf", ".li_buf", ".alpha")
 COUNTERS = (".n", ".since_refit")
@@ -96,3 +101,25 @@ def descriptor_from_numpy(leaves: dict[str, np.ndarray],
     fields.update({k[1:]: torch.as_tensor(np.array(leaves[k], np.int64),
                                           device=dev) for k in DESC_INDICES})
     return TypeDescriptor(**fields)
+
+
+def nb_state_to_numpy(state: NeuralBasisState) -> dict[str, np.ndarray]:
+    """Every leaf of a neural-basis state as a numpy array under its field
+    name (float32, the counters 0-d int32)."""
+    return {k: getattr(state, k).detach().cpu().numpy() for k in NB_KEYS}
+
+
+def nb_state_from_numpy(leaves: dict[str, np.ndarray],
+                        device: str | torch.device = "cuda"
+                        ) -> NeuralBasisState:
+    """A port neural-basis state on `device` from field-name leaves (the
+    reference's state as numpy arrays), each leaf's bits kept."""
+    missing = [k for k in NB_KEYS if k not in leaves]
+    if missing:
+        raise KeyError(f"neural-basis leaves missing: {missing}")
+    dev = resolve_device(device)
+    out = {}
+    for k in NB_KEYS:
+        a = np.array(leaves[k], np.int32 if k in NB_COUNTERS else np.float32)
+        out[k] = torch.from_numpy(a).to(dev)
+    return NeuralBasisState(**out)

@@ -7,7 +7,9 @@ top-t distinct local maxima (paper Sec. 3.4), for one study or for a
 stacked state of S studies (the reference's vmap): there each ascent step
 is one fused-EI launch for all S studies, with (S, d) type masks where
 their layouts differ.  `suggest_q` is the q-suggestion of the fantasy
-protocol: q ascents, each followed by a fantasy row.
+protocol: q ascents, each followed by a fantasy row.  "ei_per_cost" is EI
+per unit of predicted cost (`cost_scaled`, with a log-cost head the caller
+gives), the neural-basis tier's cost-aware mode.
 
 Each ascent step is one `ops.fused_ei_grad` call for the whole restart
 batch (the fused kernel on the card), with the loop invariants — f_best,
@@ -72,8 +74,23 @@ def upper_confidence_bound(mean: Tensor, var: Tensor, f_best: Tensor,
 
 ACQUISITIONS: dict[str, Callable[..., Tensor]] = {
     "ei": expected_improvement,
+    # EI per unit of cost (FABOLAS-style): the posterior term is plain EI;
+    # `_acq_value` divides by the predicted cost when the caller gives a
+    # `log_cost_fn` (the neural-basis tier's log-cost head).  Without one
+    # it is plain EI, so a cost-aware study still serves on the GP tier.
+    "ei_per_cost": expected_improvement,
     "ucb": upper_confidence_bound,
 }
+
+# Predicted log cost is clipped before exponentiation, so a wild early cost
+# head can neither zero out nor blow up the acquisition surface.
+_LOG_COST_CLIP = 20.0
+
+
+def cost_scaled(value: Tensor, log_cost: Tensor) -> Tensor:
+    """acq / exp(log_cost): EI per unit of predicted cost (FABOLAS)."""
+    return value * torch.exp(-torch.clamp(log_cost, -_LOG_COST_CLIP,
+                                          _LOG_COST_CLIP))
 
 FUSED_MODES = ("auto", "on", "off")
 
@@ -91,12 +108,18 @@ class AcqConfig:
 
 
 def _acq_value(state: gp_mod.LazyGPState, kernel: KernelFn, x: Tensor,
-               f_best: Tensor, cfg: AcqConfig, ymean: Tensor) -> Tensor:
+               f_best: Tensor, cfg: AcqConfig, ymean: Tensor,
+               log_cost_fn: Callable[[Tensor], Tensor] | None = None
+               ) -> Tensor:
     """Acquisition values of a candidate batch x (r, d) -> (r,).  Each value
     depends on its own row only, so the gradient of their sum is the batch
-    of per-candidate gradients."""
+    of per-candidate gradients.  `log_cost_fn (r, d) -> (r,)` scales
+    "ei_per_cost" by the predicted cost."""
     mean, var = gp_mod.posterior(state, kernel, x, ymean=ymean)
-    return ACQUISITIONS[cfg.name](mean, var, f_best, cfg.xi)
+    val = ACQUISITIONS[cfg.name](mean, var, f_best, cfg.xi)
+    if cfg.name == "ei_per_cost" and log_cost_fn is not None:
+        val = cost_scaled(val, log_cost_fn(x))
+    return val
 
 
 def _f_best(state: gp_mod.LazyGPState) -> Tensor:
@@ -127,7 +150,8 @@ def _use_fused(cfg: AcqConfig, kernel: KernelFn) -> bool:
 
 def _make_eval_batch(state: gp_mod.LazyGPState, kernel: KernelFn,
                      cfg: AcqConfig, fused: bool, f_best: Tensor,
-                     ymean: Tensor):
+                     ymean: Tensor,
+                     log_cost_fn: Callable[[Tensor], Tensor] | None = None):
     """Build `eval(X (r, d)) -> (vals (r,), grads (r, d))` for the ascent.
 
     Fused: hoists the active mask, `A = li_buf^T li_buf` (one GEMM over
@@ -135,7 +159,8 @@ def _make_eval_batch(state: gp_mod.LazyGPState, kernel: KernelFn,
     step is then one `ops.fused_ei_grad` call, in its mixed form when the
     kernel is the mixed closure (its type masks).  A stacked state gives
     `eval(X (S, r, d))`, one call for all S studies.  Unfused (one study):
-    autodiff through the posterior, with f_best / ymean still hoisted.
+    autodiff through the posterior, with f_best / ymean still hoisted
+    (and the cost scaling of "ei_per_cost", `log_cost_fn`).
     """
     if fused:
         amask = gp_mod._active_mask(state).to(state.x_buf.dtype)
@@ -155,7 +180,8 @@ def _make_eval_batch(state: gp_mod.LazyGPState, kernel: KernelFn,
     def eval_autodiff(x):
         with torch.enable_grad():
             xg = x.detach().requires_grad_(True)
-            vals = _acq_value(state, kernel, xg, f_best, cfg, ymean)
+            vals = _acq_value(state, kernel, xg, f_best, cfg, ymean,
+                              log_cost_fn)
             (grad,) = torch.autograd.grad(vals.sum(), xg)
         return vals.detach(), grad
 
@@ -262,13 +288,16 @@ def optimize_acquisition(state: gp_mod.LazyGPState, kernel: KernelFn,
                          generator: torch.Generator | None = None,
                          seeds: Tensor | None = None,
                          jitter: Tensor | None = None,
-                         desc: desc_mod.TypeDescriptor | None = None
+                         desc: desc_mod.TypeDescriptor | None = None,
+                         log_cost_fn: Callable[[Tensor], Tensor] | None = None
                          ) -> tuple[Tensor, Tensor]:
     """Return (points (top_t, d), acquisition values (top_t,)), best first:
     top_t = 1 is sequential BO, top_t = t the paper's t best distinct
     local maxima.  Draws as `ascend_acquisition`.  `desc` (a mixed space's
     descriptor, on the state's device) projects the ascent onto its
-    feasible lattice.
+    feasible lattice.  `log_cost_fn (r, d) -> (r,)` is the predicted log
+    cost that "ei_per_cost" divides by (the fused kernel covers plain EI
+    only, so that acquisition takes the autodiff ascent).
 
     Stacked (the reference's vmap over studies): a stacked state gives
     ((S, top_t, d), (S, top_t)), with seeds (S, R, d) and jitter
@@ -277,17 +306,21 @@ def optimize_acquisition(state: gp_mod.LazyGPState, kernel: KernelFn,
     the stacked (S, d) descriptor.  Each ascent step is one fused-EI call
     for all S; selection is per study, with the same tie-break.  An
     acquisition the fused kernel does not cover runs study by study.
-    Batched suggestions match the single-study path to the fused EI's
-    tolerance, not bit for bit: the kernel's launch plan cuts the sums by
-    the batch size (`acq.launch_plan`)."""
+    The fused EI sums each study in the same order whatever the batch
+    (`acq.launch_plan`), so on the same operands a lane's values are bit
+    for bit a single-study launch's; the hoisted operands (A, f_best, the
+    mean) come from batched reductions, so the batched suggestion matches
+    the single-study path to their round-off."""
     fused = _use_fused(cfg, kernel)
     if state.is_batched and not fused:
         return _optimize_each(state, kernel, lo, hi, cfg, top_t,
                               generator=generator, seeds=seeds,
-                              jitter=jitter, desc=desc)
+                              jitter=jitter, desc=desc,
+                              log_cost_fn=log_cost_fn)
     f_best = _f_best(state)
     ymean = gp_mod._ymean(state)
-    eval_batch = _make_eval_batch(state, kernel, cfg, fused, f_best, ymean)
+    eval_batch = _make_eval_batch(state, kernel, cfg, fused, f_best, ymean,
+                                  log_cost_fn)
     project = ((lambda u: desc_mod.project_units(u, desc))
                if desc is not None else None)
     return ascend_acquisition(eval_batch, lo, hi, cfg, top_t,
@@ -297,7 +330,7 @@ def optimize_acquisition(state: gp_mod.LazyGPState, kernel: KernelFn,
 
 
 def _optimize_each(state, kernel, lo, hi, cfg, top_t, *, generator, seeds,
-                   jitter, desc):
+                   jitter, desc, log_cost_fn):
     """The stacked suggest one study at a time (the autodiff ascent has no
     study axis); reads each study's n from the device."""
     outs = []
@@ -309,7 +342,8 @@ def _optimize_each(state, kernel, lo, hi, cfg, top_t, *, generator, seeds,
             seeds=None if seeds is None else seeds[s],
             jitter=None if jitter is None else jitter[s],
             desc=(desc_mod.index_descriptor(desc, s)
-                  if desc is not None and desc.is_batched else desc)))
+                  if desc is not None and desc.is_batched else desc),
+            log_cost_fn=log_cost_fn))
     return tuple(torch.stack(v) for v in zip(*outs))
 
 

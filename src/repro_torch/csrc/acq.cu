@@ -35,8 +35,11 @@
 // Design: one launch.  Each CTA owns a tile of R candidate rows x C columns
 // of U (R C = 512, 128 threads, a thread 4 rows x 1 column) and one slice
 // of k, for one study: grid (k-slices x n / C, r / R, batch).  The plan
-// (`kernels/acq.launch_plan`) splits k until the grid has about 512 CTAs:
-// R = 8, C = 64 and 4 slices of 256 rows at r = 64, n = 1024.  The kernel
+// (`kernels/acq.launch_plan`) splits k until one study's grid has about
+// 512 CTAs: R = 8, C = 64 and 4 slices of 256 rows at r = 64, n = 1024.
+// The split depends on (r, n, d) only, never on the batch, and the last
+// CTA sums a row block's partials in (k-slice, column block) order, so a
+// study's outputs carry the same bits in any batch.  The kernel
 // is a template on R; one tile is compiled, the one a sweep of R = 4, 8,
 // 16 against 1-8 slices chose on the H100 (PERF.md, section 6).
 //   * A streams, nothing n-long is held: a CTA walks its k-slice in tiles

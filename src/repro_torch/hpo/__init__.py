@@ -3,9 +3,10 @@
   * `space.py`  — typed search spaces over the encoded unit cube and their
     `TypeDescriptor` (the mixed-space slice);
   * `engine.py` — `StudyEngine`, the stacked lazy-GP state of S studies
-    and its batched suggest / absorb / serving round (the GP tier,
-    `mesh="none"`);
+    and its batched suggest / absorb / serving round (`mesh="none"`), the
+    fantasy protocol and the neural-basis escalation tier;
   * `mesh.py`   — the mesh spec (only the unsharded engine runs so far);
-  * `pool.py`   — `SchedulerConfig`, the engine's configuration.
+  * `pool.py`   — `SchedulerConfig`, the engine's configuration (with
+    its `NeuralConfig`).
 The pool, scheduler and gateway come with later slices.
 """

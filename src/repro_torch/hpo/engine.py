@@ -1,9 +1,9 @@
 """The batched GP suggest/absorb engine shared by the HPO orchestrators.
 
-Counterpart of `repro/hpo/engine.py` with `mesh="none"`, for the lazy-GP
-tier and its q-fantasy protocol (the neural-basis tier comes with a later
-slice).  `StudyEngine` owns ONE stacked `LazyGPState` with a leading study
-axis (DESIGN.md §7) and advances it:
+Counterpart of `repro/hpo/engine.py` with `mesh="none"`: the lazy-GP tier,
+its q-fantasy protocol and the neural-basis escalation tier.  `StudyEngine`
+owns ONE stacked `LazyGPState` with a leading study axis (DESIGN.md §7) and
+advances it:
 
   * `suggest_all` — the acquisition ascent of every study at once: each
     ascent step is one fused-EI launch for all S studies.
@@ -21,6 +21,10 @@ axis (DESIGN.md §7) and advances it:
     (DESIGN.md §12), routed to one slot: q suggestions, each appended as a
     fantasy row; the rollback to the real rows; the pending points
     appended again after a real tell.
+  * `promote_slot` / `nb_*` — the saturation escalation tier (DESIGN.md
+    §15): a slot whose GP is full trains a `NeuralBasisState` on its
+    ledger and serves from it (`nb_suggest`, `nb_absorb`, `nb_ask_q`,
+    `nb_rollback`, `nb_refantasize`), one slot at a time.
 
 **Fantasy rows** live in the slot's own rows of the stacked buffers and
 are written there in place (no (n_max, n_max) buffer is copied); the
@@ -55,6 +59,15 @@ observations go to the device in one copy that does not wait for it.
 `clamp_count` is data-dependent and reads the device (`clamp_counts()`
 fetches all studies in one transfer).
 
+**Escalated slots** (`tier(slot) == 1`) keep their GP lane in the stack,
+frozen: it rides the batched launches as dead weight and is never written
+again (a flagged absorb into it raises), so an export still carries it bit
+for bit.  The live model is the slot's `NeuralBasisState`, held here with
+host mirrors of its row count (fantasy rows included) and its refit
+counter, so an absorb decides a refit without reading the device.  Its
+fantasy rows are rank-1 appends that do not reverse bit for bit, so an ask
+keeps a snapshot of the state and the rollback restores it.
+
 Draws: the restart seeds and the top-t jitter are drawn from the engine's
 `torch.Generator` (seeded from `cfg.seed`, on the engine's device) unless
 the caller passes them (`seeds (S, R, d)` / `jitter (S, top_t, d)`, or one
@@ -68,6 +81,7 @@ import torch
 from repro_torch.core import acquisition as acq_mod
 from repro_torch.core import descriptor as desc_mod
 from repro_torch.core import gp as gp_mod
+from repro_torch.core import neural_basis as nb_mod
 from repro_torch.core.kernels import KERNELS, make_mixed_kernel
 from repro_torch.hpo import mesh as mesh_mod
 
@@ -78,8 +92,9 @@ class StudyEngine:
     """Stacked lazy-GP state of S studies and the batched transitions.
 
     `cfg` is duck-typed (`SchedulerConfig` works): it needs n_max, kernel,
-    lag, rho0, noise2, acq and seed; optionally mixed, mesh ("none") and
-    inv_refresh.  Runs on the card unless `device` says otherwise.
+    lag, rho0, noise2, acq and seed; optionally mixed, mesh ("none"),
+    inv_refresh, fantasy and neural.  Runs on the card unless `device` says
+    otherwise.
     """
 
     def __init__(self, dim: int, cfg, n_studies: int,
@@ -126,11 +141,22 @@ class StudyEngine:
         self._hi = torch.ones((dim,), device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(getattr(cfg, "seed", 0)))
-        # Per-row observation costs (tell `cost=`, default 1.0); the
-        # neural-basis tier trains on them once it is ported.
+        # Per-row observation costs (tell `cost=`, default 1.0): the
+        # training set of a promoted slot's log-cost head.
         self._cost_host = np.ones((n_studies, cfg.n_max), np.float32)
         # Fantasy-active slots: slot -> (real count, alpha at that count).
         self._alpha_kept: dict[int, tuple[int, Tensor]] = {}
+        # The neural-basis tier: the per-slot tag (0 = lazy GP, 1 =
+        # escalated), each escalated slot's state, its host mirrors (rows
+        # with fantasies, appends since the last refit) and, while fantasy
+        # rows are out, the snapshot an `nb_rollback` restores.
+        self.neural = getattr(cfg, "neural", None) or nb_mod.NeuralConfig()
+        self._tier = np.zeros((n_studies,), np.int8)
+        self._nb: dict[int, nb_mod.NeuralBasisState] = {}
+        self._nb_n: dict[int, int] = {}
+        self._nb_sr: dict[int, int] = {}
+        self._nb_shadow: dict[int, tuple[nb_mod.NeuralBasisState, int,
+                                         int]] = {}
 
     # -- state + host-side counter mirrors ----------------------------------
     @property
@@ -183,9 +209,10 @@ class StudyEngine:
         self._sr_host[slot] = int(sub.since_refit)
 
     def reset_slot(self, slot: int) -> None:
-        """Blank a slot for a new tenant (an empty single-study state)."""
+        """Blank a slot for a new tenant (an empty single-study state, back
+        on the GP tier, costs 1.0)."""
         self.load_slot(slot, gp_mod.init_state(self.gp_cfg))
-        self._cost_host[slot] = 1.0
+        self.clear_nb_slot(slot)
 
     def set_desc(self, slot: int, desc: desc_mod.TypeDescriptor) -> None:
         """Install a (possibly different) type layout for one slot: a row
@@ -273,6 +300,7 @@ class StudyEngine:
         flags = np.asarray(flags, bool)
         flagged = np.flatnonzero(flags)
         for s in flagged:
+            self._gp_tier(s)
             gp_mod.ensure_capacity(self.n(s), self.cfg.n_max)
         if costs is None:
             costs = np.ones((self.n_studies,), np.float32)
@@ -293,6 +321,7 @@ class StudyEngine:
     def absorb(self, study: int, x, y, cost: float = 1.0) -> None:
         """Routed absorb of one observation (+ the study's lag policy): the
         stacked append on that study's rows alone."""
+        self._gp_tier(study)
         gp_mod.ensure_capacity(self.n(study), self.cfg.n_max)
         self._cost_host[study, self.n(study)] = cost
         self._alpha_kept.pop(study, None)
@@ -406,11 +435,152 @@ class StudyEngine:
         self._set_n(study, self.n(study) + xs.shape[0])
 
     def cost_row(self, study: int) -> np.ndarray:
-        """The study's per-row tell costs (they ride eviction snapshots)."""
+        """The study's per-row tell costs (they ride eviction snapshots, so
+        a study promoted after a restore trains its cost head on all of
+        its rows)."""
         return self._cost_host[study].copy()
 
     def set_cost_row(self, study: int, costs) -> None:
         self._cost_host[study] = np.asarray(costs, np.float32)
+
+    # -- neural-basis tier (saturation escalation, DESIGN.md §15) -----------
+    def tier(self, study: int) -> int:
+        """0 = lazy GP, 1 = neural basis (escalated)."""
+        return int(self._tier[study])
+
+    def _gp_tier(self, study: int) -> None:
+        """An absorb into the GP lane of an escalated slot would write the
+        frozen lane: refuse it before anything is written."""
+        if self._tier[study]:
+            raise RuntimeError(f"slot {study} is escalated: absorb through "
+                               f"nb_absorb, and leave its flag off")
+
+    def promote_slot(self, slot: int, *, params=None) -> None:
+        """Escalate a (saturated) GP slot to the neural-basis tier.
+
+        The model trains on the slot's active rows, the exact points and
+        observations its GP absorbed (read on the device, not through the
+        host), and log(max(cost, 1e-12)) of their tell costs; the caller
+        must have rolled back any fantasy rows first.  The MLP starts from
+        `params` (`nb_init`) when given, else from the engine's generator.
+        The GP lane stays in the stack, frozen."""
+        if self._tier[slot]:
+            raise RuntimeError(f"slot {slot} is already escalated")
+        n0 = self.n(slot)
+        if n0 < 1:
+            raise RuntimeError("cannot promote an empty slot")
+        lane = self._lane(slot)
+        logcs = np.log(np.maximum(self._cost_host[slot, :n0], 1e-12))
+        self._nb[slot] = nb_mod.nb_from_data(
+            lane.x_buf[:n0], lane.y_buf[:n0], logcs, self.neural,
+            params=params, generator=self._gen, device=self.device)
+        self._tier[slot] = 1
+        self._nb_n[slot], self._nb_sr[slot] = n0, 0
+        self._nb_shadow.pop(slot, None)
+
+    def clear_nb_slot(self, slot: int) -> None:
+        """Drop the escalated model (new tenant, detach): back to tier 0,
+        costs 1.0."""
+        self._tier[slot] = 0
+        for held in (self._nb, self._nb_n, self._nb_sr, self._nb_shadow):
+            held.pop(slot, None)
+        self._cost_host[slot] = 1.0
+
+    def nb_state(self, slot: int) -> nb_mod.NeuralBasisState:
+        return self._nb[slot]
+
+    def load_nb_slot(self, slot: int, state: nb_mod.NeuralBasisState
+                     ) -> None:
+        """Install a restored or imported state (the tier tag follows); its
+        counters are read once, to set the host mirrors."""
+        self._tier[slot] = 1
+        self._nb[slot] = state
+        self._nb_n[slot] = int(state.n)
+        self._nb_sr[slot] = int(state.since_refit)
+        self._nb_shadow.pop(slot, None)
+
+    def nb_n(self, slot: int) -> int:
+        """Rows of an escalated slot, fantasy rows included (host mirror)."""
+        return self._nb_n[slot]
+
+    def _nb_room(self, slot: int, incoming: int) -> nb_mod.NeuralBasisState:
+        """The slot's state with room for `incoming` more rows."""
+        st = self._nb[slot]
+        while self._nb_n[slot] + incoming > st.cap:
+            st = nb_mod.nb_grow(st, self.neural)
+        return st
+
+    def _nb_advance(self, slot: int, st: nb_mod.NeuralBasisState,
+                    rows: int) -> None:
+        self._nb[slot] = st
+        self._nb_n[slot] += rows
+        self._nb_sr[slot] += rows
+
+    def nb_absorb(self, slot: int, x, y, cost: float = 1.0) -> None:
+        """Escalated absorb: the rank-1 append (the ledger grows, never
+        fills), then an MLP refit when `refit_every` appends have gathered
+        (decided on the host mirror).  Runs with no fantasy rows out (the
+        caller rolls back first, as on the GP tier).  A host x, y and the
+        log cost go to the device in one copy; an x already on the device
+        stays there."""
+        st = self._nb_room(slot, 1)
+        on_device = isinstance(x, Tensor)
+        packed = np.empty(2 if on_device else self.dim + 2, np.float32)
+        if not on_device:
+            packed[:self.dim] = x
+        packed[-2:] = y, np.log(max(float(cost), 1e-12))
+        obs = torch.from_numpy(packed).to(self.device, non_blocking=True)
+        x = (x.to(self.device, torch.float32) if on_device
+             else obs[:self.dim])
+        st = nb_mod.nb_append(st, x, obs[-2], obs[-1], self.neural)
+        self._nb_advance(slot, st, 1)
+        if self._nb_sr[slot] >= self.neural.refit_every:
+            self._nb[slot] = nb_mod.nb_refit(st, self.neural)
+            self._nb_sr[slot] = 0
+
+    def nb_suggest(self, slot: int, top_t: int = 1, *, seeds=None,
+                   jitter=None) -> tuple[Tensor, Tensor]:
+        """Escalated suggest: the ascent against the O(m^2) posterior, flat
+        in n; draws as `suggest`."""
+        return nb_mod.nb_suggest(
+            self._nb[slot], self._desc_for(slot), acq=self.cfg.acq,
+            top_t=top_t, seeds=self._tensor(seeds),
+            jitter=self._tensor(jitter), generator=self._gen)
+
+    def _nb_snapshot(self, slot: int) -> tuple:
+        return self._nb[slot], self._nb_n[slot], self._nb_sr[slot]
+
+    def nb_ask_q(self, slot: int, q: int, *, seeds=None,
+                 jitter=None) -> tuple[Tensor, Tensor]:
+        """Escalated q-suggestion: a snapshot of the pre-fantasy state
+        (kept until `nb_rollback`), then q rounds of suggest-and-fantasize;
+        draws as `ask_q`."""
+        if slot not in self._nb_shadow:
+            self._nb_shadow[slot] = self._nb_snapshot(slot)
+        st = self._nb_room(slot, q)
+        xs, vals, st = nb_mod.nb_ask_q(
+            st, self.neural, self._desc_for(slot), acq=self.cfg.acq, q=q,
+            liar=self.liar, seeds=self._tensor(seeds),
+            jitter=self._tensor(jitter), generator=self._gen)
+        self._nb_advance(slot, st, q)
+        return xs, vals
+
+    def nb_rollback(self, slot: int) -> None:
+        """Drop every fantasy row of an escalated slot: the pre-fantasy
+        snapshot comes back, bit for bit by construction."""
+        kept = self._nb_shadow.pop(slot, None)
+        if kept is not None:
+            self._nb[slot], self._nb_n[slot], self._nb_sr[slot] = kept
+
+    def nb_refantasize(self, slot: int, xs) -> None:
+        """Append still-pending fantasy points `xs (p, d)` against the
+        updated posterior (the tell-time replay, as `refantasize`), after a
+        fresh snapshot."""
+        xs = self._tensor(xs)
+        self._nb_shadow[slot] = self._nb_snapshot(slot)
+        st = self._nb_room(slot, xs.shape[0])
+        st = nb_mod.nb_fantasize(st, xs, self.neural, self.liar)
+        self._nb_advance(slot, st, xs.shape[0])
 
     # -- lag policy -----------------------------------------------------------
     def _refit_flagged(self, flagged) -> None:

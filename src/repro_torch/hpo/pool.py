@@ -3,10 +3,9 @@
 
 Only `SchedulerConfig` is here so far: the `StudyEngine`
 (`repro_torch.hpo.engine`) reads its GP shape, lag policy, acquisition
-settings, fantasy liar and seed.  The reference's `implementation` knob
-has no counterpart (the tensor's device picks a kernel or its plain
-version), and `neural` comes with the slice that ports the neural-basis
-tier.
+settings, fantasy liar, neural-basis tier and seed.  The reference's
+`implementation` knob has no counterpart (the tensor's device picks a
+kernel or its plain version).
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ import dataclasses
 
 from repro_torch.core import acquisition as acq_mod
 from repro_torch.core import gp as gp_mod
+from repro_torch.core import neural_basis as nb_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +47,7 @@ class SchedulerConfig:
         default_factory=gp_mod.FantasyConfig)  # liar policy for q-asks
     # (DESIGN.md §12): "mean" = kriging believer, "pessimistic" = constant
     # liar; the engine reads it at each ask
+    neural: nb_mod.NeuralConfig = dataclasses.field(
+        default_factory=nb_mod.NeuralConfig)  # the escalated tier's model
+    # (DESIGN.md §15): MLP widths, the head's ridge noise and the refit
+    # cadence (the tier's `lag`) of a slot promoted off the full lazy GP

@@ -173,8 +173,12 @@ def launch_plan(batch: int, r: int, n: int, d: int, mixed: bool) -> LaunchPlan:
     """The tile, grid, shared bytes and scratch of one call on `batch`
     studies of r candidates against n train rows of width d: the single
     source of these numbers for the wrapper and the C entry.  k is split
-    until the grid has about `TARGET_CTAS` CTAs, with at least
-    `MIN_SLICE_TILES` k-tiles a slice."""
+    until one study's grid has about `TARGET_CTAS` CTAs, with at least
+    `MIN_SLICE_TILES` k-tiles a slice; the studies then lie along the
+    grid's z axis.  The split is a function of (r, n, d) alone, so every
+    output of a study is summed in the same order whatever the batch: a
+    lane of an S-study launch is bit for bit the launch on that study
+    alone."""
     if min(batch, r, n, d) < 1:
         raise ValueError(f"fused EI launch plan needs batch, r, n, d >= 1, "
                          f"got {batch}, {r}, {n}, {d}")
@@ -183,7 +187,7 @@ def launch_plan(batch: int, r: int, n: int, d: int, mixed: bool) -> LaunchPlan:
     if row_blocks > 65535 or batch > 65535:
         raise ValueError(f"fused EI kernel: r = {r} in tiles of {rows} rows and "
                          f"{batch} studies exceed the grid")
-    slices = min(-(-TARGET_CTAS // (col_blocks * row_blocks * batch)),
+    slices = min(-(-TARGET_CTAS // (col_blocks * row_blocks)),
                  max(1, k_tiles // MIN_SLICE_TILES))
     tps = -(-k_tiles // slices)
     slices = -(-k_tiles // tps)          # no empty slice

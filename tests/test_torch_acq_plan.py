@@ -11,6 +11,7 @@ k-slice, summed across CTAs in the kernel's tree order, then combined into
 EI and its gradient, and held to the JAX package's `ei_grad_jnp`.
 """
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -90,9 +91,38 @@ def test_main_path_plan_fills_the_card():
 
 
 def test_large_n_and_batches_need_no_k_split():
+    """Large n needs no k-split; a batch keeps the one-study split (4 slices
+    at r = 64, n = 1024) and lays its studies along the grid's z axis."""
     assert acq.launch_plan(1, 64, 4096, 5, False).slices == 1
-    assert acq.launch_plan(3, 64, 1024, 5, False).slices == 2
+    plan = acq.launch_plan(3, 64, 1024, 5, False)
+    assert (plan.slices, plan.tiles_per_slice) == (4, 8)
+    assert plan.grid == (64, 8, 3)
     assert acq.launch_plan(1, 1, 1, 1, False).grid == (1, 1, 1)
+
+
+# The engine's shape (48 restarts, n_max 1024) and r = 64 at three n.
+@pytest.mark.parametrize("r,nn", [(48, 1024), (64, 1024), (64, 300),
+                                  (64, 4096)])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_k_split_is_independent_of_the_batch(r, nn, mixed):
+    """A lane of an S-study launch sums in the one-study launch's order:
+    the same slices and k-tiles a slice for every batch, the grid's x and
+    y those of one study and z the batch, the scratch S times one study's.
+    At the engine's shape that is 6 slices of 6 tiles, 9216 CTAs at
+    S = 16."""
+    d = 6 if mixed else 5
+    one = acq.launch_plan(1, r, nn, d, mixed)
+    for batch in range(1, 65):
+        plan = acq.launch_plan(batch, r, nn, d, mixed)
+        assert (plan.slices, plan.tiles_per_slice) == (one.slices,
+                                                       one.tiles_per_slice)
+        assert plan.grid == (*one.grid[:2], batch)
+        assert plan.partial_floats == batch * one.partial_floats
+        assert plan.counters == batch * one.counters
+    if (r, nn) == (48, 1024):
+        plan = acq.launch_plan(16, r, nn, d, mixed)
+        assert (plan.slices, plan.tiles_per_slice) == (6, 6)
+        assert math.prod(plan.grid) == 9216
 
 
 @pytest.mark.parametrize("args", [(0, 64, 1024, 5, False), (1, 0, 1024, 5, False),

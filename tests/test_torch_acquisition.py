@@ -82,3 +82,62 @@ def test_expected_improvement_matches(pair):
     np.testing.assert_allclose(
         n(acqm.upper_confidence_bound(t(mean), t(var), None)),
         n(jacqm.upper_confidence_bound(j(mean), j(var), None)), rtol=1e-6)
+
+
+def _unit_gp_state():
+    """tests/test_tier.py:361's state (6 points of -|x - 0.5|^2 on the
+    unit square, noise 1e-6, refactored), in both packages."""
+    import dataclasses
+
+    from _torch_port import CPU, jax_state_leaves
+
+    from repro.core import gp as jgp
+    from repro_torch import convert
+    xs = jax.random.uniform(jax.random.PRNGKey(0), (6, 2))
+    ys = -jnp.sum((xs - 0.5) ** 2, axis=-1)
+    st = jgp.init_state(jgp.GPConfig(n_max=16, dim=2, noise2=1e-6))
+    st = dataclasses.replace(st, x_buf=st.x_buf.at[:6].set(xs),
+                             y_buf=st.y_buf.at[:6].set(ys),
+                             n=jnp.asarray(6, jnp.int32))
+    st = jgp.refactor(st, jmatern52)
+    return st, convert.state_from_numpy(jax_state_leaves(st), device=CPU)
+
+
+def test_ei_per_cost_steers_away_from_expensive_region():
+    """Mirror of tests/test_tier.py:372: with a log-cost head that makes the
+    half x0 > 0.5 exponentially expensive, the cost-scaled ascent (the
+    autodiff one: the fused kernel covers plain EI only) lands in the cheap
+    half, as the reference's does from the same seeds; without a cost head
+    "ei_per_cost" is plain EI, bit for bit."""
+    js, ts = _unit_gp_state()
+    key = jax.random.PRNGKey(42)
+    seeds = t(jax.random.uniform(key, (16, 2)))
+    kw = dict(restarts=16, ascent_steps=12)
+    lo, hi = torch.zeros(2), torch.ones(2)
+
+    def log_cost(x):
+        return 12.0 * torch.clamp(x[..., 0] - 0.5, min=0.0)
+
+    def jlog_cost(x):
+        return 12.0 * jnp.maximum(x[..., 0] - 0.5, 0.0)
+
+    acq = acqm.AcqConfig(name="ei_per_cost", **kw)
+    assert not acqm._use_fused(acq, matern52)
+    x_cheap, v_cheap = acqm.optimize_acquisition(ts, matern52, lo, hi, acq,
+                                                 seeds=seeds,
+                                                 log_cost_fn=log_cost)
+    assert float(x_cheap[0, 0]) <= 0.5 + 1e-3
+    jx, jv = jacqm.optimize_acquisition(
+        js, jmatern52, jnp.zeros(2), jnp.ones(2), key,
+        jacqm.AcqConfig(name="ei_per_cost", fused="off", **kw),
+        log_cost_fn=jlog_cost)
+    np.testing.assert_allclose(n(x_cheap), n(jx), atol=1e-4)
+    np.testing.assert_allclose(n(v_cheap), n(jv), **EI_TOL)
+    x_plain, v_plain = acqm.optimize_acquisition(
+        ts, matern52, lo, hi, acqm.AcqConfig(name="ei", fused="off", **kw),
+        seeds=seeds)
+    x_none, v_none = acqm.optimize_acquisition(ts, matern52, lo, hi, acq,
+                                               seeds=seeds)
+    assert torch.equal(x_none, x_plain) and torch.equal(v_none, v_plain)
+    assert acqm.cost_scaled(torch.tensor(2.0), torch.tensor(100.0)) == \
+        2.0 * np.exp(np.float32(-20.0))

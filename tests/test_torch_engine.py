@@ -273,16 +273,17 @@ def test_engine_defaults_to_cuda(monkeypatch):
 
 def test_scheduler_config_mirrors_the_reference():
     """The port's SchedulerConfig has the reference's fields and defaults,
-    less the substrate knob and the slice still to come."""
+    less the substrate knob."""
     import dataclasses
     jf = {f.name: f for f in dataclasses.fields(jpool.SchedulerConfig)}
     tf = {f.name: f for f in dataclasses.fields(tpool.SchedulerConfig)}
-    assert set(jf) - set(tf) == {"implementation", "neural"}
+    assert set(jf) - set(tf) == {"implementation"}
     assert set(tf) <= set(jf)
     jd, td = jpool.SchedulerConfig(), tpool.SchedulerConfig()
     for name in tf:
-        if name not in ("acq", "fantasy"):
+        if name not in ("acq", "fantasy", "neural"):
             assert getattr(td, name) == getattr(jd, name), name
     assert (td.acq.restarts, td.acq.ascent_steps) == (jd.acq.restarts,
                                                       jd.acq.ascent_steps)
     assert td.fantasy.liar == jd.fantasy.liar
+    assert dataclasses.asdict(td.neural) == dataclasses.asdict(jd.neural)

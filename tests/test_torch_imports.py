@@ -24,7 +24,7 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
             "repro_torch.convert, repro_torch.hpo.space, "
             "repro_torch.hpo.engine, repro_torch.hpo.mesh, "
-            "repro_torch.hpo.pool\n"
+            "repro_torch.hpo.pool, repro_torch.core.neural_basis\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -47,6 +47,12 @@ def test_entry_points_default_to_cuda():
                     desc=MIXED_DEMO_SPACE.descriptor()).device == "cuda"
     assert GPConfig().device == "cuda"
     assert run_bo.__kwdefaults__["device"] == "cuda"
+    from repro_torch.core import neural_basis
+    from repro_torch.hpo.engine import StudyEngine
+    for fn in (neural_basis.nb_init, neural_basis.nb_from_data):
+        assert fn.__kwdefaults__["device"] == "cuda"
+    assert neural_basis.nb_from_json.__defaults__ == ("cuda",)
+    assert StudyEngine.__init__.__kwdefaults__["device"] == "cuda"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
