@@ -114,10 +114,28 @@ Phases, each printing one JSON line:
                another basin, at most a quarter; and `ei_at_seeds`: every
                lane's fused EI and gradient at its restart seeds from the
                S = 16 launch torch.equal to an S = 1 launch on the same
-               operands, the two launch plans with the same k-split), one
-               round with half the studies unflagged (their every bit
-               kept) and one round under
+               operands, the two launch plans with the same k-split; and
+               the batched suggest's hoisted operands, A = li^T li, the
+               active mask and the shift, computed lane by lane
+               (`acquisition.hoist`), torch.equal to each lane's own
+               single-study hoist; `bits` names the lanes whose
+               suggestion, append or ascent differ from the single-study
+               path's bits), one round with half the studies unflagged
+               (their every bit kept) and one round under
                `torch.cuda.set_sync_debug_mode("error")`.
+ 7a. pool    — the port's `StudyPool` (`hpo/pool.py`) over the engine
+               phases' studies (phases `pool` and `pool_mixed`), a pool
+               and its twin, n_max = 1024, lag 32, 48 x 20, seed 0, a
+               checkpoint directory written only by explicit calls.  Each
+               prefilled through one `absorb_many` of every study's points
+               shuffled (study s to 960 - 8 s), then 32 `advance_round`
+               rounds telling the last round's suggestions in a shuffled
+               order, each held to the engine phase's launches; the twin
+               runs the same rounds as `advance_round_begin` + `finish()`
+               (one begin without a lag event under
+               `set_sync_debug_mode("error")`), with every suggestion and,
+               at the end, every leaf of every lane torch.equal.
+               `advance_round` ms beside the engine phase's `advance` ms.
   8. profile — four more rounds of each path under torch.profiler: device
                busy share and device time by kernel; then one Cholesky
                call at n = 1024 and one on the lag refit's batch, each of
@@ -136,7 +154,9 @@ Phases, each printing one JSON line:
                time per kernel, with its busy share; both fused-EI forms
                at S = 16 and S = 1 (r = 48, n = 1024) by device time and
                events a launch, beside the plain version and the bound
-               (`ei_engine_times`); then, at the start of each neural phase,
+               (`ei_engine_times`); one more `advance_round` of each pool
+               (busy share, device time by kernel; the twin then replays
+               it); then, at the start of each neural phase,
                one nb_suggest (busy share) and the device kernels of one
                refit step (`profile_neural`); last, one ask_q(8) of each
                engine by device time per kernel (just before its fantasy
@@ -189,10 +209,28 @@ Phases, each printing one JSON line:
                float32 bound (`expansion_bound`), and host-clock times
                (median of 3): ask_q at q = 1, 8, 32 beside q times one
                routed suggest, truncate_slot, refantasize at p = 7 and 31.
+ 10. pool protocol — last, on each pool pair (`pool_protocol`): ask_q(8)
+               on slots 4 and 12 (launches held), the tells out of order,
+               a foreign tell, a release and a drain through
+               `absorb_many`, against the twin, which takes the same real
+               tells, never fantasizes and burns the asks' draws: every
+               leaf of every lane torch.equal, alpha included; then a
+               `checkpoint()` with slot 4's ask_q(8) out (the manifest's
+               names the reference's, in order), a fresh pool's
+               `restore()` (every leaf torch.equal to the twin's, the
+               ledgers the pool's), one more identical `advance_round` on
+               both (suggestions and leaves equal), and slot 7 through
+               `export_study` / `import_study` bit for bit; host-clock ms
+               of the checkpoint (with its bytes) and the restore.  The
+               float pair adds a `TrialScheduler` on one Levy-5d study
+               prefilled to 960 through `absorb_many`, then `run(objective,
+               budget=16)` with parallel 4: no seed trial, every suggest
+               exactly 21 fused EI, every absorb one column gram plus a
+               due lag event's; its suggest and absorb ms.
 Then the `{"kernels": [...]}` line (seven kernels: L X = I and the general
 solve, two C entries of `csrc/trsv.cu`, count apart; launches per path:
-main, mixed, append, engine, engine_mixed, neural, neural_mixed, fantasy,
-fantasy_mixed), the nvidia-smi line and, last,
+main, mixed, append, engine, engine_mixed, pool, pool_mixed, neural,
+neural_mixed, fantasy, fantasy_mixed), the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
@@ -1933,15 +1971,12 @@ def diff_counts(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
-def stacked_engine_args(st, cand):
-    """The fused EI's operands for a stacked state, as the batched suggest
-    hoists them."""
-    amask = (torch.arange(st.n_max, device=cand.device)
-             < st.n[:, None]).float()
-    a_buf = st.li_buf.transpose(-1, -2) @ st.li_buf
-    ymean = torch.sum(st.y_buf * amask, dim=-1) / st.n
-    shift = ymean - torch.amax(torch.where(amask > 0, st.y_buf, -torch.inf),
-                               dim=-1) - 0.01
+def stacked_engine_args(eng, cand):
+    """The fused EI's operands for an engine's stacked state, as its batched
+    suggest hoists them (`acquisition.hoist`, lane by lane)."""
+    from repro_torch.core import acquisition as acq_mod
+    st = eng.state
+    amask, a_buf, shift = acq_mod.hoist(st, eng.cfg.acq, eng._n_host)
     return (cand, st.x_buf, amask, st.alpha, a_buf, st.params.sigma2,
             st.params.rho, shift)
 
@@ -2037,7 +2072,7 @@ def stacked_mask_checks(eng, gen) -> dict:
     r = eng.cfg.acq.restarts
     cand = project_units(torch.rand((n_studies, r, d), generator=gen,
                                     device=x.device), desc)
-    args = stacked_engine_args(st, cand)
+    args = stacked_engine_args(eng, cand)
 
     def mixed_plain(a):
         return plain_ei(a, cm, km)
@@ -2084,7 +2119,10 @@ def lane_parity(eng, studies, units, gen) -> dict:
     `optimize_acquisition`, one study after another.  Holds each lane's
     suggestion, l_buf, li_buf and alpha to the single-study path's and
     times both ways (host clock around `torch.cuda.synchronize()`): the
-    batched round against 16 single-study appends and suggests."""
+    batched round against 16 single-study appends and suggests.  `bits`
+    lists the lanes whose suggestion, leaves (the append) or ascent (the
+    single-study suggest on the batched lane's own state) are not bit for
+    bit the single-study path's."""
     from repro_torch.core import acquisition as acq_mod
     from repro_torch.core import gp
     from repro_torch.core.descriptor import index_descriptor
@@ -2159,6 +2197,23 @@ def lane_parity(eng, studies, units, gen) -> dict:
                                                  / b.abs().max()))
         if (lane.n, lane.since_refit) != (st.n, st.since_refit):
             raise AssertionError(f"lane {s}: counters {lane.n} vs {st.n}")
+    # Where a lane is not bit for bit the single-study step, which half
+    # differs: the append (the lane's leaves against `gp.append`'s), or the
+    # ascent (the single-study suggest on the batched lane's own state).
+    bits = {"suggest_unequal_lanes": [], "append_unequal_lanes": [],
+            "ascent_unequal_lanes": []}
+    for s, (st, u, _) in enumerate(singles):
+        lane = eng.study_state(s)
+        if not torch.equal(got_u[s], u):
+            bits["suggest_unequal_lanes"].append(s)
+        if not all(torch.equal(getattr(lane, k), getattr(st, k))
+                   for k in ("x_buf", "y_buf", "l_buf", "li_buf", "alpha")):
+            bits["append_unequal_lanes"].append(s)
+        own_u, _ = acq_mod.optimize_acquisition(
+            lane, kernel_of(s), lo, hi, eng.cfg.acq, seeds=seeds[s],
+            desc=None if eng.desc is None else index_descriptor(eng.desc, s))
+        if not torch.equal(got_u[s], own_u):
+            bits["ascent_unequal_lanes"].append(s)
     at_seeds = ei_at_seeds(eng, seeds)
     if not (worst["l_buf"] <= TOL_LANE_FACTOR
             and worst["li_buf"] <= TOL_LANE_INVERSE
@@ -2166,7 +2221,7 @@ def lane_parity(eng, studies, units, gen) -> dict:
             and len(diverged) <= n_studies // 4):
         raise AssertionError(f"lane parity: {worst}, diverged {diverged}")
     return {"max_dev": worst, "diverged_lanes": len(diverged),
-            "diverged": diverged, "at_seeds": at_seeds, "tol": {
+            "diverged": diverged, "bits": bits, "at_seeds": at_seeds, "tol": {
                 "suggest": TOL_LANE_SUGGEST, "l_buf": TOL_LANE_FACTOR,
                 "li_buf_alpha": TOL_LANE_INVERSE},
             "batched_round_ms": batched_ms,
@@ -2181,16 +2236,16 @@ def ei_at_seeds(eng, seeds) -> dict:
     with the same operands (the lane's rows of the stacked ones).  The two
     must be torch.equal, with the same k-split in their `acq.launch_plan`
     (slices and k-tiles a slice): a lane of the batch is summed in the
-    single launch's order.  Also reported, not held: whether the lane's own
-    hoist (`_make_eval_batch` on the lane's views, as the single-study
-    path computes A, f_best and the mean) gives the same bits."""
+    single launch's order.  Also held: the lane's own hoist
+    (`_make_eval_batch` on the lane's views, as the single-study path
+    computes A, f_best and the mean) gives the same bits as the batched
+    suggest's operands (`own_hoist_unequal_lanes` empty)."""
     from repro_torch.core import acquisition as acq_mod
-    from repro_torch.core import gp
     from repro_torch.core.descriptor import project_units
     from repro_torch.kernels import acq
     st, cfg = eng.state, eng.cfg.acq
     x0 = seeds if eng.desc is None else project_units(seeds, eng.desc)
-    args = stacked_engine_args(st, x0)
+    args = stacked_engine_args(eng, x0)
     masks = () if eng.desc is None else (eng.desc.cont_mask, eng.desc.cat_mask)
     launch = acq.fused_ei_grad_cuda if not masks else \
         acq.fused_ei_grad_mixed_cuda
@@ -2205,9 +2260,8 @@ def ei_at_seeds(eng, seeds) -> dict:
     for s in range(eng.n_studies):
         v1, g1 = launch(*(a[s] for a in args), *(m[s] for m in masks))
         equal = bool(torch.equal(v_all[s], v1) and torch.equal(g_all[s], g1))
-        lane = eng._lane(s)
-        own = acq_mod._make_eval_batch(lane, eng._kernel_for(s), cfg, True,
-                                       acq_mod._f_best(lane), gp._ymean(lane))
+        own = acq_mod._make_eval_batch(eng._lane(s), eng._kernel_for(s), cfg,
+                                       True)
         vo, go = own(x0[s])
         own_equal = bool(torch.equal(v_all[s], vo) and torch.equal(g_all[s], go))
         if not equal:
@@ -2226,10 +2280,86 @@ def ei_at_seeds(eng, seeds) -> dict:
                "tiles_per_slice": plans[eng.n_studies].tiles_per_slice,
                "grid": list(plans[eng.n_studies].grid)},
            "own_hoist_unequal_lanes": own_unequal, "own_hoist": lanes}
-    if unequal or not same_split:
+    if unequal or not same_split or own_unequal:
         raise AssertionError(f"fused EI at the seeds: lanes {unequal} of the "
                              f"S = {eng.n_studies} launch differ from their "
-                             f"single launches: {out}")
+                             f"single launches, lanes {own_unequal} from "
+                             f"their own hoist: {out}")
+    return out
+
+
+def hoist_times(eng) -> dict:
+    """The batched suggest's hoist on the engine's state, by CUDA events
+    (median of 20) and host clock: lane by lane (`acquisition.hoist`, the
+    suggest's own) beside the batched form it replaced (one (S, n_max,
+    n_max) GEMM and (S, n_max) reductions over the device counts)."""
+    from repro_torch.core import acquisition as acq_mod
+    from repro_torch.core import gp
+    st, cfg = eng.state, eng.cfg.acq
+
+    def lanes():
+        acq_mod.hoist(st, cfg, eng._n_host)
+
+    def batched():
+        gp._active_mask(st).to(st.x_buf.dtype)
+        st.li_buf.transpose(-1, -2) @ st.li_buf
+        gp._ymean(st) - acq_mod._f_best(st) - cfg.xi
+
+    return {"lane_by_lane_ms": median_ms(lanes),
+            "batched_form_ms": median_ms(batched),
+            "lane_by_lane_host_ms": host_ms(lanes),
+            "batched_form_host_ms": host_ms(batched)}
+
+
+def batched_forms(dev) -> dict:
+    """Informational: which batched forms of the engine's per-lane work
+    are, lane by lane, bit for bit the single-study calls on this card
+    (random data at the engine's shapes, S = 16, n_max = 1024): the
+    self-covariance (Matérn and mixed, d = 5 and 6), the masked mean's
+    sum, the append's products (q = L^-1 p, q.q, q^T L^-1) and the hoist's
+    A = L^-T L^-1.  Lists the lanes that differ; why the engine runs
+    these lane by lane."""
+    from repro_torch.core.kernels import KernelParams, make_mixed_kernel
+    from repro_torch.core.kernels import matern52
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n_studies, n = ENGINE_STUDIES, N_MAX
+    out = {}
+
+    def differ(name, batched, single):
+        out[name] = [s for s in range(n_studies)
+                     if not torch.equal(batched[s], single(s))]
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    for d in (DIM, MIXED_DIM):
+        xs = rand(n_studies, d)
+        p = KernelParams(rand(n_studies) + 0.5, rand(n_studies) * 0.5 + 0.05,
+                         torch.full((n_studies,), 1e-5, device=dev))
+
+        def lane(s):
+            return KernelParams(p.sigma2[s], p.rho[s], p.noise2[s])
+
+        cm = (rand(n_studies, d) > 0.4).float()
+        for tag, kern, one in (
+                ("matern", matern52, lambda s: matern52),
+                ("mixed", make_mixed_kernel(cm, 1.0 - cm),
+                 lambda s: make_mixed_kernel(cm[s], 1.0 - cm[s]))):
+            differ(f"self-covariance {tag} d={d}",
+                   kern(xs[:, None, :], xs[:, None, :], p)[:, 0, 0],
+                   lambda s: one(s)(xs[s][None], xs[s][None], lane(s))[0, 0])
+    li = torch.tril(torch.randn((n_studies, n, n), generator=gen,
+                                device=dev)) * 0.1
+    v = torch.randn((n_studies, n), generator=gen, device=dev)
+    q = (li @ v[..., None])[..., 0]
+    differ("masked mean's sum", torch.sum(v, dim=-1),
+           lambda s: torch.sum(v[s], dim=-1))
+    differ("q = L^-1 p", q, lambda s: li[s] @ v[s])
+    differ("q.q", torch.sum(q * q, dim=-1), lambda s: q[s] @ q[s])
+    differ("q^T L^-1", (q[:, None, :] @ li)[:, 0, :], lambda s: q[s] @ li[s])
+    differ("A = L^-T L^-1", li.transpose(-1, -2) @ li,
+           lambda s: li[s].transpose(-1, -2) @ li[s])
     return out
 
 
@@ -2398,6 +2528,7 @@ def engine_path(dev, mixed: bool):
     if mixed:
         line["stacked_masks"] = stacked_mask_checks(eng, gen)
     line["lane_parity"], units = lane_parity(eng, studies, units, gen)
+    line["hoist"] = hoist_times(eng)
     more, units = unflagged_round(eng, studies, units)
     line.update(more)
     units = sync_free_round(eng, studies, units)
@@ -3173,6 +3304,423 @@ def neural_path(dev, eng, studies, mixed: bool):
     return counts, line
 
 
+# --- the pool phases: StudyPool and TrialScheduler at full width ------------
+
+POOL_ROUNDS = 32          # advance_round rounds, every study told
+POOL_ASK = 8              # the q of the pool's asks (slots FANTASY_SLOTS)
+POOL_EXPORT_SLOT = 7      # the slot round-tripped through export / import
+SCHED_BUDGET = 16         # TrialScheduler.run's budget after its prefill
+SCHED_PARALLEL = 4
+
+
+class PoolPair:
+    """A StudyPool (a) and its twin (b), built alike and fed the same
+    events: a serves through `advance_round`, b through
+    `advance_round_begin` + `finish()`; every round's suggestions must be
+    equal.  `log` keeps the rounds a ran alone (the profile), which
+    `catch_up` replays on b."""
+
+    def __init__(self, name, dev, studies, ckpt_dir):
+        from repro_torch.hpo.pool import SchedulerConfig, StudyPool
+        self.name, self.dev, self.studies = name, dev, studies
+        self.mixed = name.endswith("mixed")
+        self.spaces = [st.space for st in studies]
+        self.cfg = SchedulerConfig(n_max=N_MAX, lag=LAG, seed=0,
+                                   ckpt_dir=ckpt_dir, ckpt_every=10 ** 9)
+        self.a = StudyPool(self.spaces, self.cfg, device=dev)
+        self.b = StudyPool(self.spaces,
+                           dataclasses.replace(self.cfg, ckpt_dir=None),
+                           device=dev)
+        self.log = []
+
+    def fresh(self):
+        from repro_torch.hpo.pool import StudyPool
+        return StudyPool(self.spaces, self.cfg, device=self.dev)
+
+    def values(self, out) -> dict:
+        """Each study's objective at its first suggestion of `out`."""
+        return {s: float(self.studies[s].objective(trs[0].unit[None])[0])
+                for s, trs in out.items()}
+
+    def events(self, out, order, vals):
+        return [(s, out[s][0], vals[s]) for s in order]
+
+    def step(self, pool, out, order, vals, staged=False, check=None):
+        """One round of `pool` telling `out`'s first trials in `order`;
+        launches held to the engine phase's when `check` is given."""
+        flags = np.ones(pool.n_studies, bool)
+        due = lag_due(pool.engine, flags)
+        before = read_counts()
+        ev = self.events(out, order, vals)
+        t0 = time.perf_counter()
+        if staged:
+            pending = pool.advance_round_begin(ev)
+            new = pending.finish()
+        else:
+            new = pool.advance_round(ev)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if check is not None:
+            got = diff_counts(read_counts(), before)
+            want = engine_counts(self.mixed, 1, due, 1, check)
+            if got != want:
+                raise AssertionError(f"{self.name}: round launches {got}, "
+                                     f"expected {want}")
+        if any(tr.status != "done" for _, tr, _ in ev):
+            raise AssertionError(f"{self.name}: told trials not done")
+        return new, ms, due
+
+    def catch_up(self, out_b):
+        """Replay on b the rounds a ran alone; suggestions equal a's."""
+        for order, vals, units in self.log:
+            out_b, _, _ = self.step(self.b, out_b, order, vals, staged=True)
+            pool_units_equal(self.name, units, out_b)
+        self.log = []
+        return out_b
+
+
+def pool_units_equal(name, a, b) -> None:
+    """Two rounds' suggestions ({study: [trial]} or {study: units}),
+    bit for bit."""
+    for s in a:
+        ua = a[s] if isinstance(a[s], np.ndarray) else a[s][0].unit
+        if not np.array_equal(ua, b[s][0].unit):
+            raise AssertionError(f"{name}: study {s} suggestion differs "
+                                 f"from its twin's")
+
+
+def pool_lanes_equal(name, a, b, what) -> None:
+    bad = lanes_equal(a.engine, b.engine)
+    if bad:
+        raise AssertionError(f"{name}: lanes {bad} differ from the twin's "
+                             f"({what})")
+
+
+def pool_prefill(pool, studies, sizes) -> None:
+    """Study s's `sizes[s]` points of its own, every event of all studies
+    shuffled into one `absorb_many` (one masked round a point of the
+    fullest study)."""
+    events = []
+    for s, st in enumerate(studies):
+        pts = st.space.sample(np.random.default_rng(100 + s), sizes[s])
+        for p, v in zip(pts, st.objective(pts)):
+            events.append((s, pool._make_trial(s, p), float(v)))
+    order = np.random.default_rng(200).permutation(len(events))
+    pool.absorb_many([events[i] for i in order])
+
+
+def pool_path(dev, mixed: bool, engine_line: dict):
+    """Phases pool and pool_mixed: the port's `StudyPool` over the engine
+    phase's 16 studies (n_max = 1024, lag 32, 48 restarts x 20 steps),
+    with a twin.  Counts set to 0 before the prefill and read after the
+    last round: each pool prefilled through one `absorb_many` of every
+    study's points, shuffled (study s to 960 - 8 s), exactly the engine's
+    launches (one column gram a masked round, two masked grams, factors and
+    L X = I a lag event); then 32 `advance_round` rounds, each telling the
+    last round's suggestions in a shuffled order and held to the engine
+    phase's launches (21 fused EI, one column gram, plus a due lag
+    event's); the twin runs the same rounds as `advance_round_begin` +
+    `finish()`, one begin without a lag event under
+    `set_sync_debug_mode("error")`, and its suggestions and every leaf of
+    every lane must be the pool's.  Returns (counts, pair, line)."""
+    import tempfile
+    name = "pool_mixed" if mixed else "pool"
+    studies = engine_studies(mixed)
+    sizes = [N_SEED - ENGINE_SPREAD * s for s in range(ENGINE_STUDIES)]
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_pool_")
+    pair = PoolPair(name, dev, studies, ckpt_dir)
+    steps = pair.cfg.acq.ascent_steps
+    refits = sum(k // LAG for k in sizes)
+    want = engine_counts(mixed, max(sizes), refits, 0, steps)
+    torch.cuda.synchronize()
+    reset_counts()
+    prefill_s = []
+    for pool in (pair.a, pair.b):
+        before = read_counts()
+        t0 = time.perf_counter()
+        pool_prefill(pool, studies, sizes)
+        pool.engine.sync()
+        prefill_s.append(time.perf_counter() - t0)
+        got = diff_counts(read_counts(), before)
+        if got != want:
+            raise AssertionError(f"{name} prefill: launches {got}, "
+                                 f"expected {want}")
+        if [pool.engine.n(s) for s in range(ENGINE_STUDIES)] != sizes:
+            raise AssertionError(f"{name}: prefill n")
+    before = read_counts()
+    out_a, out_b = pair.a.suggest_all(), pair.b.suggest_all()
+    got = diff_counts(read_counts(), before)
+    if got != engine_counts(mixed, 0, 0, 2, steps):
+        raise AssertionError(f"{name}: suggest_all launches {got}")
+    pool_units_equal(name, out_a, out_b)
+    rng = np.random.default_rng(9)
+    round_ms, round_due, sync_free_round = [], [], None
+    for r in range(POOL_ROUNDS):
+        order = [int(s) for s in rng.permutation(ENGINE_STUDIES)]
+        vals = pair.values(out_a)
+        out_a, ms, due = pair.step(pair.a, out_a, order, vals, check=steps)
+        round_ms.append(ms)
+        round_due.append(due)
+        due_b = lag_due(pair.b.engine, np.ones(ENGINE_STUDIES, bool))
+        if sync_free_round is None and r > 0 and not due_b:
+            sync_free_round = r
+            ev = pair.events(out_b, order, vals)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = pair.b.advance_round_begin(ev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            out_b = pending.finish()
+        else:
+            out_b, _, _ = pair.step(pair.b, out_b, order, vals, staged=True,
+                                    check=steps)
+        pool_units_equal(name, out_a, out_b)
+    counts = read_counts()
+    pool_lanes_equal(name, pair.a, pair.b, "after the rounds")
+    if sync_free_round is None:
+        raise AssertionError(f"{name}: no round without a lag event")
+    units = np.stack([out_a[s][0].unit for s in range(ENGINE_STUDIES)])
+    off = sum(int((st.space.project(units[s]) != units[s]).any())
+              for s, st in enumerate(studies))
+    if off or not np.isfinite(units).all():
+        raise AssertionError(f"{name}: {off} suggestions off the lattice")
+    calm = [ms for ms, due in zip(round_ms, round_due) if not due]
+    pair.out = (out_a, out_b)
+    line = {"phase": name, "studies": ENGINE_STUDIES, "n_max": N_MAX,
+            "layouts": [st.tag for st in studies],
+            "n_prefill": [sizes[0], sizes[-1]],
+            "prefill_seconds": prefill_s, "rounds": POOL_ROUNDS,
+            "round_refits": sum(round_due), "launches": counts,
+            "per_round_launches": engine_counts(mixed, 1, 0, 1, steps),
+            "twin_begin_finish_equal": True,
+            "sync_free_begin_round": sync_free_round,
+            "n_final": [pair.a.engine.n(s) for s in range(ENGINE_STUDIES)],
+            "advance_round_ms": {
+                "median": statistics.median(calm),
+                "mean": statistics.fmean(calm), "min": min(calm),
+                "max": max(calm), "rounds_without_lag_event": len(calm),
+                "by_round": round_ms, "lag_events_by_round": round_due},
+            "engine_advance_ms_median": engine_line["advance_ms"]["median"]}
+    emit(line)
+    return counts, pair, line
+
+
+def profile_pool(pair) -> None:
+    """Profile phase: one more `advance_round` of the pool under
+    torch.profiler (busy share, device ms by kernel), then the twin
+    replays the rounds."""
+    state = {"out": pair.out[0]}
+
+    def round_():
+        order = list(range(ENGINE_STUDIES))
+        vals = pair.values(state["out"])
+        state["out"], _, _ = pair.step(pair.a, state["out"], order, vals)
+        pair.log.append((order, vals, {s: trs[0].unit for s, trs in
+                                       state["out"].items()}))
+
+    split = device_split(round_)
+    t0 = time.perf_counter()
+    round_()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    pair.out = (state["out"], pair.catch_up(pair.out[1]))
+    pool_lanes_equal(pair.name, pair.a, pair.b, "after the profile")
+    emit({"phase": "profile", "path": pair.name, "round_wall_ms": wall,
+          "device_span_ms": split["span_ms"],
+          "device_busy_ms": split["busy_ms"],
+          "device_idle_ms": split["idle_ms"],
+          "device_busy_share": split["busy_ms"] / wall,
+          "by_kernel": split["by_name"][:12]})
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def pool_protocol(pair) -> dict:
+    """The pool's fantasies, checkpoint and slot export on a pair the pool
+    phase left (run last).  Pool a asks `ask_q(8)` on slots 4 and 12
+    (launches held to `fantasy_counts`); the tells come out of order, with
+    a foreign tell and a release, then a drain through `absorb_many`; b
+    takes the same real tells, never fantasizes and burns the asks' draws
+    (`_draw_q`), and every leaf of every lane must end torch.equal, alpha
+    included.  With slot 4's ask_q(8) out, a `checkpoint()`: the manifest
+    names the reference's leaves in order, a fresh pool `restore()`s every
+    leaf torch.equal to b's and a's ledgers, and one more identical
+    `advance_round` on the restored pool and on b gives equal suggestions
+    and leaves.  One slot round-trips `export_study` / `import_study` bit
+    for bit.  Host-clock ms of the checkpoint (and its bytes) and of the
+    restore."""
+    import shutil
+    from repro_torch import convert
+    from repro_torch.hpo.pool import Trial
+    name, a, b, mixed = pair.name, pair.a, pair.b, pair.mixed
+    rng = np.random.default_rng(31)
+
+    def value(s, unit):
+        return float(pair.studies[s].objective(np.asarray(unit)[None])[0])
+
+    def foreign(unit):
+        return Trial(10_000, np.asarray(unit, np.float32), {})
+
+    def tell(s, tr, v=None):
+        v = value(s, tr.unit) if v is None else v
+        a.absorb(s, tr, v)
+        b.absorb(s, foreign(tr.unit), v)
+
+    asked = {}
+    for s in FANTASY_SLOTS:
+        before = read_counts()
+        asked[s] = a.ask_q(s, POOL_ASK)
+        got = diff_counts(read_counts(), before)
+        if got != fantasy_counts(mixed, a.cfg.acq.ascent_steps,
+                                 asked=POOL_ASK):
+            raise AssertionError(f"{name}: ask_q launches {got}")
+        b._draw_q(s, POOL_ASK)
+        units = np.stack([t.unit for t in asked[s]])
+        if not np.array_equal(pair.studies[s].space.project(units), units):
+            raise AssertionError(f"{name}: asked points off the lattice")
+    s4, s12 = FANTASY_SLOTS
+    for s, i in ((s4, 5), (s12, 7), (s4, 2), (s12, 0)):
+        tell(s, asked[s][i])
+    extra = pair.studies[s4].space.sample(rng, 1)[0]
+    tell(s4, foreign(extra))
+    if a.release_fantasies(s12, [asked[s12][3].unit]) != 1:
+        raise AssertionError(f"{name}: release")
+    left = [(s, tr) for s in FANTASY_SLOTS for i, tr in enumerate(asked[s])
+            if not (s == s4 and i in (5, 2)) and not (s == s12 and i in
+                                                      (7, 0, 3))]
+    order = rng.permutation(len(left))
+    ev_a = [(s, tr, value(s, tr.unit)) for s, tr in (left[i] for i in order)]
+    a.absorb_many(ev_a)
+    b.absorb_many([(s, foreign(tr.unit), v) for s, tr, v in ev_a])
+    if any(a.fantasy_active(s) for s in FANTASY_SLOTS):
+        raise AssertionError(f"{name}: fantasy rows left after the drain")
+    pool_lanes_equal(name, a, b, "after the fantasy script")
+
+    # The checkpoint with slot 4's ask out, and the restore.
+    pending = a.ask_q(s4, POOL_ASK)
+    b._draw_q(s4, POOL_ASK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = a.checkpoint()
+    ckpt_ms = 1e3 * (time.perf_counter() - t0)
+    if a.fantasy_active(s4) != POOL_ASK:
+        raise AssertionError(f"{name}: checkpoint dropped the live fantasies")
+    with open(os.path.join(path, "manifest.json")) as f:
+        names = json.load(f)["names"]
+    if names != list(convert.POOL_KEYS):
+        raise AssertionError(f"{name}: manifest names {names}")
+    c = pair.fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not c.restore():
+        raise AssertionError(f"{name}: nothing restored")
+    c.engine.sync()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    pool_lanes_equal(name, c, b, "restored against the twin's real state")
+    if any(c.history(s) != a.history(s) for s in range(c.n_studies)):
+        raise AssertionError(f"{name}: restored ledgers differ")
+    units = {s: trs[0].unit for s, trs in pair.out[1].items()}
+    vals = {s: value(s, u) for s, u in units.items()}
+    out_c = c.advance_round([(s, foreign(u), vals[s]) for s, u in
+                             units.items()])
+    out_b = b.advance_round([(s, foreign(u), vals[s]) for s, u in
+                             units.items()])
+    pool_units_equal(name, out_c, out_b)
+    pool_lanes_equal(name, c, b, "one round after the restore")
+
+    # One slot's export and import.
+    slot = POOL_EXPORT_SLOT
+    snap = c.engine.study_state(slot)
+    gen = c.studies[slot].gen.get_state().clone()
+    hist = c.history(slot)
+    exp = c.export_study(slot)
+    c.reset_study(slot, space=pair.studies[slot].space)
+    c.import_study(slot, exp["tree"], exp["meta"],
+                   space=pair.studies[slot].space)
+    back = c.engine.study_state(slot)
+    from repro_torch.core import gp
+    same = all(torch.equal(u, v) for u, v in zip(gp._leaves(back),
+                                                  gp._leaves(snap)))
+    if not (same and (back.n, back.since_refit) == (snap.n, snap.since_refit)
+            and torch.equal(c.studies[slot].gen.get_state(), gen)
+            and c.history(slot) == hist):
+        raise AssertionError(f"{name}: export / import not bit for bit")
+    a.release_fantasies(s4, [t.unit for t in pending])
+    nbytes = dir_bytes(path)
+    shutil.rmtree(pair.cfg.ckpt_dir, ignore_errors=True)
+    return {"fantasy_twin_equal": True, "checkpoint_ms": ckpt_ms,
+            "checkpoint_bytes": nbytes, "restore_ms": restore_ms,
+            "manifest_names": names, "restored_equal": True,
+            "round_after_restore_equal": True,
+            "export_import_slot": slot, "export_import_equal": True}
+
+
+def scheduler_path(dev) -> dict:
+    """The float pool phase's scheduler: a `TrialScheduler` on one Levy-5d
+    study (n_max = 1024, lag 32, parallel 4), prefilled to 960 points
+    through `absorb_many`, then `run(objective, budget=16)`: a resumed
+    run, so no seed trial; every suggest exactly 21 fused EI and nothing
+    else, every absorb one column gram plus a due lag event's launches.
+    Host-clock ms of a suggest and an absorb (medians)."""
+    from repro_torch.hpo.pool import SchedulerConfig
+    from repro_torch.hpo.scheduler import TrialScheduler
+    study = engine_studies(False)[0]
+    sched = TrialScheduler(study.space, SchedulerConfig(
+        n_max=N_MAX, lag=LAG, seed=0, parallel=SCHED_PARALLEL), device=dev)
+    pool = sched.pool
+    pool_prefill(pool, [study], [N_SEED])
+    pool.engine.sync()
+    suggest, absorb = pool.suggest, pool.absorb
+    times = {"suggest": [], "absorb": []}
+
+    def counted(kind, fn, want_fn):
+        def wrapped(*args, **kw):
+            want = want_fn()
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[kind].append(1e3 * (time.perf_counter() - t0))
+            got = diff_counts(read_counts(), before)
+            if got != want:
+                raise AssertionError(f"scheduler {kind}: launches {got}, "
+                                     f"expected {want}")
+            return out
+        return wrapped
+
+    pool.suggest = counted("suggest", suggest,
+                           lambda: engine_counts(False, 0, 0, 1, 20))
+    pool.absorb = counted("absorb", absorb, lambda: engine_counts(
+        False, 1, lag_due(pool.engine, np.ones(1, bool)), 0, 20))
+
+    def objective(hp):
+        u = np.array([hp[f"u{i}"] for i in range(DIM)], np.float32)
+        return float(study.objective(u[None])[0])
+
+    t0 = time.perf_counter()
+    best = sched.run(objective, budget=SCHED_BUDGET)
+    run_s = time.perf_counter() - t0
+    pool.suggest, pool.absorb = suggest, absorb
+    done = [t for t in sched.trials if t.status == "done"]
+    if not (pool.engine.n(0) == N_SEED + SCHED_BUDGET
+            and len(done) == N_SEED + SCHED_BUDGET
+            and len(times["suggest"]) == SCHED_BUDGET and best is not None):
+        raise AssertionError(f"scheduler: n {pool.engine.n(0)}, done "
+                             f"{len(done)}, suggests {len(times['suggest'])}")
+    return {"n": pool.engine.n(0), "budget": SCHED_BUDGET,
+            "parallel": SCHED_PARALLEL, "run_seconds": run_s,
+            "suggests": len(times["suggest"]),
+            "suggest_ms_median": statistics.median(times["suggest"]),
+            "absorb_ms_median": statistics.median(times["absorb"]),
+            "best": best.value,
+            "per_suggest_launches": engine_counts(False, 0, 0, 1, 20)}
+
+
 def trsv_launches(dev) -> dict:
     """Phase 8: one call of the general solve at each of `trsv_cases`'
     shapes and at B = I, n = 6144, under torch.profiler: each must be
@@ -3205,12 +3753,10 @@ def record_ascent(opt, state, space) -> dict:
     (raw values), nothing moves at all, so a standardized state shows the
     floats moving beside the ints that do not."""
     from repro_torch.core import acquisition as acq_mod
-    from repro_torch.core import gp as gp_mod
     from repro_torch.core.descriptor import project_units
     iterates = []
-    eval_batch = acq_mod._make_eval_batch(
-        state, opt.kernel, opt.cfg.acq, True, acq_mod._f_best(state),
-        gp_mod._ymean(state))
+    eval_batch = acq_mod._make_eval_batch(state, opt.kernel, opt.cfg.acq,
+                                          True)
 
     def recording(x):
         iterates.append(x.clone())
@@ -3500,6 +4046,15 @@ def main(argv: list[str] | None = None) -> int:
                for name, mixed in (("engine", False), ("engine_mixed", True))}
     for name, (counts, *_) in engines.items():
         launches_by_path[name] = counts
+    emit({"phase": "engine", "part": "batched forms unequal lanes",
+          **batched_forms(dev)})
+    # The pool phases: the rounds here, the profile with the others, the
+    # fantasies, checkpoint and scheduler last.
+    pools = {}
+    for name, mixed in (("pool", False), ("pool_mixed", True)):
+        engine_line = engines["engine_mixed" if mixed else "engine"][-1]
+        launches_by_path[name], pools[name], _ = pool_path(dev, mixed,
+                                                           engine_line)
     stacked = engines["engine_mixed"][-1]["stacked_masks"]
     for row in rows:
         keys = {"mixed_gram": ("column", "masked"),
@@ -3512,6 +4067,8 @@ def main(argv: list[str] | None = None) -> int:
         profile_steps(name, driver, state, hist)
     for name, (_, eng, studies, units, _) in engines.items():
         profile_engine(name, eng, studies, units)
+    for pair in pools.values():
+        profile_pool(pair)
     cholesky_launches(dev)
     tri_inverse_launches(dev)
     for tag, line in trsv_launches(dev).items():
@@ -3538,6 +4095,11 @@ def main(argv: list[str] | None = None) -> int:
         profile_fantasy(fantasy, eng, FANTASY_SLOTS[0])
         launches_by_path[fantasy], _ = fantasy_path(dev, eng, studies,
                                                     eng.mixed)
+    for name, pair in pools.items():
+        line = {"phase": name, "part": "protocol", **pool_protocol(pair)}
+        if name == "pool":
+            line["scheduler"] = scheduler_path(dev)
+        emit(line)
     # Device time beside the event time from the kernels phase (the gram's
     # from its 1024^2 call): the difference is the wrapper's host work
     # while the card idles.

@@ -10,7 +10,10 @@ and a stacked descriptor go under the same names with a leading S on
 every leaf; the stacked state's `n` and `since_refit` then stay (S,)
 int32 tensors on the device.  A `NeuralBasisState` goes under its field
 names (the keys of the reference's `nb_to_json`): float32 leaves and 0-d
-int32 counters, each the shape the reference holds.
+int32 counters, each the shape the reference holds.  A pool
+checkpoint's tree (`POOL_KEYS`, `pool_tree_*`) is the stacked state under
+the names the reference's `StudyPool.checkpoint` writes
+(`dataclasses.asdict` of the state: no leading dots).
 """
 from __future__ import annotations
 
@@ -123,3 +126,28 @@ def nb_state_from_numpy(leaves: dict[str, np.ndarray],
         a = np.array(leaves[k], np.int32 if k in NB_COUNTERS else np.float32)
         out[k] = torch.from_numpy(a).to(dev)
     return NeuralBasisState(**out)
+
+
+# The leaves of a pool checkpoint's GP tree, in the order the reference's
+# store writes them (its flatten sorts dict keys).
+POOL_KEYS = ("alpha", "clamp_count", "l_buf", "li_buf", "n", "params/noise2",
+             "params/rho", "params/sigma2", "since_refit", "x_buf", "y_buf")
+
+
+def pool_tree_to_numpy(state: LazyGPState) -> dict[str, np.ndarray]:
+    """A stacked state as a pool checkpoint's leaves: numpy arrays under
+    `POOL_KEYS`, each with the leading S (float32 buffers and params,
+    int32 counters)."""
+    leaves = state_to_numpy(state)
+    return {k: leaves["." + k.replace("/", "/.")] for k in POOL_KEYS}
+
+
+def pool_tree_from_numpy(leaves: dict[str, np.ndarray],
+                         device: str | torch.device = "cuda") -> LazyGPState:
+    """A stacked port state on `device` from a pool checkpoint's leaves
+    (`POOL_KEYS`, each with the leading S), bits kept."""
+    missing = [k for k in POOL_KEYS if k not in leaves]
+    if missing:
+        raise KeyError(f"pool checkpoint leaves missing: {missing}")
+    return state_from_numpy({"." + k.replace("/", "/."): leaves[k]
+                             for k in POOL_KEYS}, device)

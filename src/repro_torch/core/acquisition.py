@@ -14,13 +14,17 @@ gives), the neural-basis tier's cost-aware mode.
 Each ascent step is one `ops.fused_ei_grad` call for the whole restart
 batch (the fused kernel on the card), with the loop invariants — f_best,
 the active mean, `A = li_buf^T li_buf` and the active mask — hoisted once
-per suggest call.  `AcqConfig.fused = "off"` (or a kernel / acquisition the
-fused kernel does not cover) takes the autodiff ascent through the gram's
-`autograd.Function` instead.
+per suggest call (`hoist`); a stacked state's are hoisted lane by lane
+with the single-study calls, so a lane's operands are bit for bit those
+of a single-study suggest on it.  `AcqConfig.fused = "off"` (or a kernel
+/ acquisition the fused kernel does not cover) takes the autodiff ascent
+through the gram's `autograd.Function` instead.
 
 Random draws are explicit: the restart seeds come from a `torch.Generator`
 or are passed in as a tensor (the tests pass the JAX package's own seeds),
-and so does the jitter of the top-t backfill.  Restart selection
+and so does the jitter of the top-t backfill; `draw_seeds` /
+`draw_jitter` are those draws, for callers that keep a stream per study
+(the pool).  Restart selection
 quantizes the values (low-mantissa clearing) before the argmax / sort, so
 round-off never flips which restart wins a numerical tie.  On a mixed
 search space (`desc`) every iterate is projected back onto the feasible
@@ -148,14 +152,41 @@ def _use_fused(cfg: AcqConfig, kernel: KernelFn) -> bool:
     return cfg.fused != "off" and ops.fused_supported(kernel, cfg.name)
 
 
+def hoist(state: gp_mod.LazyGPState, cfg: AcqConfig, counts=None
+          ) -> tuple[Tensor, Tensor, Tensor]:
+    """The fused ascent's loop invariants: (the active mask as floats,
+    `A = li_buf^T li_buf`, the shift `ymean - f_best - xi`).
+
+    A stacked state's A and mean are computed lane by lane, each with the
+    single-study calls on the lane's rows and its host count (`counts`,
+    the engine's mirrors; read from the device when not given): one
+    (n_max, n_max) GEMM and one (n_max,) sum over n a lane, where a
+    batched call would sum in another order.  The mask, f_best (a max)
+    and the shift's subtractions are exact in any shape.  So every lane's
+    operands are bit for bit those of a single-study suggest on it."""
+    amask = gp_mod._active_mask(state)
+    f_best = _f_best(state)
+    if state.is_batched:
+        counts = state.n.tolist() if counts is None else counts
+        masked_y = torch.where(amask, state.y_buf, 0.0)
+        li = state.li_buf
+        ymean = torch.stack([gp_mod._masked_mean(masked_y[s], int(counts[s]))
+                             for s in range(state.n_studies)])
+        a_buf = torch.stack([li[s].transpose(-1, -2) @ li[s]
+                             for s in range(state.n_studies)])
+    else:
+        ymean = gp_mod._ymean(state)
+        a_buf = state.li_buf.transpose(-1, -2) @ state.li_buf
+    return amask.to(state.x_buf.dtype), a_buf, ymean - f_best - cfg.xi
+
+
 def _make_eval_batch(state: gp_mod.LazyGPState, kernel: KernelFn,
-                     cfg: AcqConfig, fused: bool, f_best: Tensor,
-                     ymean: Tensor,
-                     log_cost_fn: Callable[[Tensor], Tensor] | None = None):
+                     cfg: AcqConfig, fused: bool,
+                     log_cost_fn: Callable[[Tensor], Tensor] | None = None,
+                     counts=None):
     """Build `eval(X (r, d)) -> (vals (r,), grads (r, d))` for the ascent.
 
-    Fused: hoists the active mask, `A = li_buf^T li_buf` (one GEMM over
-    every ascent step) and the scalar shift `ymean - f_best - xi`; each
+    Fused: the loop invariants come from `hoist` (`counts` as there); each
     step is then one `ops.fused_ei_grad` call, in its mixed form when the
     kernel is the mixed closure (its type masks).  A stacked state gives
     `eval(X (S, r, d))`, one call for all S studies.  Unfused (one study):
@@ -163,9 +194,7 @@ def _make_eval_batch(state: gp_mod.LazyGPState, kernel: KernelFn,
     (and the cost scaling of "ei_per_cost", `log_cost_fn`).
     """
     if fused:
-        amask = gp_mod._active_mask(state).to(state.x_buf.dtype)
-        a_buf = state.li_buf.transpose(-1, -2) @ state.li_buf
-        shift = ymean - f_best - cfg.xi
+        amask, a_buf, shift = hoist(state, cfg, counts)
         cont_mask = getattr(kernel, "cont_mask", None)
         cat_mask = getattr(kernel, "cat_mask", None)
 
@@ -176,6 +205,8 @@ def _make_eval_batch(state: gp_mod.LazyGPState, kernel: KernelFn,
                                      cat_mask=cat_mask)
 
         return eval_batch
+
+    f_best, ymean = _f_best(state), gp_mod._ymean(state)
 
     def eval_autodiff(x):
         with torch.enable_grad():
@@ -193,10 +224,24 @@ def ei_value_and_grad(state: gp_mod.LazyGPState, kernel: KernelFn, x: Tensor,
                       fused: bool = True) -> tuple[Tensor, Tensor]:
     """Acquisition value + gradient for a whole (r, d) candidate batch:
     one ascent iteration, fused (`fused=True`) or by autodiff."""
-    cfg = cfg or AcqConfig()
-    eval_batch = _make_eval_batch(state, kernel, cfg, fused, _f_best(state),
-                                  gp_mod._ymean(state))
-    return eval_batch(x)
+    return _make_eval_batch(state, kernel, cfg or AcqConfig(), fused)(x)
+
+
+def draw_seeds(lo: Tensor, hi: Tensor, restarts: int,
+               generator: torch.Generator | None,
+               batch: tuple[int, ...] = ()) -> Tensor:
+    """Restart seeds `lo + (hi - lo) * U[0, 1)`, (*batch, R, d), on lo's
+    device."""
+    return lo + (hi - lo) * torch.rand((*batch, restarts, lo.shape[-1]),
+                                       generator=generator, dtype=lo.dtype,
+                                       device=lo.device)
+
+
+def draw_jitter(lo: Tensor, top_t: int, generator: torch.Generator | None,
+                batch: tuple[int, ...] = ()) -> Tensor:
+    """The top-t backfill's standard normals, (*batch, top_t, d)."""
+    return torch.randn((*batch, top_t, lo.shape[-1]), generator=generator,
+                       dtype=lo.dtype, device=lo.device)
 
 
 def ascend_acquisition(eval_batch, lo: Tensor, hi: Tensor, cfg: AcqConfig,
@@ -220,13 +265,10 @@ def ascend_acquisition(eval_batch, lo: Tensor, hi: Tensor, cfg: AcqConfig,
     iterate after its gradient step and the backfill (mixed spaces).
     Returns (points (*batch, top_t, d), values (*batch, top_t)).
     """
-    d = lo.shape[-1]
     width = hi - lo
     project = project or (lambda u: u)
     if seeds is None:
-        seeds = lo + width * torch.rand((*batch, cfg.restarts, d),
-                                        generator=generator, dtype=lo.dtype,
-                                        device=lo.device)
+        seeds = draw_seeds(lo, hi, cfg.restarts, generator, batch)
     x = project(seeds.to(device=lo.device, dtype=lo.dtype))
     for _ in range(cfg.ascent_steps):
         _, g = eval_batch(x)
@@ -268,8 +310,7 @@ def ascend_acquisition(eval_batch, lo: Tensor, hi: Tensor, cfg: AcqConfig,
     # Fewer than top_t distinct basins: back-fill with jittered copies of
     # the best point so the batch shape stays fixed.
     if jitter is None:
-        jitter = torch.randn((*batch, top_t, d), generator=generator,
-                             dtype=lo.dtype, device=lo.device)
+        jitter = draw_jitter(lo, top_t, generator, batch)
     jitter = jitter.to(device=lo.device, dtype=lo.dtype)
     idx = torch.tensor([c + [c[0]] * (top_t - len(c)) for c in picks],
                        device=lo.device).reshape(*batch, top_t)
@@ -289,8 +330,8 @@ def optimize_acquisition(state: gp_mod.LazyGPState, kernel: KernelFn,
                          seeds: Tensor | None = None,
                          jitter: Tensor | None = None,
                          desc: desc_mod.TypeDescriptor | None = None,
-                         log_cost_fn: Callable[[Tensor], Tensor] | None = None
-                         ) -> tuple[Tensor, Tensor]:
+                         log_cost_fn: Callable[[Tensor], Tensor] | None = None,
+                         counts=None) -> tuple[Tensor, Tensor]:
     """Return (points (top_t, d), acquisition values (top_t,)), best first:
     top_t = 1 is sequential BO, top_t = t the paper's t best distinct
     local maxima.  Draws as `ascend_acquisition`.  `desc` (a mixed space's
@@ -306,21 +347,20 @@ def optimize_acquisition(state: gp_mod.LazyGPState, kernel: KernelFn,
     the stacked (S, d) descriptor.  Each ascent step is one fused-EI call
     for all S; selection is per study, with the same tie-break.  An
     acquisition the fused kernel does not cover runs study by study.
-    The fused EI sums each study in the same order whatever the batch
-    (`acq.launch_plan`), so on the same operands a lane's values are bit
-    for bit a single-study launch's; the hoisted operands (A, f_best, the
-    mean) come from batched reductions, so the batched suggestion matches
-    the single-study path to their round-off."""
+    `counts` are the studies' host counts (the engine's mirrors), read
+    from the device when not given.  The fused EI sums each study in the
+    same order whatever the batch (`acq.launch_plan`) and the hoisted
+    operands are computed lane by lane (`hoist`), so on the same state a
+    lane's ascent starts from the single-study path's operands, bit for
+    bit."""
     fused = _use_fused(cfg, kernel)
     if state.is_batched and not fused:
         return _optimize_each(state, kernel, lo, hi, cfg, top_t,
                               generator=generator, seeds=seeds,
                               jitter=jitter, desc=desc,
-                              log_cost_fn=log_cost_fn)
-    f_best = _f_best(state)
-    ymean = gp_mod._ymean(state)
-    eval_batch = _make_eval_batch(state, kernel, cfg, fused, f_best, ymean,
-                                  log_cost_fn)
+                              log_cost_fn=log_cost_fn, counts=counts)
+    eval_batch = _make_eval_batch(state, kernel, cfg, fused, log_cost_fn,
+                                  counts)
     project = ((lambda u: desc_mod.project_units(u, desc))
                if desc is not None else None)
     return ascend_acquisition(eval_batch, lo, hi, cfg, top_t,
@@ -330,13 +370,15 @@ def optimize_acquisition(state: gp_mod.LazyGPState, kernel: KernelFn,
 
 
 def _optimize_each(state, kernel, lo, hi, cfg, top_t, *, generator, seeds,
-                   jitter, desc, log_cost_fn):
+                   jitter, desc, log_cost_fn, counts):
     """The stacked suggest one study at a time (the autodiff ascent has no
-    study axis); reads each study's n from the device."""
+    study axis); each study's n from `counts`, else from the device."""
+    counts = state.n.tolist() if counts is None else counts
     outs = []
     for s in range(state.n_studies):
         outs.append(optimize_acquisition(
-            gp_mod.unstack_state(state, s), gp_mod.study_kernel(kernel, s),
+            gp_mod.unstack_state(state, s, n=int(counts[s]), since_refit=0),
+            gp_mod.study_kernel(kernel, s),
             lo, hi, cfg, top_t,
             generator=generator,
             seeds=None if seeds is None else seeds[s],

@@ -19,8 +19,10 @@ Stacked studies (DESIGN.md §7): `init_pool_state` / `stack_states` build a
 state whose leaves carry a leading study axis S, with `n`, `since_refit`
 and `clamp_count` (S,) int32 tensors on the device and (S,) params; the
 stacked engine (`repro_torch.hpo.engine`) keeps host mirrors of the
-counters and advances the state in place (`append_stacked`), as the
-reference's engine donates its buffers.  `unstack_state` gives one study
+counters and advances the state in place (`append_stacked`: one column
+gram for all studies, then each study's rows by `append`'s calls, so a
+lane stays bit for bit the single-study state), as the reference's engine
+donates its buffers.  `unstack_state` gives one study
 as a single-study state that every function here takes.
 """
 from __future__ import annotations
@@ -248,11 +250,18 @@ def _active_mask(state: LazyGPState, n: int | Tensor | None = None) -> Tensor:
 def _ymean(state: LazyGPState) -> Tensor:
     """Mean of the active observations (GP prior mean = running mean);
     (S,) for a stacked state."""
-    m = _active_mask(state)
-    total = torch.sum(torch.where(m, state.y_buf, 0.0), dim=-1)
-    if isinstance(state.n, Tensor):
-        return total / torch.clamp(state.n, min=1)
-    return total / max(state.n, 1)
+    return _masked_mean(torch.where(_active_mask(state), state.y_buf, 0.0),
+                        state.n)
+
+
+def _masked_mean(masked_y: Tensor, n: int | Tensor) -> Tensor:
+    """Sum over the last axis of zero-padded observations, over n: a host
+    int for one study (the single-study mean, which a stacked caller
+    computes lane by lane to keep its bits), or an (S,) tensor."""
+    total = torch.sum(masked_y, dim=-1)
+    if isinstance(n, Tensor):
+        return total / torch.clamp(n, min=1)
+    return total / max(n, 1)
 
 
 def _recompute_alpha(state: LazyGPState) -> Tensor:
@@ -318,38 +327,47 @@ def append(state: LazyGPState, kernel: KernelFn, x_new: Tensor,
 
 
 def append_stacked(state: LazyGPState, kernel: KernelFn, xs: Tensor,
-                   ys: Tensor, flags: Tensor) -> None:
+                   ys: Tensor, flags: Tensor, lanes_, counts) -> None:
     """Absorb one observation into each flagged study of a stacked state,
     in place (the reference's masked `append` under vmap): `xs (S, d)`,
-    `ys (S,)`, `flags (S,)` bool on the state's device.  One gram launch
-    builds every study's covariance column; the bordered update and the
-    alpha refresh are batched matvecs (`ops.lazy_append_stacked`).  The
+    `ys (S,)` and `flags (S,)` bool on the state's device; `lanes_` are
+    the flagged studies and `counts` the host counts (the engine's
+    mirrors).  One gram launch builds every study's covariance column (a
+    lane of the batched gram is bit for bit its single-study launch); the
+    rest runs lane by lane with `append`'s calls on the lane's views,
+    written in place (`_append_lane`), so a lane's points, factor,
+    inverse and alpha are bit for bit what `append` gives on it.  The
     other studies keep every bit.  Capacity is the caller's check
     (`ensure_capacity` on its host counts): nothing here reads the device
     back."""
-    n_studies, n_max = state.n_studies, state.n_max
-    lanes_ = torch.arange(n_studies, device=state.device)
-    n = state.n
+    xs = xs.contiguous()
     p = ops.kernel_gram(kernel, state.x_buf, xs[:, None, :],
                         state.params)[..., 0]
-    p_pad = torch.where(_active_mask(state), p, 0.0)
-    c = kernel(xs[:, None, :], xs[:, None, :], state.params)[:, 0, 0] \
-        + state.params.noise2
-    row = torch.clamp(n, max=n_max - 1).long()
-    keep = ~flags
-    state.x_buf[lanes_, row] = torch.where(keep[:, None],
-                                           state.x_buf[lanes_, row], xs)
-    state.y_buf[lanes_, row] = torch.where(keep, state.y_buf[lanes_, row], ys)
-    mask_new = _active_mask(state, n + 1)
-    ymean = torch.sum(torch.where(mask_new, state.y_buf, 0.0), dim=-1) / (n + 1)
-    resid = torch.where(mask_new, state.y_buf - ymean[:, None], 0.0)
-    _, clamped = ops.lazy_append_stacked(state.l_buf, state.li_buf,
-                                         state.alpha, p_pad, c, resid, n,
-                                         flags)
+    for s in lanes_:
+        _append_lane(unstack_state(state, s, n=int(counts[s]), since_refit=0),
+                     study_kernel(kernel, s), xs[s], ys[s], p[s])
     step = flags.to(torch.int32)
-    state.clamp_count.add_(clamped * step)
     state.n.add_(step)
     state.since_refit.add_(step)
+
+
+def _append_lane(lane: LazyGPState, kernel: KernelFn, x_new: Tensor, y_new,
+                 p: Tensor) -> None:
+    """`append` on one study's views of a stacked state, in place, with its
+    covariance column `p` given: the same calls, the rows written into the
+    stack (`ops.lazy_append_rows_`) instead of new buffers."""
+    n = lane.n
+    p_pad = torch.where(_active_mask(lane), p, 0.0)
+    c = kernel(x_new[None, :], x_new[None, :], lane.params)[0, 0] \
+        + lane.params.noise2
+    lane.x_buf[n] = x_new
+    lane.y_buf[n] = y_new
+    mask_new = _active_mask(lane, n + 1)
+    ymean = torch.sum(torch.where(mask_new, lane.y_buf, 0.0)) / (n + 1)
+    resid = torch.where(mask_new, lane.y_buf - ymean, 0.0)
+    _, clamped = ops.lazy_append_rows_(lane.l_buf, lane.li_buf, lane.alpha,
+                                       p_pad[None], c[None], resid, n)
+    lane.clamp_count.add_(clamped)
 
 
 def append_batch(state: LazyGPState, kernel: KernelFn, xs: Tensor,

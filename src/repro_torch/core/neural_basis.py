@@ -114,6 +114,7 @@ class NeuralBasisState:
 
 FIELDS = tuple(f.name for f in dataclasses.fields(NeuralBasisState))
 PARAMS = ("w1", "b1", "w2", "b2", "w3", "b3")
+JITTER_STEPS = 6   # the head's fallback factors: noise2 x 10, 100, .., 10^6
 COUNTERS = ("n", "since_refit")
 
 
@@ -159,10 +160,24 @@ def _solve_heads(ncfg: NeuralConfig, ptp: Tensor, pty: Tensor, ptc: Tensor,
                  pt1: Tensor, y_mean: Tensor, c_mean: Tensor
                  ) -> tuple[Tensor, Tensor, Tensor]:
     """The factor of ptp + noise2 I and the two heads' weights (one solve
-    with two right-hand sides)."""
-    a = ptp + ncfg.noise2 * torch.eye(ptp.shape[0], dtype=ptp.dtype,
-                                      device=ptp.device)
-    chol = torch.linalg.cholesky_ex(a).L
+    with two right-hand sides).
+
+    Float32 round-off in ptp can leave ptp + noise2 I indefinite where the
+    head's condition number nears 1 / eps (one-hot features of a mixed
+    ledger: 1e7-1e8); the reference's factor is then NaN, and so is every
+    later suggestion of the study.  So the factors of ptp + 10^k noise2 I
+    (k = 1 .. JITTER_STEPS) are taken beside it in one batched call, and
+    the first that exists stands in where the plain one does not.  Where
+    the plain factor exists it is used, bit for bit; nothing is read back
+    from the device."""
+    eye = torch.eye(ptp.shape[0], dtype=ptp.dtype, device=ptp.device)
+    a = ptp + ncfg.noise2 * eye
+    chol, info = torch.linalg.cholesky_ex(a)
+    jitter = ncfg.noise2 * 10.0 ** torch.arange(
+        1, JITTER_STEPS + 1, dtype=ptp.dtype, device=ptp.device)
+    ladder, infos = torch.linalg.cholesky_ex(a + jitter[:, None, None] * eye)
+    first = torch.argmax((infos == 0).to(torch.int32))
+    chol = torch.where(info == 0, chol, ladder[first])
     rhs = torch.stack([pty - y_mean * pt1, ptc - c_mean * pt1], dim=-1)
     w = torch.cholesky_solve(rhs, chol)
     return chol, w[:, 0], w[:, 1]

@@ -11,7 +11,7 @@ advances it:
   * `absorb`      — one observation routed to its study.
   * `absorb_round`— at most one observation per study (flagged), one gram
     launch for every flagged study's covariance column, the bordered
-    update as batched matvecs.
+    update study by study.
   * `advance`     — the serving round: `absorb_round`, then `suggest_all`
     from the updated posteriors.
   * lag events    — after an absorb, each flagged study whose lag counter
@@ -42,8 +42,12 @@ new state drops the copy.
 
 The reference's engine donates the stacked buffers to its fused round; the
 port writes the absorbed rows in place (`gp.append_stacked`), so a round
-copies no (S, n_max, n_max) buffer.  Studies that are not flagged keep
-every bit.  `study_state` returns a copy, so a snapshot a caller holds
+copies no (S, n_max, n_max) buffer.  One gram launch builds every flagged
+study's covariance column; the rest of a study's append runs on its rows
+with the single-study append's calls, and the batched suggest hoists its
+operands lane by lane (`acquisition.hoist`), so a lane of a round is bit
+for bit the single-study step on that lane.  Studies that are not flagged
+keep every bit.  `study_state` returns a copy, so a snapshot a caller holds
 never changes under later in-place writes.
 
 **Mixed spaces** (DESIGN.md §10): when any study's space has discrete dims
@@ -274,7 +278,8 @@ class StudyEngine:
         return acq_mod.optimize_acquisition(
             self._state, self.kernel, self._lo, self._hi, self.cfg.acq, top_t,
             generator=self._gen, seeds=self._tensor(seeds),
-            jitter=self._tensor(jitter), desc=self.desc)
+            jitter=self._tensor(jitter), desc=self.desc,
+            counts=self._n_host)
 
     # -- absorb -------------------------------------------------------------
     def _upload(self, flags: np.ndarray, xs, ys
@@ -314,7 +319,8 @@ class StudyEngine:
             self._alpha_kept.pop(int(s), None)
         if flagged.size:
             f, x, y = self._upload(flags, xs, ys)
-            gp_mod.append_stacked(self._state, self.kernel, x, y, f)
+            gp_mod.append_stacked(self._state, self.kernel, x, y, f,
+                                  flagged, self._n_host)
             self._n_host[flagged] += 1
             self._sr_host[flagged] += 1
 
@@ -329,7 +335,8 @@ class StudyEngine:
         x = x[None] if isinstance(x, Tensor) else np.asarray(x)[None]
         f, xs, ys = self._upload(np.ones(1, bool), x, [y])
         gp_mod.append_stacked(gp_mod.lanes(self._state, lanes),
-                              self._kernel_for(lanes), xs, ys, f)
+                              self._kernel_for(lanes), xs, ys, f, [0],
+                              [self.n(study)])
         self._n_host[study] += 1
         self._sr_host[study] += 1
         self._refit_flagged([study])

@@ -26,7 +26,6 @@ no size envelopes: a kernel takes any n, or its wrapper raises.
   lazy_append        | padded buffers    | ‡                 | no
   lazy_append_rows   | padded buffers    | ‡                 | no
   lazy_append_rows_  | padded buffers    | ‡ (in place)      | no
-  lazy_append_stacked| stacked buffers   | ‡                 | yes
   fused_ei_grad      | (r,d) + padded    | csrc/acq.cu       | yes
                      |  + (d,)/(..,d)    | (mixed form)      | yes
                      |  masks            |                   |
@@ -48,10 +47,8 @@ bordered row `[-(1/d) q^T L^{-1}, 1/d]`.  The single-study appends return
 new buffers: the input buffers belong to the caller (the lag refit scores
 18 candidate states off one base state), so a row is written in place only
 into this call's own copy; `lazy_append_rows_` writes into the buffers it
-is given (the engine's fantasy rows).  `lazy_append_stacked` is the
-stacked engine's append over S studies (the reference's vmap with
-`where(flag, new, old)`): it writes its rows in place into the stacked
-buffers, as the reference's engine donates them, so a round copies no
+is given (the engine's fantasy rows, and the stacked engine's appends,
+one study's views at a time: `gp.append_stacked`), so a round copies no
 (S, n_max, n_max) buffer.
 """
 from __future__ import annotations
@@ -82,7 +79,6 @@ CLAMP_EPS = ref.CLAMP_EPS
 __all__ = ["CLAMP_EPS", "chol_append", "cholesky", "fused_ei_grad",
            "fused_supported", "gp_posterior_solve", "kernel_gram",
            "lazy_append", "lazy_append_rows", "lazy_append_rows_",
-           "lazy_append_stacked",
            "masked_gram", "matern52_gram",
            "mixed_gram",
            "padded_append_row", "padded_cholesky", "padded_tri_inverse",
@@ -237,52 +233,6 @@ def _bordered_row(li_buf: Tensor, p_pad: Tensor, c
     # Bordered inverse: row n of L'^{-1} is [-(1/d) q^T L^{-1}, 1/d].
     r = -(q @ li_buf) / d
     return q, r, d, clamped
-
-
-def lazy_append_stacked(l_buf: Tensor, li_buf: Tensor, alpha: Tensor,
-                        p_pad: Tensor, c: Tensor, resid: Tensor, n: Tensor,
-                        flag: Tensor) -> tuple[Tensor, Tensor]:
-    """Alg. 3 on S stacked studies in place: row n_s of each flagged
-    study's factor and inverse, and its alpha refresh, as `lazy_append`
-    computes them for one study.
-
-    Args:
-      l_buf, li_buf: (S, n_max, n_max) stacked factor and inverse factor,
-        written in place.
-      alpha: (S, n_max), written in place.
-      p_pad: (S, n_max) new covariance columns, zero beyond each study's n.
-      c: (S,) self-covariances + noise.
-      resid: (S, n_max) residuals including the new rows, zero beyond them.
-      n: (S,) int tensor on the buffers' device: study s's row lands at n_s.
-      flag: (S,) bool tensor: the studies that append.  The others keep
-        every bit (their row is written back unchanged, clamped to the
-        last row where such a study is full).
-
-    Returns (d (S,), clamped (S,) int32), meaningful on flagged studies.
-    Batched matvecs and one indexed write a buffer; nothing is read back
-    to the host.
-    """
-    n_studies, n_max = l_buf.shape[0], l_buf.shape[-1]
-    dev = l_buf.device
-    lanes = torch.arange(n_studies, device=dev)
-    idx = torch.arange(n_max, device=dev)
-    nn = n[:, None]
-    q = (li_buf @ p_pad[..., None])[..., 0]                 # L^{-1} p
-    d2 = c - torch.sum(q * q, dim=-1)
-    clamped = (d2 < CLAMP_EPS).to(torch.int32)
-    d = torch.sqrt(torch.clamp(d2, min=CLAMP_EPS))
-    r = -(q[:, None, :] @ li_buf)[:, 0, :] / d[:, None]    # before li's row
-    row = torch.clamp(n, max=n_max - 1).long()
-    keep = ~flag[:, None]
-    for buf, new, diag in ((l_buf, q, d), (li_buf, r, 1.0 / d)):
-        new = torch.where(idx < nn, new,
-                          torch.where(idx == nn, diag[:, None], 0.0))
-        buf[lanes, row] = torch.where(keep, buf[lanes, row], new)
-    z = (li_buf @ resid[..., None])[..., 0]
-    new_alpha = (z[:, None, :] @ li_buf)[:, 0, :]          # == li^T z
-    alpha.copy_(torch.where(keep, alpha,
-                            torch.where(idx <= nn, new_alpha, 0.0)))
-    return d, clamped
 
 
 def _refresh_alpha(li_new: Tensor, resid: Tensor, active: Tensor) -> Tensor:

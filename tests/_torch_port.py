@@ -78,19 +78,51 @@ def seeded_states(rng: np.random.Generator, n0: int, dim: int, n_max: int):
     return st, convert.state_from_numpy(jax_state_leaves(st), device=CPU)
 
 
+def key_draws(key, restarts: int, dim: int, top_t: int = 1):
+    """The draws the reference's ascent makes from one study's `key` on
+    the unit cube: restart seeds (R, d) from the key, the top-t backfill
+    jitter (top_t, d) from fold_in(key, 1), as numpy arrays."""
+    return (np.asarray(jax.random.uniform(key, (restarts, dim),
+                                          dtype=jnp.float32)),
+            np.asarray(jax.random.normal(jax.random.fold_in(key, 1),
+                                         (top_t, dim), dtype=jnp.float32)))
+
+
 def engine_draws(key, n_studies: int, restarts: int, dim: int,
                  top_t: int = 1):
-    """The draws the reference's stacked engine makes from `key` on the
-    unit cube (its vmapped ascent: study s's restart seeds from keys[s],
-    its top-t backfill jitter from fold_in(keys[s], 1)), as numpy arrays
-    to hand to the port: (keys, seeds (S, R, d), jitter (S, top_t, d))."""
+    """The draws the reference's stacked engine makes from `key` (its
+    vmapped ascent: study s draws from keys[s], `key_draws`), as numpy
+    arrays to hand to the port: (keys, seeds (S, R, d), jitter
+    (S, top_t, d))."""
     keys = jax.random.split(key, n_studies)
-    seeds = np.stack([np.asarray(jax.random.uniform(
-        k, (restarts, dim), dtype=jnp.float32)) for k in keys])
-    jitter = np.stack([np.asarray(jax.random.normal(
-        jax.random.fold_in(k, 1), (top_t, dim), dtype=jnp.float32))
-        for k in keys])
-    return keys, seeds, jitter
+    seeds, jitter = zip(*(key_draws(k, restarts, dim, top_t) for k in keys))
+    return keys, np.stack(seeds), np.stack(jitter)
+
+
+def mirror_pool_draws(tpool, seed: int) -> list:
+    """Make a port `StudyPool` draw what the reference's pool draws: each
+    study's EI draws come from a JAX key stream that starts at
+    PRNGKey(seed + i) and is split as the reference's pool splits it (one
+    split a suggest, routed or batched; `key_draws` of the subkey).
+    Returns the streams' keys (a list the caller may read)."""
+    keys = [jax.random.PRNGKey(seed + i) for i in range(tpool.n_studies)]
+    restarts, dim = tpool.cfg.acq.restarts, tpool.dim
+
+    def draw(study_id, top_t):
+        keys[study_id], sub = jax.random.split(keys[study_id])
+        return tuple(torch.from_numpy(a.copy()) for a in key_draws(
+            sub, restarts, dim, top_t))
+
+    def draw_q(study_id, q):
+        keys[study_id], sub = jax.random.split(keys[study_id])
+        subs = jax.random.split(sub, q)
+        seeds, jitter = zip(*(key_draws(k, restarts, dim, 1) for k in subs))
+        return torch.from_numpy(np.stack(seeds)), \
+            torch.from_numpy(np.stack(jitter))
+
+    tpool._draw = draw
+    tpool._draw_q = draw_q
+    return keys
 
 
 def assert_engines_match(jeng, teng, pending: dict | None = None) -> None:

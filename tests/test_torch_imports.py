@@ -24,7 +24,9 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
             "repro_torch.convert, repro_torch.hpo.space, "
             "repro_torch.hpo.engine, repro_torch.hpo.mesh, "
-            "repro_torch.hpo.pool, repro_torch.core.neural_basis\n"
+            "repro_torch.hpo.pool, repro_torch.core.neural_basis, "
+            "repro_torch.checkpoint, repro_torch.checkpoint.store, "
+            "repro_torch.hpo.scheduler\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -53,6 +55,9 @@ def test_entry_points_default_to_cuda():
         assert fn.__kwdefaults__["device"] == "cuda"
     assert neural_basis.nb_from_json.__defaults__ == ("cuda",)
     assert StudyEngine.__init__.__kwdefaults__["device"] == "cuda"
+    from repro_torch.hpo import StudyPool, TrialScheduler
+    for cls in (StudyPool, TrialScheduler):
+        assert cls.__init__.__kwdefaults__["device"] == "cuda"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -68,6 +73,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
         init_state(GPConfig(n_max=8, dim=2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_bo(lambda x: neg_levy(x).numpy(), lo, hi, 1, dim=2)
+    from repro_torch.hpo import SchedulerConfig, StudyPool, TrialScheduler
+    from repro_torch.hpo.space import RESNET_SPACE
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StudyPool([RESNET_SPACE], SchedulerConfig(n_max=8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TrialScheduler(RESNET_SPACE, SchedulerConfig(n_max=8))
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

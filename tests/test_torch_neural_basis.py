@@ -449,3 +449,38 @@ def test_entry_points_default_to_cuda(monkeypatch):
                         generator=torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         nb.nb_from_json({})
+
+
+def test_head_factor_falls_back_where_float32_loses_definiteness():
+    """ptp + noise2 I that float32 round-off left indefinite: the plain
+    factor fails (the reference's is NaN there), the head takes the first
+    of noise2 x 10^k on the diagonal that factors; a definite one keeps
+    the plain factor bit for bit."""
+    ncfg = nb.NeuralConfig()
+    rng = np.random.default_rng(0)
+    phi = rng.standard_normal((40, 17)).astype(np.float32)
+    good = torch.from_numpy(phi.T @ phi)
+    # 5e-4 below noise2's floor along the smallest eigenvector: indefinite
+    lam, vecs = torch.linalg.eigh(good.double())
+    v = vecs[:, 0].float()
+    bad = good - float(lam[0] + ncfg.noise2 + 5e-4) * torch.outer(v, v)
+    zeros = torch.zeros(17)
+    one = torch.tensor(1.0)
+    eye = torch.eye(17)
+    for ptp, plain_ok in ((good, True), (bad, False)):
+        a = ptp + ncfg.noise2 * eye
+        plain, info = torch.linalg.cholesky_ex(a)
+        assert (int(info) == 0) == plain_ok
+        chol, w_y, w_c = nb._solve_heads(ncfg, ptp, zeros + 1.0, zeros,
+                                         zeros, one, one)
+        assert torch.isfinite(chol).all() and torch.isfinite(w_y).all()
+        if plain_ok:
+            assert torch.equal(chol, plain)
+            continue
+        for k in range(1, nb.JITTER_STEPS + 1):
+            want, info = torch.linalg.cholesky_ex(
+                a + ncfg.noise2 * 10.0 ** k * eye)
+            if int(info) == 0:
+                break
+        np.testing.assert_allclose(n(chol), n(want), rtol=1e-6, atol=1e-7)
+        assert k > 1 or torch.equal(chol, want)
