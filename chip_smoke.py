@@ -227,10 +227,34 @@ Phases, each printing one JSON line:
                budget=16)` with parallel 4: no seed trial, every suggest
                exactly 21 fused EI, every absorb one column gram plus a
                due lag event's; its suggest and absorb ms.
+ 11. gateway — last (`gateway_path`): the float pool's 16 studies exported
+               and written as `_evict` writes them, adopted
+               (`require_snapshot=True`) by gateways of 16 slots at the
+               pool phases' configuration beside 8 fresh studies: 24
+               logical studies, no prefill of its own.  (1) A scripted
+               trace (16 rounds of 5 asks, every third round's first a
+               q = 4 ask, tells two rounds later) on A (`tick_begin`,
+               pipelined) and B (`tick()`): every `advance_round_begin`
+               and `ask_q` held to its launches (`begin_counts`,
+               `fantasy_counts`) and every tick to their sum; streams,
+               registries, summaries and every lane equal; A overlapped
+               (printed: ticks where round t+1's event was still pending
+               after `finish(t)`).  (2) One `_tick_stage` under
+               `set_sync_debug_mode("error")`.  (3) One study evicted and
+               restored on demand, its leaves and next suggestion those
+               of B, where it stayed.  (4) `checkpoint()` restored by a
+               fresh gateway: registry and lanes equal, one more tick
+               equal.  (5) 24 asyncio clients (6 asks; q = 4 for clients
+               4 and 12; client 0 on until promoted past n_max, then 4
+               more) on a pipelined and a serial gateway, in turns
+               (D, E, E, D): suggestions in the unit cube, every tell
+               absorbed; suggestions a second,
+               ticks, coalesce width, p50 / p95 tick ms, evictions and
+               restores, and the eviction, restore and checkpoint ms.
 Then the `{"kernels": [...]}` line (seven kernels: L X = I and the general
 solve, two C entries of `csrc/trsv.cu`, count apart; launches per path:
 main, mixed, append, engine, engine_mixed, pool, pool_mixed, neural,
-neural_mixed, fantasy, fantasy_mixed), the nvidia-smi line and, last,
+neural_mixed, fantasy, fantasy_mixed, gateway), the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
@@ -244,6 +268,7 @@ on an unpacked parent's `src` and on this one for an A/B.
 """
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
 import hashlib
@@ -3721,6 +3746,501 @@ def scheduler_path(dev) -> dict:
             "per_suggest_launches": engine_counts(False, 0, 0, 1, 20)}
 
 
+GATEWAY = dict(slots=16, max_inflight=8)   # every gateway of the phase
+GATEWAY_FRESH = 8          # fresh studies beside the 16 adopted ones
+GATEWAY_ROUNDS = 16        # rounds of the scripted twin
+GATEWAY_ASKS = 5           # asks a round (3 x 5 <= 16 slots: none defers)
+GATEWAY_Q = 4              # the q of every third round's q-ask
+GATEWAY_WINDOW = 6         # rounds before the asking window moves on
+GATEWAY_SHIFT = 8          # studies the window moves by
+CLIENT_ASKS = 6            # suggestions each asyncio client asks for
+CLIENT_Q_SIDS = (4, 12)    # clients that ask with q = GATEWAY_Q
+CLIENT_LATENCY = 0.002     # examples/serve.py's simulated training, seconds
+TIER_ASKS = 4              # client 0's asks after its promotion
+
+
+def gateway_records(pool, studies, dirs) -> list[dict]:
+    """The pool's 16 studies as the gateway's eviction store holds them:
+    each `export_study`, written to every directory of `dirs` as `_evict`
+    writes it (`save_study` version 1, key study%06d, metadata handle / sid
+    / n_obs), and the registry records a gateway adopts."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.hpo.space import space_to_dicts
+    records = []
+    for s in range(pool.n_studies):
+        snap = pool.export_study(s)
+        key, n_obs = f"study{s:06d}", pool.engine.n(s)
+        for d in dirs:
+            ckpt.save_study(d, key, 1, snap["tree"], metadata={
+                "handle": json.dumps(snap["meta"]), "sid": s,
+                "n_obs": n_obs})
+        best = pool.best(s)
+        records.append({"sid": s, "name": f"study{s}", "seed": s,
+                        "dims": space_to_dicts(studies[s].space),
+                        "n_obs": n_obs,
+                        "best_value": None if best is None else best.value,
+                        "version": 1, "evicted_ever": True, "tier": 0,
+                        "key": key})
+    return records
+
+
+def gateway_from(dev, template, ckpt_dir, records=(), pipeline=True):
+    """A gateway at the pool phases' configuration; given `records` (their
+    snapshots already in `ckpt_dir`), it adopts them and creates 8 fresh
+    studies: 24 logical studies on 16 slots."""
+    from repro_torch.hpo import GatewayConfig, SchedulerConfig, StudyGateway
+    cfg = SchedulerConfig(n_max=N_MAX, lag=LAG, seed=0, ckpt_dir=ckpt_dir,
+                          ckpt_every=10 ** 9)
+    gw = StudyGateway(template, cfg,
+                      GatewayConfig(pipeline=pipeline, **GATEWAY),
+                      device=dev)
+    for rec in records:
+        gw.adopt_study(rec, require_snapshot=True)
+    for _ in range(GATEWAY_FRESH if records else 0):
+        gw.create_study()
+    return gw
+
+
+def begin_counts(pool, events, studies) -> dict:
+    """Launches of `pool.advance_round_begin(events, studies=studies)`
+    from the host mirrors before it: an absorb round a GP-tier event of
+    the study told most (the advance's column and the overflow's masked
+    rounds), per study floor((since_refit + its events) / lag) lag events,
+    one suggest where the round suggests (21 fused EI), and two grams a
+    fantasy row replayed after the round."""
+    eng = pool.engine
+    ids = list(range(pool.n_studies)) if studies is None else list(studies)
+    nb = {s for s in range(pool.n_studies) if eng.tier(s)}
+    told: dict[int, list] = {}
+    for s, tr, _ in events:
+        told.setdefault(s, []).append(tr.unit)
+    gp_told = {s: len(u) for s, u in told.items() if s not in nb}
+    refits = sum((eng.since_refit(s) + k) // eng.cfg.lag
+                 for s, k in gp_told.items())
+    replays = 0
+    for s, units in told.items():
+        pend = list(pool._fantasies[s])
+        for u in units:
+            hit = next((i for i, p in enumerate(pend)
+                        if np.array_equal(p, u)), None)
+            if hit is not None:
+                del pend[hit]
+        if s not in nb:
+            replays += len(pend)
+    if not events:
+        suggests = int(any(s not in nb and eng.n(s) > 0 for s in ids))
+    else:
+        suggests = int(bool(ids))
+    counts = engine_counts(False, max(gp_told.values(), default=0), refits,
+                           suggests, pool.cfg.acq.ascent_steps)
+    counts["matern"] += 2 * replays
+    return counts
+
+
+class CountedGateway:
+    """A gateway whose pool's `advance_round_begin` and `ask_q` are held
+    to their launches call by call (`begin_counts`, `fantasy_counts`), and
+    whose ticks are held to the sum of their calls'."""
+
+    def __init__(self, name, gw):
+        self.name, self.gw = name, gw
+        self.want = {k: 0 for k in read_counts()}
+        pool = gw.pool
+        begin, ask_q = pool.advance_round_begin, pool.ask_q
+        steps = pool.cfg.acq.ascent_steps
+
+        def counted_begin(events, t=1, studies=None):
+            return self.call("advance_round_begin", lambda: begin_counts(
+                pool, events, studies), lambda: begin(events, t=t,
+                                                      studies=studies))
+
+        def counted_ask_q(study_id, q):
+            def want():
+                if pool.engine.tier(study_id) or \
+                        pool.engine.n(study_id) == 0:
+                    return engine_counts(False, 0, 0, 0, steps)
+                return fantasy_counts(False, steps, asked=q)
+            return self.call("ask_q", want, lambda: ask_q(study_id, q))
+
+        pool.advance_round_begin = counted_begin
+        pool.ask_q = counted_ask_q
+
+    def call(self, what, want_fn, fn):
+        want = want_fn()
+        before = read_counts()
+        out = fn()
+        got = diff_counts(read_counts(), before)
+        if got != want:
+            raise AssertionError(f"gateway {self.name}: {what} launches "
+                                 f"{got}, expected {want}")
+        self.want = add_counts(self.want, want)
+        return out
+
+    def tick(self, step):
+        """One tick (`tick` or `tick_begin`), its launches the sum of its
+        pool calls'."""
+        before, want = read_counts(), dict(self.want)
+        out = step()
+        got = diff_counts(read_counts(), before)
+        if got != diff_counts(self.want, want):
+            raise AssertionError(f"gateway {self.name}: tick launches {got}")
+        return out
+
+
+def gateway_enqueue(gw, loop, sid, q=1):
+    """White-box ask (tests/test_gateway.py's `_enq`): a future resolved
+    when a tick serves it."""
+    fut = loop.create_future()
+    gw._studies[sid].pending_asks += q
+    gw._asks.append((sid, fut, q))
+    return fut
+
+
+def trace_askers(r: int, n_logical: int) -> list[int]:
+    """The scripted trace's askers at round r: a window of 3 x 5 studies
+    asked in turn (each set asked every third round, its tells in by
+    then), moved on by 8 studies every 6 rounds, so over 16 rounds it
+    rotates through all 24 studies."""
+    base = GATEWAY_SHIFT * (r // GATEWAY_WINDOW) + GATEWAY_ASKS * (r % 3)
+    return [(base + i) % n_logical for i in range(GATEWAY_ASKS)]
+
+
+def pending_event(gw):
+    """The CUDA event of the staged tick's round, if any."""
+    p = gw._pending
+    if p is None:
+        return None
+    rnd = p.round
+    for x in (rnd._units, rnd._clamps, *rnd._nb_units.values()):
+        if hasattr(x, "ready"):
+            return x.ready
+    return None
+
+
+def gateway_values(objective, trials) -> list[float]:
+    return [float(v) for v in objective(np.stack([t.unit for t in trials]))]
+
+
+async def gateway_twin(a, b, objective) -> dict:
+    """Step 1: the scripted trace on A (`tick_begin`, pipelined) and B
+    (`tick()`), both counted: a trial asked at round r is told at round
+    r + 2 (by enqueue round, in both); every third round's first asker
+    asks q = 4; then A flushes and both tick until every tell is in.
+    Returns the streams and A's overlap counts."""
+    loop = asyncio.get_running_loop()
+    n_logical = len(a.gw.study_ids())
+    streams = {k: {s: [] for s in a.gw.study_ids()} for k in "ab"}
+    inflight, to_tell = [], []
+    overlapped = pending_after_finish = 0
+
+    def collect():
+        for item in inflight[:]:
+            r0, s, fa, fb = item
+            if fa.done() and fb.done():
+                ta, tb = (f.result() for f in (fa, fb))
+                ta = ta if isinstance(ta, list) else [ta]
+                tb = tb if isinstance(tb, list) else [tb]
+                for k, trs in (("a", ta), ("b", tb)):
+                    streams[k][s] += [t.unit.tobytes() for t in trs]
+                to_tell.append((r0 + 2, s, ta, tb))
+                inflight.remove(item)
+
+    def tell(due):
+        for item in [x for x in to_tell if x[0] <= due]:
+            _, s, ta, tb = item
+            vals = gateway_values(objective, ta)
+            for gw, trs in ((a.gw, ta), (b.gw, tb)):
+                for t, v in zip(trs, vals):
+                    gw.tell(s, t, v)
+            to_tell.remove(item)
+
+    for r in range(GATEWAY_ROUNDS):
+        tell(r)
+        for i, s in enumerate(trace_askers(r, n_logical)):
+            q = GATEWAY_Q if (r % 3 == 2 and i == 0) else 1
+            inflight.append((r, s, gateway_enqueue(a.gw, loop, s, q),
+                             gateway_enqueue(b.gw, loop, s, q)))
+        a.tick(a.gw.tick_begin)
+        if a.gw._pending is not None:
+            overlapped += 1
+            ev = pending_event(a.gw)
+            pending_after_finish += int(ev is not None and not ev.query())
+        b.tick(b.gw.tick)
+        collect()
+    a.tick(a.gw.tick_flush)
+    while True:
+        collect()
+        tell(10 ** 9)
+        if not (inflight or a.gw._tells or a.gw._asks or b.gw._tells
+                or b.gw._asks):
+            break
+        a.tick(a.gw.tick)
+        b.tick(b.gw.tick)
+    if streams["a"] != streams["b"]:
+        raise AssertionError("gateway: pipelined and serial suggestion "
+                             "streams differ")
+    if not overlapped:
+        raise AssertionError("gateway: the pipelined run never overlapped")
+    return {"overlapped_ticks": overlapped,
+            "next_round_pending_after_finish": pending_after_finish,
+            "suggestions": sum(len(v) for v in streams["a"].values())}
+
+
+def gateways_equal(name, a, b) -> None:
+    """Registries, summary counts and every lane of two gateways."""
+    for s in a.study_ids():
+        if a.registry_record(s) != b.registry_record(s) or \
+                a._studies[s].slot != b._studies[s].slot:
+            raise AssertionError(f"gateway {name}: study {s}'s registry")
+    sa, sb = a.summary(), b.summary()
+    for k in ("ticks", "asks_served", "absorbed", "evictions", "restores",
+              "fantasy_rollbacks", "q_width_hist", "fantasy_active"):
+        if sa[k] != sb[k]:
+            raise AssertionError(f"gateway {name}: summary {k} {sa[k]} "
+                                 f"against {sb[k]}")
+    pool_lanes_equal(f"gateway {name}", a.pool, b.pool, name)
+
+
+def resident_calm(gw, count: int) -> list[int]:
+    """`count` resident idle studies whose next absorb is no lag event."""
+    out = [s for s in gw._owner if s is not None
+           and gw._evictable(gw._studies[s])
+           and gw.pool.engine.since_refit(gw._studies[s].slot) + 1 < LAG]
+    if len(out) < count:
+        raise AssertionError(f"gateway: {len(out)} calm resident studies")
+    return out[:count]
+
+
+def serve_once(gws, sids, objective, loop, stage=None):
+    """One ask of each of `sids` on every gateway of `gws` (a tick each),
+    then the tells and one more ask each; the second tick of the first
+    gateway through `stage` where given.  Returns the second asks'
+    trials per gateway."""
+    first = []
+    for gw in gws:
+        futs = [gateway_enqueue(gw, loop, s) for s in sids]
+        gw.tick()
+        first.append([f.result() for f in futs])
+    out = []
+    for k, (gw, trials) in enumerate(zip(gws, first)):
+        vals = gateway_values(objective, trials)
+        for s, t, v in zip(sids, trials, vals):
+            gw.tell(s, t, v)
+        futs = [gateway_enqueue(gw, loop, s) for s in sids]
+        if k == 0 and stage is not None:
+            stage(gw)
+        else:
+            gw.tick()
+        out.append([f.result() for f in futs])
+    for gw, trials in zip(gws, out):
+        vals = gateway_values(objective, trials)
+        for s, t, v in zip(sids, trials, vals):
+            gw.tell(s, t, v)
+        gw.tick()
+    return out
+
+
+def same_trials(name, runs) -> None:
+    ref = [t.unit.tobytes() for t in runs[0]]
+    for other in runs[1:]:
+        if [t.unit.tobytes() for t in other] != ref:
+            raise AssertionError(f"gateway {name}: suggestions differ")
+
+
+async def gateway_client(gw, sid, objective, asks, q, tier_asks, stats):
+    """examples/serve.py's client: ask (q wide while the budget allows),
+    train for a few ms, tell; client 0 (`tier_asks`) runs on until its
+    study is promoted past n_max, then asks `tier_asks` more times."""
+    latency = CLIENT_LATENCY * (1.0 + 0.5 * ((sid + 1) % 3))
+    done = after = 0
+    while True:
+        if tier_asks:
+            if gw.study_info(sid)["tier"]:
+                if after == tier_asks:
+                    break
+                after += 1
+        elif done >= asks:
+            break
+        width = min(q, asks - done) if not tier_asks else 1
+        got = await gw.ask(sid, q=width)
+        trials = got if isinstance(got, list) else [got]
+        units = np.stack([t.unit for t in trials])
+        if not (np.isfinite(units).all() and (units >= 0).all()
+                and (units <= 1).all()):
+            raise AssertionError(f"gateway: study {sid} suggested outside "
+                                 "the unit cube")
+        await asyncio.sleep(latency)
+        for t, v in zip(trials, gateway_values(objective, trials)):
+            gw.tell(sid, t, v)
+        done += len(trials)
+        stats["tells"][sid] = stats["tells"].get(sid, 0) + len(trials)
+    await gw.drain()
+
+
+async def gateway_clients(gw, objective) -> dict:
+    """Step 5: 24 asyncio clients on one gateway, timed."""
+    sids = gw.study_ids()
+    n0 = {s: gw.study_info(s)["n_obs"] for s in sids}
+    stats = {"tells": {}}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    await asyncio.gather(*(gateway_client(
+        gw, s, objective, CLIENT_ASKS,
+        GATEWAY_Q if s in CLIENT_Q_SIDS else 1,
+        TIER_ASKS if s == 0 else 0, stats) for s in sids))
+    await gw.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summ = gw.summary()
+    await gw.aclose()
+    tells = stats["tells"]
+    if gw.study_info(0)["tier"] != 1 or summ["escalated"] != 1:
+        raise AssertionError("gateway: client 0's study was not promoted")
+    for s in sids:
+        if gw.study_info(s)["n_obs"] != n0[s] + tells.get(s, 0):
+            raise AssertionError(f"gateway: study {s} absorbed "
+                                 f"{gw.study_info(s)['n_obs'] - n0[s]} of "
+                                 f"{tells.get(s, 0)} tells")
+    if gw.dead_tells or summ["absorbed"] != sum(tells.values()):
+        raise AssertionError("gateway: tells not absorbed")
+    return {"pipeline": gw.gw.pipeline, "seconds": wall,
+            "suggestions": summ["asks_served"],
+            "suggestions_per_s": summ["asks_served"] / wall,
+            "ticks": summ["ticks"],
+            "mean_coalesce_width": summ["mean_coalesce_width"],
+            "p50_tick_ms": summ["p50_tick_ms"],
+            "p95_tick_ms": summ["p95_tick_ms"],
+            "evictions": summ["evictions"], "restores": summ["restores"],
+            "q_width_hist": summ["q_width_hist"],
+            "client0_asks": tells[0], "client0_n_obs": gw.study_info(0)[
+                "n_obs"]}
+
+
+def gateway_path(dev, pair, pool_line) -> dict:
+    """Phase gateway: the port's `StudyGateway` at the pool phases'
+    configuration (16 slots, n_max 1024, lag 32, 48 x 20, max_inflight 8)
+    over the float pool's 16 studies, exported and written as eviction
+    snapshots, adopted (`require_snapshot`) beside 8 fresh studies: 24
+    logical studies on 16 slots, no prefill of its own.  Counts set to 0
+    before step 1 and read after step 5.  (1) the scripted twin, A
+    pipelined (`tick_begin`) and B serial (`tick()`): every pool call and
+    tick held to its launches, streams, registries, summaries and every
+    lane equal, A overlapped; (2) one `_tick_stage` of A under
+    `set_sync_debug_mode("error")`; (3) one study of A evicted and
+    restored on demand, then its leaves and next suggestion against B,
+    where it stayed; (4) A's `checkpoint()` restored by a fresh gateway,
+    registry and lanes equal, one more tick equal; (5) 24 asyncio clients
+    on D (pipelined) and E (serial), run D, E, E, D, client 0 promoted
+    past n_max each time."""
+    import shutil
+    import tempfile
+    start = time.perf_counter()
+    studies, objective = pair.studies, pair.studies[0].objective
+    dirs = {k: tempfile.mkdtemp(prefix=f"chip_smoke_gw{k}_") for k in "ab"}
+    t0 = time.perf_counter()
+    records = gateway_records(pair.a, studies, dirs.values())
+    setup_s = time.perf_counter() - t0
+    template = studies[0].space
+    torch.cuda.synchronize()
+    reset_counts()
+    line = {"phase": "gateway", "slots": GATEWAY["slots"],
+            "logical_studies": len(records) + GATEWAY_FRESH, "n_max": N_MAX,
+            "n_adopted": [r["n_obs"] for r in records],
+            "records_seconds": setup_s}
+    a = CountedGateway("A", gateway_from(dev, template, dirs["a"], records))
+    b = CountedGateway("B", gateway_from(dev, template, dirs["b"], records))
+    t0 = time.perf_counter()
+    line["twin"] = asyncio.run(gateway_twin(a, b, objective))
+    line["twin"]["seconds"] = time.perf_counter() - t0
+    line["twin"]["launches"] = a.want
+    gateways_equal("twin", a.gw, b.gw)
+
+    async def steps_2_to_4():
+        loop = asyncio.get_running_loop()
+        # (2) one stage under the sync check: resident askers, no lag event
+        staged_sids = resident_calm(a.gw, 3)
+
+        def stage(gw):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                staged = gw._tick_stage()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            gw._tick_finish(staged)
+        same_trials("sync-free stage", serve_once(
+            [a.gw, b.gw], staged_sids, objective, loop, stage=stage))
+        gateways_equal("after the sync-free stage", a.gw, b.gw)
+        # (3) an eviction and a restore on demand, against B
+        sid = resident_calm(a.gw, 1)[0]
+        log = a.gw._studies[sid]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.gw._free.append(a.gw._evict(log))
+        evict_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        slot = a.gw._ensure_resident(sid)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        if slot != b.gw._studies[sid].slot:
+            raise AssertionError("gateway: the restored study moved slot")
+        pool_lanes_equal("gateway eviction", a.gw.pool, b.gw.pool,
+                         "evicted and restored")
+        same_trials("eviction", serve_once([a.gw, b.gw], [sid], objective,
+                                           loop))
+        pool_lanes_equal("gateway eviction", a.gw.pool, b.gw.pool,
+                         "one tick after")
+        # (4) the whole gateway's checkpoint, restored by a fresh one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = a.gw.checkpoint()
+        ckpt_ms = 1e3 * (time.perf_counter() - t0)
+        c = gateway_from(dev, template, dirs["a"])
+        t0 = time.perf_counter()
+        if not c.restore():
+            raise AssertionError("gateway: nothing restored")
+        torch.cuda.synchronize()
+        ckpt_restore_ms = 1e3 * (time.perf_counter() - t0)
+        gateways_equal("restored", a.gw, c)
+        sids = resident_calm(a.gw, 3)
+        same_trials("restored", serve_once([a.gw, c], sids, objective,
+                                           loop))
+        gateways_equal("one tick after the restore", a.gw, c)
+        return {"sync_free_stage_studies": staged_sids,
+                "evicted_study": sid, "evict_ms": evict_ms,
+                "restore_on_demand_ms": restore_ms,
+                "checkpoint_ms": ckpt_ms,
+                "checkpoint_bytes": dir_bytes(path),
+                "checkpoint_restore_ms": ckpt_restore_ms}
+    line.update(asyncio.run(steps_2_to_4()))
+    del a, b
+    # D, E, E, D: each gateway fresh from the records in a store of its
+    # own, the two modes in turns on one card
+    runs = []
+    for k, pipeline in enumerate((True, False, False, True)):
+        d = tempfile.mkdtemp(prefix=f"chip_smoke_gw{k}_")
+        dirs[f"client{k}"] = d
+        gateway_records(pair.a, studies, [d])
+        gw = gateway_from(dev, template, d, records, pipeline)
+        runs.append(asyncio.run(gateway_clients(gw, objective)))
+    line["clients"] = runs
+    line["clients_median"] = {
+        mode: {k: statistics.median(r[k] for r in runs
+                                    if r["pipeline"] == pipeline)
+               for k in ("suggestions_per_s", "p50_tick_ms", "p95_tick_ms",
+                         "seconds")}
+        for mode, pipeline in (("pipelined", True), ("serial", False))}
+    counts = read_counts()
+    line["launches"] = counts
+    line["pool_advance_round_ms_median"] = \
+        pool_line["advance_round_ms"]["median"]
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    line["seconds"] = time.perf_counter() - start
+    emit(line)
+    return counts
+
+
 def trsv_launches(dev) -> dict:
     """Phase 8: one call of the general solve at each of `trsv_cases`'
     shapes and at B = I, n = 6144, under torch.profiler: each must be
@@ -4050,11 +4570,11 @@ def main(argv: list[str] | None = None) -> int:
           **batched_forms(dev)})
     # The pool phases: the rounds here, the profile with the others, the
     # fantasies, checkpoint and scheduler last.
-    pools = {}
+    pools, pool_lines = {}, {}
     for name, mixed in (("pool", False), ("pool_mixed", True)):
         engine_line = engines["engine_mixed" if mixed else "engine"][-1]
-        launches_by_path[name], pools[name], _ = pool_path(dev, mixed,
-                                                           engine_line)
+        launches_by_path[name], pools[name], pool_lines[name] = pool_path(
+            dev, mixed, engine_line)
     stacked = engines["engine_mixed"][-1]["stacked_masks"]
     for row in rows:
         keys = {"mixed_gram": ("column", "masked"),
@@ -4100,6 +4620,10 @@ def main(argv: list[str] | None = None) -> int:
         if name == "pool":
             line["scheduler"] = scheduler_path(dev)
         emit(line)
+    # The gateway last: it serves q-asks, and it starts from the studies
+    # the float pool's protocol left.
+    launches_by_path["gateway"] = gateway_path(dev, pools["pool"],
+                                               pool_lines["pool"])
     # Device time beside the event time from the kernels phase (the gram's
     # from its 1024^2 call): the difference is the wrapper's host work
     # while the card idles.

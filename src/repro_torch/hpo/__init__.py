@@ -10,10 +10,16 @@
     their ledgers, random streams, fault policy and checkpoints over one
     engine;
   * `scheduler.py` — `TrialScheduler`, the objective loop over a one-study
-    pool.
-The gateway, federation and transport come with later slices.
+    pool;
+  * `gateway.py`   — `GatewayConfig` and `StudyGateway`, the asyncio
+    ask/tell front end: coalesced (and pipelined) ticks over one pool, LRU
+    eviction and restore of more logical studies than slots, admission
+    control, escalation, q-asks and whole-gateway checkpoints.
+The federation and transport come with later slices.
 """
+from repro_torch.hpo.gateway import GatewayConfig, StudyGateway
 from repro_torch.hpo.pool import SchedulerConfig, StudyPool, Trial
 from repro_torch.hpo.scheduler import TrialScheduler
 
-__all__ = ["SchedulerConfig", "StudyPool", "Trial", "TrialScheduler"]
+__all__ = ["GatewayConfig", "SchedulerConfig", "StudyGateway", "StudyPool",
+           "Trial", "TrialScheduler"]

@@ -29,7 +29,10 @@ them to the engine, whose own generator it never uses; studies that need
 no EI get fixed dummy rows.  So a study's draws are the same on the CPU
 and on the card, and the same whether it is served routed or batched.  The
 generator's state rides checkpoints and exports under `TORCH_RNG_FIELD`,
-beside the reference's numpy `rng_state`; the port writes no JAX `key`.
+beside the reference's numpy `rng_state`.  An export also writes a JAX
+`key` (`_gen_key`: two words hashed from the generator's state), so the
+reference's `import_study` can adopt a port study, and a port import of a
+reference export seeds the slot's generator from that key.
 
 `TrialScheduler` is the S = 1 case: it wraps a one-study pool.  The port
 has no `implementation` knob: the tensor's device picks a kernel or its
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import base64
 import dataclasses
+import hashlib
 import json
 import time
 from typing import Sequence
@@ -118,13 +122,51 @@ def _trial_from_dict(t: dict) -> Trial:
                  t.get("clamp_count"), t.get("cost", 1.0))
 
 
+class _HostCopy:
+    """A staged round's output on its way to the host: a pinned tensor of
+    this round alone, written by a non-blocking copy, and the event
+    recorded right after the round's copies."""
+
+    __slots__ = ("host", "ready")
+
+    def __init__(self, host: torch.Tensor, ready: torch.cuda.Event):
+        self.host = host
+        self.ready = ready
+
+
 def _materialize(x) -> np.ndarray:
-    """Host copy of a staged round's device outputs: the first read of the
-    card in a round without a lag event.  Module-level so that fault tests
-    can inject a failure where a round's device error would surface."""
+    """Host copy of a staged round's outputs: the first read of the card in
+    a round without a lag event.  A `_HostCopy` waits on its round's event
+    alone, never on rounds queued after it.  Module-level so that fault
+    tests can inject a failure where a round's device error would
+    surface."""
+    if isinstance(x, _HostCopy):
+        x.ready.synchronize()
+        return x.host.numpy()
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy()
     return np.asarray(x)
+
+
+def _to_host(tensors: dict) -> dict:
+    """Start the host copies of a staged round's outputs ({name: tensor},
+    None entries kept): on the card, each into a pinned tensor of its own
+    by a non-blocking copy, then one event for the round, so that `finish`
+    waits for this round only; on the CPU the tensors themselves."""
+    live = [t for t in tensors.values() if t is not None]
+    if not live or live[0].device.type != "cuda":
+        return tensors
+    out = {}
+    for name, t in tensors.items():
+        if t is not None:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            t = host
+        out[name] = t
+    ready = torch.cuda.Event()
+    ready.record()
+    return {name: None if t is None else _HostCopy(t, ready)
+            for name, t in out.items()}
 
 
 def _gen_state(gen: torch.Generator) -> str:
@@ -142,6 +184,21 @@ def _new_gen(seed: int) -> torch.Generator:
     return gen
 
 
+def _gen_key(gen: torch.Generator) -> list[int]:
+    """The JAX `key` an export writes for a study: two uint32 words, the
+    first 8 bytes of the SHA-256 of the generator's state (read without a
+    draw)."""
+    digest = hashlib.sha256(gen.get_state().numpy().tobytes()).digest()
+    return [int.from_bytes(digest[:4], "big"),
+            int.from_bytes(digest[4:8], "big")]
+
+
+def _key_seed(key) -> int:
+    """The torch seed of a JAX key's two words: k0 * 2^32 + k1."""
+    k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
+    return (k0 << 32) | k1
+
+
 class _PendingRound:
     """A staged serving round whose host half has not run yet.
 
@@ -149,10 +206,14 @@ class _PendingRound:
     launch is queued at begin time in the serial order (fantasy rollback,
     overflow drain, the engine's advance, the clamp copy, the replay), so
     the state's bits are the same whether or not the host defers
-    `finish()`, which only does host work: copy the suggestions back, flip
-    the absorbed trials to "done" and mint the new ledger Trials.  It holds
-    only fresh outputs (`units`, a copied clamp vector), never a tensor of
-    `engine.state`, which later rounds write in place.
+    `finish()`, which only does host work: read the suggestions, flip the
+    absorbed trials to "done" and mint the new ledger Trials.  It holds
+    only fresh outputs (`units`, a copied clamp vector, the escalated
+    studies' `nb_units`), never a tensor of `engine.state`, which later
+    rounds write in place.  On the card those outputs are already on their
+    way to pinned host tensors of this round alone (`_to_host`), and
+    `finish()` waits on this round's event only: a round staged after it
+    (the gateway's pipelined tick) keeps running on the card meanwhile.
     """
 
     __slots__ = ("_pool", "_first", "_ids", "_need_seed", "_t",
@@ -547,10 +608,11 @@ class StudyPool:
                 seeds, jitter = self._staged_draws(need_ei, t)
                 units = self.engine.suggest_all(t, seeds=seeds,
                                                 jitter=jitter)[0]
+            nb_units = self._nb_stage(ids, nb_set, t)
+            out = _to_host({"units": units, **nb_units})
             return _PendingRound(self, {}, ids,
                                  set(ids) - set(need_ei) - nb_set,
-                                 t, units, None, self._nb_stage(ids, nb_set,
-                                                                t))
+                                 t, out.pop("units"), None, out)
         if not ids:
             self.absorb_many(events)
             return _PendingRound(self, {}, [], set(), t, None, None)
@@ -597,8 +659,9 @@ class StudyPool:
         clamps = self.engine.state.clamp_count.clone()
         nb_units = self._nb_stage(ids, nb_set, t)
         self._refantasize_pending(sid for sid, _, _ in events)
-        return _PendingRound(self, first, ids, need_seed, t, units, clamps,
-                             nb_units)
+        out = _to_host({"units": units, "clamps": clamps, **nb_units})
+        return _PendingRound(self, first, ids, need_seed, t,
+                             out.pop("units"), out.pop("clamps"), out)
 
     def advance_round(self, events: Sequence[tuple[int, Trial, float]],
                       t: int = 1,
@@ -749,7 +812,9 @@ class StudyPool:
         under the reference's names, and the handle's metadata.  Round-trips
         through `import_study` (and `checkpoint.save_study`) bit for bit.
         A slot with fantasy rows out refuses: snapshots hold only real
-        state (DESIGN.md §12)."""
+        state (DESIGN.md §12).  Beside the generator's state the metadata
+        holds a JAX `key` (`_gen_key`, no draw), which the reference's
+        `import_study` reads."""
         if self._fantasies[slot]:
             raise RuntimeError(
                 f"slot {slot} has {len(self._fantasies[slot])} active "
@@ -759,6 +824,7 @@ class StudyPool:
         tree = _numpy_tree(_state_tree(self.engine.study_state(slot)))
         meta = {"name": h.name, "next_id": h.next_id,
                 "trials": self.history(slot),
+                "key": _gen_key(h.gen),
                 "rng_state": h.rng.bit_generator.state,
                 TORCH_RNG_FIELD: _gen_state(h.gen),
                 # the escalation tier (DESIGN.md §15): the tag, the per-row
@@ -772,7 +838,12 @@ class StudyPool:
     def import_study(self, slot: int, tree: dict, meta: dict,
                      space=None) -> None:
         """Load an exported study into `slot` (inverse of
-        `export_study`)."""
+        `export_study`).  The slot's EI generator takes the snapshot's
+        `TORCH_RNG_FIELD` where it has one (a port export); else, as for a
+        reference export, it is seeded from the JAX `key`, seed = k0 * 2^32
+        + k1, so its stream depends on the study alone, never on the slot
+        or the slot's previous tenant.  (`restore` keeps a slot's generator
+        where a snapshot has no `TORCH_RNG_FIELD`.)"""
         dev = self.engine.device
 
         def t(a):
@@ -801,7 +872,10 @@ class StudyPool:
                 self.engine.set_desc(slot, space.descriptor())
         h.name = meta["name"]
         h.next_id = int(meta["next_id"])
-        _set_gen_state(h.gen, meta[TORCH_RNG_FIELD])
+        if TORCH_RNG_FIELD in meta:
+            _set_gen_state(h.gen, meta[TORCH_RNG_FIELD])
+        else:
+            h.gen = _new_gen(_key_seed(meta["key"]))
         h.rng = np.random.default_rng()
         h.rng.bit_generator.state = meta["rng_state"]
         h.trials = [_trial_from_dict(t) for t in meta["trials"]]

@@ -99,22 +99,41 @@ def engine_draws(key, n_studies: int, restarts: int, dim: int,
     return keys, np.stack(seeds), np.stack(jitter)
 
 
-def mirror_pool_draws(tpool, seed: int) -> list:
+def mirror_pool_draws(tpool, seed: int, owner=None):
     """Make a port `StudyPool` draw what the reference's pool draws: each
     study's EI draws come from a JAX key stream that starts at
     PRNGKey(seed + i) and is split as the reference's pool splits it (one
     split a suggest, routed or batched; `key_draws` of the subkey).
-    Returns the streams' keys (a list the caller may read)."""
-    keys = [jax.random.PRNGKey(seed + i) for i in range(tpool.n_studies)]
+
+    Under a gateway pass `owner(slot)` (the logical study in a slot,
+    `gw._owner[slot]`): the streams then follow the logical study i, as
+    the reference gateway's keys do (seeded seed + i, carried through
+    eviction snapshots), not the slot.  Returns the streams' keys (a list,
+    or a dict by logical study, the caller may read)."""
+    if owner is None:
+        keys = [jax.random.PRNGKey(seed + i) for i in range(tpool.n_studies)]
+
+        def who(slot):
+            return slot
+    else:
+        keys = {}
+
+        def who(slot):
+            sid = owner(slot)
+            if sid not in keys:
+                keys[sid] = jax.random.PRNGKey(seed + sid)
+            return sid
     restarts, dim = tpool.cfg.acq.restarts, tpool.dim
 
     def draw(study_id, top_t):
-        keys[study_id], sub = jax.random.split(keys[study_id])
+        sid = who(study_id)
+        keys[sid], sub = jax.random.split(keys[sid])
         return tuple(torch.from_numpy(a.copy()) for a in key_draws(
             sub, restarts, dim, top_t))
 
     def draw_q(study_id, q):
-        keys[study_id], sub = jax.random.split(keys[study_id])
+        sid = who(study_id)
+        keys[sid], sub = jax.random.split(keys[sid])
         subs = jax.random.split(sub, q)
         seeds, jitter = zip(*(key_draws(k, restarts, dim, 1) for k in subs))
         return torch.from_numpy(np.stack(seeds)), \
@@ -123,6 +142,28 @@ def mirror_pool_draws(tpool, seed: int) -> list:
     tpool._draw = draw
     tpool._draw_q = draw_q
     return keys
+
+
+def slot_bytes(pool, slot: int) -> dict:
+    """Every leaf of one slot of a port pool as raw bytes, under the
+    reference's leaf names, with the host counts: the comparison is bit
+    for bit (tests/_traffic.py's `slot_bytes` for the port)."""
+    from repro_torch.core import gp as gp_mod
+    st = pool.engine.study_state(slot)
+    out = {name: leaf.numpy().tobytes() for name, leaf in zip(
+        ("x_buf", "y_buf", "l_buf", "li_buf", "alpha", "clamp_count",
+         "params/sigma2", "params/rho", "params/noise2"),
+        gp_mod._leaves(st))}
+    out["n"], out["since_refit"] = st.n, st.since_refit
+    return out
+
+
+def assert_slots_equal(pool_a, slot_a, pool_b, slot_b, ctx="") -> None:
+    """Two slots of port pools, every leaf bit for bit."""
+    a, b = slot_bytes(pool_a, slot_a), slot_bytes(pool_b, slot_b)
+    assert a.keys() == b.keys()
+    for leaf in a:
+        assert a[leaf] == b[leaf], f"{leaf} differs {ctx}".rstrip()
 
 
 def assert_engines_match(jeng, teng, pending: dict | None = None) -> None:

@@ -26,7 +26,7 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.hpo.engine, repro_torch.hpo.mesh, "
             "repro_torch.hpo.pool, repro_torch.core.neural_basis, "
             "repro_torch.checkpoint, repro_torch.checkpoint.store, "
-            "repro_torch.hpo.scheduler\n"
+            "repro_torch.hpo.scheduler, repro_torch.hpo.gateway\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -55,8 +55,8 @@ def test_entry_points_default_to_cuda():
         assert fn.__kwdefaults__["device"] == "cuda"
     assert neural_basis.nb_from_json.__defaults__ == ("cuda",)
     assert StudyEngine.__init__.__kwdefaults__["device"] == "cuda"
-    from repro_torch.hpo import StudyPool, TrialScheduler
-    for cls in (StudyPool, TrialScheduler):
+    from repro_torch.hpo import StudyGateway, StudyPool, TrialScheduler
+    for cls in (StudyGateway, StudyPool, TrialScheduler):
         assert cls.__init__.__kwdefaults__["device"] == "cuda"
 
 
@@ -79,6 +79,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
         StudyPool([RESNET_SPACE], SchedulerConfig(n_max=8))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TrialScheduler(RESNET_SPACE, SchedulerConfig(n_max=8))
+    from repro_torch.hpo import StudyGateway
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StudyGateway(RESNET_SPACE, SchedulerConfig(n_max=8, ckpt_dir="."))
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -10,10 +10,10 @@ import tempfile
 import numpy as np
 import pytest
 import torch
+from _torch_port import assert_slots_equal
 
 from repro_torch import checkpoint as ckpt_mod
 from repro_torch.checkpoint import store as store_mod
-from repro_torch.core import gp as gp_mod
 from repro_torch.core import neural_basis as nb_mod
 from repro_torch.core.acquisition import AcqConfig
 from repro_torch.core.neural_basis import NeuralConfig
@@ -47,22 +47,6 @@ def obj(sid, unit):
 def _foreign_trial(unit) -> Trial:
     """An observation told out of band (never asked)."""
     return Trial(10_000, np.asarray(unit, np.float32), {})
-
-
-def _slot_bytes(pool, slot: int) -> dict:
-    """Every leaf of one slot's GP state as raw bytes (bitwise compare)."""
-    st = pool.engine.study_state(slot)
-    out = {name: leaf.numpy().tobytes() for name, leaf in zip(
-        ("x_buf", "y_buf", "l_buf", "li_buf", "alpha", "clamp_count",
-         "sigma2", "rho", "noise2"), gp_mod._leaves(st))}
-    out["n"], out["since_refit"] = st.n, st.since_refit
-    return out
-
-
-def _assert_slots_equal(a, b, ctx):
-    a, b = _slot_bytes(*a), _slot_bytes(*b)
-    for leaf in a:
-        assert a[leaf] == b[leaf], f"{leaf} differs {ctx}"
 
 
 def test_checkpoint_write_failure_leaves_previous_snapshot(monkeypatch):
@@ -148,7 +132,7 @@ def test_ask_q_rollback_bitwise_equals_never_fantasized(order):
                 pb.absorb(0, _foreign_trial(tr.unit), v)
         assert pa.fantasy_active(0) == 0
         assert pa.engine.n(0) == pb.engine.n(0)
-        _assert_slots_equal((pa, 0), (pb, 0), "after rollback")
+        assert_slots_equal(pa, 0, pb, 0, "after rollback")
 
 
 def test_ask_q_checkpoint_mid_fantasy_snapshots_only_real_state():
@@ -163,7 +147,7 @@ def test_ask_q_checkpoint_mid_fantasy_snapshots_only_real_state():
         pr = _pool(_cfg(d1, n_max=48))
         assert pr.restore()
         assert pr.fantasy_active(0) == 0 and pr.engine.n(0) == 3
-        _assert_slots_equal((pr, 0), (pb, 0), "after restore")
+        assert_slots_equal(pr, 0, pb, 0, "after restore")
         for tr in trials:
             pr.absorb(0, _foreign_trial(tr.unit), obj(0, tr.unit))
         assert pr.engine.n(0) == 6
