@@ -251,11 +251,42 @@ Phases, each printing one JSON line:
                absorbed; suggestions a second,
                ticks, coalesce width, p50 / p95 tick ms, evictions and
                restores, and the eviction, restore and checkpoint ms.
+ 12. federation — after the gateway (`federation_path`), over its 24
+               logical studies: A, a `FederatedGateway` of 2 shards of 8
+               slots in this process, B, its 16-slot single-pool twin, and
+               C, a `TransportFederation` of 2 shard worker processes on
+               the same card (heartbeats every 0.5 s, the reference's 1.0 s
+               deadline and 3 misses).  A and C are seeded through the
+               federation's recovery path: each study's snapshot in its
+               ring shard's store, a registry epoch with fallback records,
+               then `restore()` / `start()`.  (1) The scripted trace on A
+               and B (each round's tells absorbed by a tick of their own
+               before its asks), every pool call of every shard and every
+               tick held to its launches, one study migrated and
+               `rebalance()` mid-trace: every suggestion, state digest,
+               ledger, n_obs / best_value and lifetime counter of A bit for
+               bit B's.  (2) A's `checkpoint()` (ms, bytes), a round told
+               but not committed, `kill_shard(0)`, a survivor's round,
+               `revive_shard(0)`: committed observations kept, the lost
+               round re-derived bit for bit, nothing replayed.  (3) C: the
+               trace over RPC with the same migration (streams, moves,
+               n_obs / best_value A's, each resident study's digest over
+               RPC A's), then a SIGKILL of worker 0 and its revival under
+               the same law; each worker's spawn-to-endpoint seconds and
+               slowest ping.  (4) The 24 asyncio clients on A and C in
+               turns (A, C, C, A), each fresh from the records:
+               suggestions a second, p50 / p95 tick ms by shard, beside
+               the gateway phase's.  `federation` counts A's own
+               launches (B's taken out, after the trace's launches are
+               held to A's and B's pool calls); `federation_workers`,
+               C's workers', which each worker writes as it exits (the
+               SIGKILLed lifetime writes none).
 Then the `{"kernels": [...]}` line (seven kernels: L X = I and the general
 solve, two C entries of `csrc/trsv.cu`, count apart; launches per path:
 main, mixed, append, engine, engine_mixed, pool, pool_mixed, neural,
-neural_mixed, fantasy, fantasy_mixed, gateway), the nvidia-smi line and, last,
-`{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
+neural_mixed, fantasy, fantasy_mixed, gateway, federation,
+federation_workers), the nvidia-smi
+line and, last, `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
 
@@ -272,9 +303,11 @@ import asyncio
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -3759,18 +3792,19 @@ CLIENT_LATENCY = 0.002     # examples/serve.py's simulated training, seconds
 TIER_ASKS = 4              # client 0's asks after its promotion
 
 
-def gateway_records(pool, studies, dirs) -> list[dict]:
+def gateway_records(pool, studies, dirs, shard_of=None) -> list[dict]:
     """The pool's 16 studies as the gateway's eviction store holds them:
-    each `export_study`, written to every directory of `dirs` as `_evict`
-    writes it (`save_study` version 1, key study%06d, metadata handle / sid
-    / n_obs), and the registry records a gateway adopts."""
+    each `export_study`, written to every directory of `dirs` (or, given
+    `shard_of`, to `dirs[shard_of(study)]` alone) as `_evict` writes it
+    (`save_study` version 1, key study%06d, metadata handle / sid /
+    n_obs), and the registry records a gateway adopts."""
     from repro_torch import checkpoint as ckpt
     from repro_torch.hpo.space import space_to_dicts
     records = []
     for s in range(pool.n_studies):
         snap = pool.export_study(s)
         key, n_obs = f"study{s:06d}", pool.engine.n(s)
-        for d in dirs:
+        for d in (dirs if shard_of is None else [dirs[shard_of(s)]]):
             ckpt.save_study(d, key, 1, snap["tree"], metadata={
                 "handle": json.dumps(snap["meta"]), "sid": s,
                 "n_obs": n_obs})
@@ -4047,15 +4081,23 @@ def same_trials(name, runs) -> None:
             raise AssertionError(f"gateway {name}: suggestions differ")
 
 
+async def settled(x):
+    """`x`, awaited where it is awaitable: the in-process gateways answer
+    `study_info`, `tell` and `summary` at once, a `TransportFederation`
+    by a coroutine."""
+    return await x if inspect.isawaitable(x) else x
+
+
 async def gateway_client(gw, sid, objective, asks, q, tier_asks, stats):
     """examples/serve.py's client: ask (q wide while the budget allows),
     train for a few ms, tell; client 0 (`tier_asks`) runs on until its
-    study is promoted past n_max, then asks `tier_asks` more times."""
+    study is promoted past n_max, then asks `tier_asks` more times.  `gw`
+    is a gateway or a federation of either kind."""
     latency = CLIENT_LATENCY * (1.0 + 0.5 * ((sid + 1) % 3))
     done = after = 0
     while True:
         if tier_asks:
-            if gw.study_info(sid)["tier"]:
+            if (await settled(gw.study_info(sid)))["tier"]:
                 if after == tier_asks:
                     break
                 after += 1
@@ -4071,7 +4113,7 @@ async def gateway_client(gw, sid, objective, asks, q, tier_asks, stats):
                                  "the unit cube")
         await asyncio.sleep(latency)
         for t, v in zip(trials, gateway_values(objective, trials)):
-            gw.tell(sid, t, v)
+            await settled(gw.tell(sid, t, v))
         done += len(trials)
         stats["tells"][sid] = stats["tells"].get(sid, 0) + len(trials)
     await gw.drain()
@@ -4238,7 +4280,755 @@ def gateway_path(dev, pair, pool_line) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     line["seconds"] = time.perf_counter() - start
     emit(line)
-    return counts
+    return counts, line
+
+
+FED_SHARDS = 2             # shards of the federation phase
+FED = dict(GATEWAY, slots=GATEWAY["slots"] // FED_SHARDS)   # 8 slots a shard
+FED_MIGRATE_ROUND = 7      # the trace's round after whose tick a study moves
+FED_HEARTBEAT_S = 0.5      # C's ping period (the deadline and miss limit are
+# the reference's defaults: 1.0 s, 3 misses)
+FED_LOST = 2               # studies a shard serves in the round a kill loses
+
+
+def federation_cfg(root):
+    from repro_torch.hpo import SchedulerConfig
+    return SchedulerConfig(n_max=N_MAX, lag=LAG, seed=0, ckpt_dir=root,
+                           ckpt_every=10 ** 9)
+
+
+def federation_root(pool, studies, root) -> list[dict]:
+    """Seed a federation root as its recovery path reads it: each of the
+    pool's 16 studies written (`gateway_records`) into its ring shard's
+    store, then a registry epoch (`FederationBase._save_epoch`) placing
+    the 24 sids on their ring shards with a fallback record for each
+    adopted study.  A federation's `restore()` (or a transport's
+    `start()`) then re-adopts the 16 and creates the 8 fresh ones."""
+    from repro_torch.hpo import (FederationBase, FederationConfig,
+                                 GatewayConfig)
+    base = FederationBase(studies[0].space, federation_cfg(root),
+                          GatewayConfig(**FED),
+                          FederationConfig(n_shards=FED_SHARDS))
+    records = gateway_records(pool, studies, [base.shard_dir(i) for i in
+                                              range(FED_SHARDS)],
+                              shard_of=base.route)
+    base._next_sid = len(records) + GATEWAY_FRESH
+    base._placement = {s: base.route(s) for s in range(base._next_sid)}
+    base._save_epoch({r["sid"]: dict(r, shard=base.route(r["sid"]))
+                      for r in records})
+    return records
+
+
+def federation_from(dev, template, root, records):
+    """Federation A at the gateway phase's configuration, 2 shards of 8
+    slots, restored from a seeded root: every adopted study holds its
+    record's observations."""
+    from repro_torch.hpo import (FederatedGateway, FederationConfig,
+                                 GatewayConfig)
+    fed = FederatedGateway(template, federation_cfg(root),
+                           GatewayConfig(**FED),
+                           FederationConfig(n_shards=FED_SHARDS), device=dev)
+    if not fed.restore():
+        raise AssertionError("federation: nothing restored")
+    adopted_as_recorded([fed.study_info(r["sid"])["n_obs"] for r in records],
+                        records)
+    return fed
+
+
+def adopted_as_recorded(n_obs: list, records) -> None:
+    """The adopted studies hold their records' observations (a snapshot
+    the recovery path did not find would leave a fresh study)."""
+    if n_obs != [r["n_obs"] for r in records]:
+        raise AssertionError(f"federation: adopted n_obs {n_obs}")
+
+
+class CountedFederation:
+    """Federation A with every shard's pool calls held to their launches
+    (`CountedGateway`, rewrapped when `revive_shard` builds a shard anew),
+    and every `tick()` to the sum of its shards' calls."""
+
+    def __init__(self, name, fed):
+        self.name, self.fed, self.counted = name, fed, []
+        self.wrap()
+
+    def wrap(self):
+        known = {id(c.gw) for c in self.counted}
+        for i, gw in enumerate(self.fed.shards):
+            if gw is not None and id(gw) not in known:
+                self.counted.append(CountedGateway(f"{self.name}{i}", gw))
+
+    @property
+    def want(self) -> dict:
+        total = {k: 0 for k in read_counts()}
+        for c in self.counted:
+            total = add_counts(total, c.want)
+        return total
+
+    def tick(self) -> int:
+        before, want = read_counts(), self.want
+        out = self.fed.tick()
+        got = diff_counts(read_counts(), before)
+        if got != diff_counts(self.want, want):
+            raise AssertionError(f"federation {self.name}: tick launches "
+                                 f"{got}")
+        return out
+
+
+def shard_gw(fed, sid):
+    return fed.shards[fed.shard_of(sid)]
+
+
+def trace_moves(fed, r: int) -> dict:
+    """After round r's ticks: the lowest resident quiescent study of the
+    fuller shard that asks again later in the trace moves to the other
+    shard, then `rebalance()`; both timed."""
+    later = {s for t in range(r + 1, GATEWAY_ROUNDS)
+             for s in trace_askers(t, len(fed.study_ids()))}
+    src = max(range(FED_SHARDS), key=lambda i: (sum(
+        1 for s in fed.study_ids() if fed.shard_of(s) == i), -i))
+    sid = min(s for s in fed.study_ids() if s in later
+              and fed.shard_of(s) == src and fed.study_info(s)["resident"]
+              and shard_gw(fed, s).is_quiescent(s))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed.migrate_study(sid, 1 - src)
+    migrate_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    moves = fed.rebalance()
+    torch.cuda.synchronize()
+    return {"sid": sid, "src": src, "dst": 1 - src, "migrate_ms": migrate_ms,
+            "rebalance": moves,
+            "rebalance_ms": 1e3 * (time.perf_counter() - t0),
+            "placement": [sum(1 for s in fed.study_ids()
+                              if fed.shard_of(s) == i)
+                          for i in range(FED_SHARDS)]}
+
+
+async def federation_twin(a, b, objective) -> dict:
+    """Step 1: the gateway phase's scripted trace on A (`tick()` of every
+    shard) and its single-pool twin B (`tick()`), both counted, the same
+    event order: a trial asked at round r is told at r + 2; every third
+    round's first asker asks q = 4; each round's tells are absorbed by a
+    tick of their own before its asks are served (a shard of 8 slots then
+    holds at most the last round's askers and this round's, and no ask
+    defers); after round FED_MIGRATE_ROUND A moves one study and
+    rebalances.  Every suggestion bit for bit B's.  Returns A's streams
+    (unit bytes) and the moves."""
+    loop = asyncio.get_running_loop()
+    fed = a.fed
+    sids = fed.study_ids()
+    streams = {k: {s: [] for s in sids} for k in "ab"}
+    inflight, to_tell, moves = [], [], {}
+
+    def collect():
+        for item in inflight[:]:
+            r0, s, fa, fb = item
+            if not (fa.done() and fb.done()):
+                raise AssertionError(f"federation: study {s}'s ask of "
+                                     f"round {r0} deferred")
+            if fa.done():
+                ta, tb = (f.result() for f in (fa, fb))
+                ta = ta if isinstance(ta, list) else [ta]
+                tb = tb if isinstance(tb, list) else [tb]
+                for k, trs in (("a", ta), ("b", tb)):
+                    streams[k][s] += [t.unit.tobytes() for t in trs]
+                to_tell.append((r0 + 2, s, ta, tb))
+                inflight.remove(item)
+
+    def tell(due):
+        for item in [x for x in to_tell if x[0] <= due]:
+            _, s, ta, tb = item
+            vals = gateway_values(objective, ta)
+            for t, v in zip(ta, vals):
+                fed.tell(s, t, v)
+            for t, v in zip(tb, vals):
+                b.gw.tell(s, t, v)
+            to_tell.remove(item)
+
+    for r in range(GATEWAY_ROUNDS):
+        tell(r)
+        a.tick()
+        b.tick(b.gw.tick)
+        for i, s in enumerate(trace_askers(r, len(sids))):
+            q = GATEWAY_Q if (r % 3 == 2 and i == 0) else 1
+            inflight.append((r, s, gateway_enqueue(shard_gw(fed, s), loop,
+                                                   s, q),
+                             gateway_enqueue(b.gw, loop, s, q)))
+        a.tick()
+        b.tick(b.gw.tick)
+        collect()
+        if r == FED_MIGRATE_ROUND:
+            moves = trace_moves(fed, r)
+    tell(10 ** 9)
+    a.tick()
+    b.tick(b.gw.tick)
+    if b.gw._tells or b.gw._asks or any(gw._tells or gw._asks
+                                        for gw in fed.shards):
+        raise AssertionError("federation: the trace left work queued")
+    if streams["a"] != streams["b"]:
+        bad = [s for s in sids if streams["a"][s] != streams["b"][s]]
+        raise AssertionError(f"federation: studies {bad} suggested other "
+                             "points than the single pool")
+    moves["suggested_after_move"] = sum(
+        1 for r in range(FED_MIGRATE_ROUND + 1, GATEWAY_ROUNDS)
+        if moves["sid"] in trace_askers(r, len(sids)))
+    return {"streams": streams["a"], "moves": moves}
+
+
+LEDGER_KEYS = ("trial_id", "unit", "value", "status", "error", "cost")
+
+
+def study_views(gw, sids) -> dict:
+    """Each study of `gw` made resident in turn: its `study_state_digest`,
+    its ledger's stable fields and its registry's n_obs / best_value."""
+    from repro_torch.hpo.transport import study_state_digest
+    out = {}
+    for s in sids:
+        slot = gw._ensure_resident(s)
+        info = gw.study_info(s)
+        out[s] = {"digest": study_state_digest(gw.pool, slot),
+                  "ledger": [tuple(str(t[k]) for k in LEDGER_KEYS)
+                             for t in gw.pool.history(slot)],
+                  "n_obs": info["n_obs"], "best_value": info["best_value"]}
+    return out
+
+
+LIFETIME_KEYS = ("asks_served", "absorbed", "fantasy_rollbacks",
+                 "q_width_hist", "fantasy_active", "escalated", "saturated")
+
+
+def views_equal(name, a, b, keys=("digest", "ledger", "n_obs",
+                                  "best_value")) -> None:
+    for s in a:
+        for k in keys:
+            if a[s][k] != b[s][k]:
+                raise AssertionError(f"federation {name}: study {s}'s {k}")
+
+
+def fed_checkpoint(fed) -> dict:
+    """A's `checkpoint()`: ms, and bytes of what it wrote (the registry
+    epoch and each shard's pool snapshot)."""
+    from repro_torch import checkpoint as ckpt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch = fed.checkpoint()
+    ms = 1e3 * (time.perf_counter() - t0)
+    paths = [os.path.join(fed._fed_dir, f"step_{epoch:09d}")] + [
+        os.path.join(fed.shard_dir(i),
+                     f"step_{ckpt.latest_step(fed.shard_dir(i)):09d}")
+        for i in range(FED_SHARDS)]
+    return {"epoch": epoch, "ms": ms,
+            "bytes": sum(dir_bytes(p) for p in paths)}
+
+
+def calm_by_shard(fed, count: int) -> dict:
+    """`count` resident idle studies of each shard whose next absorb is no
+    lag event."""
+    return {i: resident_calm(gw, count) for i, gw in enumerate(fed.shards)}
+
+
+async def federation_recovery(a, objective, streams) -> dict:
+    """Step 2 after the twin: A's `checkpoint()` (ms, bytes); one round on
+    two calm studies of each shard, told and absorbed but not committed;
+    `kill_shard(0)`; the survivor serves a round; `revive_shard(0)`.
+    Shard 0's studies are back at the epoch, shard 1's kept both rounds,
+    and shard 0's next suggestions are the lost round's, bit for bit, and
+    none of their earlier ones."""
+    loop = asyncio.get_running_loop()
+    fed = a.fed
+    line = {"checkpoint": fed_checkpoint(fed)}
+    calm = calm_by_shard(fed, FED_LOST)
+    n0 = {s: fed.study_info(s)["n_obs"] for ss in calm.values() for s in ss}
+
+    def one_round(sids):
+        futs = {s: gateway_enqueue(shard_gw(fed, s), loop, s) for s in sids}
+        a.tick()
+        trials = {s: f.result() for s, f in futs.items()}
+        for s, t in trials.items():
+            fed.tell(s, t, gateway_values(objective, [t])[0])
+        a.tick()
+        return {s: t.unit.tobytes() for s, t in trials.items()}
+
+    lost = one_round(calm[0] + calm[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed.kill_shard(0)
+    survivor = one_round(calm[1])
+    t1 = time.perf_counter()
+    fed.revive_shard(0)
+    torch.cuda.synchronize()
+    line["revive_ms"] = 1e3 * (time.perf_counter() - t1)
+    line["kill_to_revived_ms"] = 1e3 * (time.perf_counter() - t0)
+    a.wrap()
+    for s, n in n0.items():
+        want = n if fed.shard_of(s) == 0 else n + 2
+        if fed.study_info(s)["n_obs"] != want:
+            raise AssertionError(f"federation: study {s} has "
+                                 f"{fed.study_info(s)['n_obs']} "
+                                 f"observations after the revive, not {want}")
+    again = one_round(calm[0])
+    for s, u in again.items():
+        if u != lost[s]:
+            raise AssertionError(f"federation: study {s}'s lost round did "
+                                 "not re-derive bit for bit")
+        if u in streams[s]:
+            raise AssertionError(f"federation: study {s} replayed a "
+                                 "pre-crash suggestion")
+    line.update(killed_studies=calm[0], survivor_studies=calm[1],
+                survivor_served_while_down=len(survivor))
+    return line
+
+
+COUNTED_WORKER = '''\
+"""`python -m repro_torch.hpo.shard_worker ARGS` run as `{script} -m
+repro_torch.hpo.shard_worker ARGS`, which also writes the worker's kernel
+launches to <ckpt-dir>/launches-<pid>.json when it exits (a worker that
+is SIGKILLed writes none)."""
+import json
+import os
+import sys
+
+args = sys.argv[1:]
+if args[:2] != ["-m", "repro_torch.hpo.shard_worker"]:
+    raise SystemExit(f"not a shard worker command: {{args}}")
+argv = args[2:]
+from repro_torch.hpo.transport import main  # noqa: E402
+
+try:
+    rc = main(argv)
+finally:
+    from repro_torch.kernels import KERNEL_MODULES, acq, trsv
+    counts = {{m.__name__.rsplit(".", 1)[1]: m.LAUNCHES
+              for m in KERNEL_MODULES}}
+    counts["acq_mixed"] = acq.LAUNCHES_MIXED
+    counts["trsv_general"] = trsv.LAUNCHES_GENERAL
+    d = argv[argv.index("--ckpt-dir") + 1]
+    with open(os.path.join(d, f"launches-{{os.getpid()}}.json"), "w") as f:
+        json.dump(counts, f)
+sys.exit(rc)
+'''
+
+
+def counted_worker() -> str:
+    """The interpreter C's `TransportConfig.python` names: a script beside
+    the kernel libraries (`build/`) whose first line runs this Python, and
+    which runs the shard worker's `main` as `-m` would, then writes the
+    worker's launch counts into its shard directory (`worker_launches`)."""
+    from repro_torch.kernels import _build
+    path = _build.BUILD_DIR.parent / "counted_shard_worker.py"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(f"#!{sys.executable}\n"
+                    + COUNTED_WORKER.format(script=path.name))
+    path.chmod(0o755)
+    return str(path)
+
+
+def worker_launches(c) -> dict:
+    """The launch counts that C's workers wrote as they exited, by shard
+    (one entry a worker lifetime that ended in a shutdown), and their sum."""
+    import glob
+    total = {k: 0 for k in read_counts()}
+    by_shard = {}
+    for i in range(FED_SHARDS):
+        by_shard[i] = []
+        for path in sorted(glob.glob(os.path.join(c.shard_dir(i),
+                                                  "launches-*.json"))):
+            with open(path) as f:
+                counts = json.load(f)
+            by_shard[i].append(counts)
+            total = add_counts(total, counts)
+    return {"by_shard": by_shard, "total": total}
+
+
+def timed_transport(dev, template, root):
+    """Federation C: a `TransportFederation` of 2 spawned shard workers on
+    `dev` (each spawned through `counted_worker`), heartbeats on (period
+    FED_HEARTBEAT_S, the reference's deadline and miss limit), timing each
+    worker's spawn to its endpoint and each ping's reply, and recording
+    why a shard was marked dead."""
+    from repro_torch.hpo import (FederationConfig, GatewayConfig,
+                                 TransportConfig, TransportFederation)
+    python = counted_worker()
+
+    class Timed(TransportFederation):
+        def __init__(self):
+            super().__init__(template, federation_cfg(root),
+                             GatewayConfig(**FED),
+                             FederationConfig(n_shards=FED_SHARDS),
+                             TransportConfig(heartbeat_s=FED_HEARTBEAT_S,
+                                             python=python),
+                             device=dev)
+            self.spawn_s = {i: [] for i in range(FED_SHARDS)}
+            self.ping_ms = {i: [] for i in range(FED_SHARDS)}
+            self.dead = []
+
+        async def _spawn_shard(self, i):
+            t0 = time.perf_counter()
+            client = await super()._spawn_shard(i)
+            self.spawn_s[i].append(time.perf_counter() - t0)
+            call = client.call
+
+            async def timed_call(op, _timeout=None, **args):
+                t = time.perf_counter()
+                try:
+                    return await call(op, _timeout=_timeout, **args)
+                finally:
+                    if op == "ping":
+                        self.ping_ms[i].append(
+                            1e3 * (time.perf_counter() - t))
+            client.call = timed_call
+            return client
+
+        def _mark_dead(self, i, reason):
+            self.dead.append(reason)
+            super()._mark_dead(i, reason)
+
+        def report(self) -> dict:
+            return {"spawn_to_endpoint_s": self.spawn_s,
+                    "pings": {i: len(v) for i, v in self.ping_ms.items()},
+                    "slowest_ping_ms": {i: max(v, default=None)
+                                        for i, v in self.ping_ms.items()},
+                    "marked_dead": self.dead}
+
+        def healthy(self, killed=()) -> None:
+            bad = [r for r in self.dead if not any(
+                r == f"shard {i} killed" for i in killed)]
+            if bad:
+                raise AssertionError(f"federation C: heartbeats marked a "
+                                     f"live shard dead: {bad}; "
+                                     f"{self.report()}")
+    return Timed()
+
+
+async def close_transport(c) -> None:
+    """Shut C's workers down and wait for every one to exit; kill any
+    that does not."""
+    try:
+        await asyncio.wait_for(c.aclose(), 60)
+    finally:
+        for p in c.procs:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p is not None for p in c.procs):
+        raise AssertionError("federation C: a worker outlived aclose()")
+
+
+async def rpc_trace(c, objective, moved_sid) -> dict:
+    """Step 1's trace through C's RPC surface: each round's due tells and
+    a drain, then its asks gathered (each worker's ticker coalesces them)
+    and a drain; after round FED_MIGRATE_ROUND, A's moved study moves and
+    C rebalances.  The same per-study event order as A's trace."""
+    sids = c.study_ids()
+    streams = {s: [] for s in sids}
+    to_tell, moves = [], {}
+    for r in range(GATEWAY_ROUNDS):
+        for item in [x for x in to_tell if x[0] <= r]:
+            _, s, trials = item
+            for t, v in zip(trials, gateway_values(objective, trials)):
+                await c.tell(s, t, v)
+            to_tell.remove(item)
+        await c.drain()
+        askers = trace_askers(r, len(sids))
+        got = await asyncio.gather(*(c.ask(
+            s, GATEWAY_Q if (r % 3 == 2 and i == 0) else 1)
+            for i, s in enumerate(askers)))
+        for s, res in zip(askers, got):
+            trials = res if isinstance(res, list) else [res]
+            streams[s] += [t.unit.tobytes() for t in trials]
+            to_tell.append((r + 2, s, trials))
+        await c.drain()
+        if r == FED_MIGRATE_ROUND:
+            src = c.shard_of(moved_sid)
+            t0 = time.perf_counter()
+            await c.migrate_study(moved_sid, 1 - src)
+            moves = {"sid": moved_sid, "src": src,
+                     "migrate_ms": 1e3 * (time.perf_counter() - t0)}
+            moves["rebalance"] = await c.rebalance()
+    for _, s, trials in to_tell:
+        for t, v in zip(trials, gateway_values(objective, trials)):
+            await c.tell(s, t, v)
+    await c.drain()
+    return {"streams": streams, "moves": moves}
+
+
+async def transport_steps(dev, template, root, records, objective, twin,
+                          views) -> dict:
+    """Step 3: C seeded like A (`start()` loads the registry epoch and
+    reconciles each worker), the trace over RPC: streams, moves and
+    n_obs / best_value as A's, each resident study's `state_digest` over
+    RPC A's; then `checkpoint()`, one round on two studies of each shard,
+    SIGKILL of worker 0, a survivor's round, `revive_shard(0)`: shard 0
+    back at the epoch, its next suggestions the lost round's."""
+    c = timed_transport(dev, template, root)
+    try:
+        t0 = time.perf_counter()
+        if not await c.start():
+            raise AssertionError("federation C: no registry epoch loaded")
+        line = {"start_s": time.perf_counter() - t0}
+        adopted_as_recorded([(await c.study_info(r["sid"]))["n_obs"]
+                             for r in records], records)
+        t0 = time.perf_counter()
+        trace = await rpc_trace(c, objective, twin["moves"]["sid"])
+        line["trace_s"] = time.perf_counter() - t0
+        if trace["streams"] != twin["streams"]:
+            raise AssertionError("federation C: suggestions differ from A's")
+        if trace["moves"]["rebalance"] != twin["moves"]["rebalance"]:
+            raise AssertionError(f"federation C: rebalance moved "
+                                 f"{trace['moves']['rebalance']}, A "
+                                 f"{twin['moves']['rebalance']}")
+        line["moves"] = trace["moves"]
+        compared = 0
+        for s in c.study_ids():
+            info = await c.study_info(s)
+            for k in ("n_obs", "best_value"):
+                if info[k] != views[s][k]:
+                    raise AssertionError(f"federation C: study {s}'s {k}")
+            dig = await c._client_for(s).call("state_digest", sid=s)
+            if dig is not None:
+                compared += 1
+                if dig != views[s]["digest"]:
+                    raise AssertionError(f"federation C: study {s}'s state "
+                                         "digest differs from A's")
+        if compared < FED["slots"]:
+            raise AssertionError(f"federation C: {compared} resident "
+                                 "studies to compare")
+        line["digests_equal"] = compared
+        # the SIGKILL: one round told but not committed, then worker 0
+        await c.checkpoint()
+        by_shard = {i: [s for s in c.study_ids() if c.shard_of(s) == i]
+                    [:FED_LOST] for i in range(FED_SHARDS)}
+        n0 = {s: (await c.study_info(s))["n_obs"]
+              for ss in by_shard.values() for s in ss}
+
+        async def one_round(sids):
+            trials = await asyncio.gather(*(c.ask(s) for s in sids))
+            for s, t in zip(sids, trials):
+                await c.tell(s, t, gateway_values(objective, [t])[0])
+            await c.drain()
+            return {s: t.unit.tobytes() for s, t in zip(sids, trials)}
+        lost = await one_round(by_shard[0] + by_shard[1])
+        c.kill_shard(0)
+        if c.procs[0].poll() != -signal.SIGKILL:
+            raise AssertionError("federation C: worker 0 not killed")
+        await one_round(by_shard[1])
+        t0 = time.perf_counter()
+        await c.revive_shard(0)
+        line["revive_s"] = time.perf_counter() - t0
+        for s, n in n0.items():
+            want = n if c.shard_of(s) == 0 else n + 2
+            got = (await c.study_info(s))["n_obs"]
+            if got != want:
+                raise AssertionError(f"federation C: study {s} has {got} "
+                                     f"observations after the revive, not "
+                                     f"{want}")
+        again = await one_round(by_shard[0])
+        for s, u in again.items():
+            if u != lost[s] or u in trace["streams"][s]:
+                raise AssertionError(f"federation C: study {s}'s round "
+                                     "after the revive")
+        line["killed_studies"] = by_shard[0]
+        c.healthy(killed=(0,))
+        line.update(c.report())
+    finally:
+        await close_transport(c)
+    line["launches"] = worker_launches(c)
+    return line
+
+
+async def federation_clients(fed, objective) -> dict:
+    """Step 4: the gateway phase's 24 asyncio clients on a federation (A
+    in process, C over RPC), timed from the first ask to the drain."""
+    sids = fed.study_ids()
+    n0 = {s: (await settled(fed.study_info(s)))["n_obs"] for s in sids}
+    stats = {"tells": {}}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    await asyncio.gather(*(gateway_client(
+        fed, s, objective, CLIENT_ASKS,
+        GATEWAY_Q if s in CLIENT_Q_SIDS else 1,
+        TIER_ASKS if s == 0 else 0, stats) for s in sids))
+    await fed.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summ = await settled(fed.summary())
+    tells = stats["tells"]
+    info = {s: await settled(fed.study_info(s)) for s in sids}
+    if info[0]["tier"] != 1 or summ["escalated"] != 1:
+        raise AssertionError("federation: client 0's study was not promoted")
+    for s in sids:
+        if info[s]["n_obs"] != n0[s] + tells.get(s, 0):
+            raise AssertionError(f"federation: study {s} absorbed "
+                                 f"{info[s]['n_obs'] - n0[s]} of "
+                                 f"{tells.get(s, 0)} tells")
+    if summ["absorbed"] != sum(tells.values()) or any(
+            gw.dead_tells for gw in getattr(fed, "shards", ())):
+        raise AssertionError("federation: tells not absorbed")
+    shards = summ["per_shard"]
+    return {"seconds": wall, "suggestions": summ["asks_served"],
+            "suggestions_per_s": summ["asks_served"] / wall,
+            "ticks": summ["ticks"],
+            "p50_tick_ms": {i: s["p50_tick_ms"] for i, s in shards.items()},
+            "p95_tick_ms": {i: s["p95_tick_ms"] for i, s in shards.items()},
+            "mean_coalesce_width": {i: s["mean_coalesce_width"]
+                                    for i, s in shards.items()},
+            "evictions": summ["evictions"], "restores": summ["restores"],
+            "q_width_hist": summ["q_width_hist"],
+            "client0_asks": tells[0], "client0_n_obs": info[0]["n_obs"]}
+
+
+async def transport_clients(dev, template, root, objective) -> dict:
+    c = timed_transport(dev, template, root)
+    try:
+        t0 = time.perf_counter()
+        if not await c.start():
+            raise AssertionError("federation C: no registry epoch loaded")
+        start_s = time.perf_counter() - t0
+        run = await federation_clients(c, objective)
+        c.healthy()
+        run.update(start_s=start_s, **c.report())
+    finally:
+        await close_transport(c)
+    run["launches"] = worker_launches(c)
+    return run
+
+
+def require_launches(what, counts) -> None:
+    """The federation phase's gate: each kernel of the float path launched
+    at least once in `what`'s own run."""
+    for k in ("matern", "acq", "chol", "trsv"):
+        if not counts[k]:
+            raise AssertionError(f"federation: no {k} launch on {what}")
+
+
+def federation_path(dev, pair, gateway_line) -> tuple[dict, dict]:
+    """Phase federation: the port's `FederatedGateway` (A: 2 shards of the
+    gateway phase's gateway, 8 slots each, in this process) beside a
+    16-slot `StudyGateway` (B, its single-pool twin) and a
+    `TransportFederation` (C: 2 shard worker processes on the same card),
+    all over the gateway phase's 24 logical studies, seeded through the
+    federation's recovery path (`federation_root`: snapshots in each
+    study's ring shard, a registry epoch, `restore()` / `start()`).
+    Counts set to 0 after B is built and before A is, read after step 4;
+    B's launches (its pool calls in the trace, held to the trace's
+    launches beside A's, and its views) are taken out, so the counts are
+    A's own: its build, trace, recovery and client runs.  C's workers
+    count in their own processes and write their counts as they exit
+    (`counted_worker`); the SIGKILLed worker's lifetime is not counted.
+    (1) The scripted trace on A and B, every pool call and tick counted,
+    one study moved and a rebalance mid-trace: suggestions, state
+    digests, ledgers, n_obs / best_value and lifetime counters A's = B's;
+    (2) A's checkpoint (ms, bytes), an uncommitted round, kill_shard(0)
+    and revive_shard(0): the recovery law; (3) C: the trace over RPC,
+    equal to A's (digests over RPC), then a SIGKILL of worker 0 and its
+    revival; (4) 24 asyncio clients on A and C in turns (A, C, C, A),
+    each fresh from the records: suggestions a second and tick ms by
+    shard, beside the gateway phase's.  Returns A's launches and the sum
+    of C's workers'."""
+    import shutil
+    import tempfile
+    start = time.perf_counter()
+    studies, objective = pair.studies, pair.studies[0].objective
+    template = studies[0].space
+    roots = {k: tempfile.mkdtemp(prefix=f"chip_smoke_fed{k}_")
+             for k in ("a", "b", "c")}
+    try:
+        t0 = time.perf_counter()
+        records = federation_root(pair.a, studies, roots["a"])
+        gateway_records(pair.a, studies, [roots["b"]])
+        federation_root(pair.a, studies, roots["c"])
+        line = {"phase": "federation", "shards": FED_SHARDS,
+                "slots_per_shard": FED["slots"],
+                "logical_studies": len(records) + GATEWAY_FRESH,
+                "n_max": N_MAX, "records_seconds": time.perf_counter() - t0}
+        b = CountedGateway("B", gateway_from(dev, template, roots["b"],
+                                             records))
+        torch.cuda.synchronize()
+        reset_counts()
+        a = CountedFederation("A", federation_from(dev, template,
+                                                   roots["a"], records))
+        built = read_counts()
+        line["placement"] = [sum(1 for s in a.fed.study_ids()
+                                 if a.fed.shard_of(s) == i)
+                             for i in range(FED_SHARDS)]
+        t0 = time.perf_counter()
+        twin = asyncio.run(federation_twin(a, b, objective))
+        in_trace = diff_counts(read_counts(), built)
+        if in_trace != add_counts(a.want, b.want):
+            raise AssertionError(f"federation: the trace launched {in_trace}"
+                                 f", A's pool calls {a.want} and B's "
+                                 f"{b.want}")
+        line["twin"] = {"seconds": time.perf_counter() - t0,
+                        "suggestions": sum(len(v) for v in
+                                           twin["streams"].values()),
+                        "moves": twin["moves"], "launches": a.want,
+                        "launches_b": b.want}
+        sids = a.fed.study_ids()
+        t0 = time.perf_counter()
+        views = study_views_fed(a.fed, sids)
+        before = read_counts()
+        views_b = study_views(b.gw, sids)
+        b_share = add_counts(b.want, diff_counts(read_counts(), before))
+        views_equal("A against B", views, views_b)
+        line["twin"]["views_seconds"] = time.perf_counter() - t0
+        sa, sb = a.fed.summary(), b.gw.summary()
+        for k in LIFETIME_KEYS:
+            if sa[k] != sb[k]:
+                raise AssertionError(f"federation: summary {k} {sa[k]} "
+                                     f"against B's {sb[k]}")
+        line["twin"]["summary"] = {k: sa[k] for k in LIFETIME_KEYS}
+        del b
+        line["recovery"] = asyncio.run(federation_recovery(
+            a, objective, twin["streams"]))
+        asyncio.run(a.fed.aclose())
+        del a
+        line["transport"] = asyncio.run(transport_steps(
+            dev, template, roots["c"], records, objective, twin, views))
+        workers = line["transport"]["launches"]["total"]
+        runs = []
+        for k, kind in enumerate(("A", "C", "C", "A")):
+            root = tempfile.mkdtemp(prefix=f"chip_smoke_fed{k}_")
+            roots[f"client{k}"] = root
+            federation_root(pair.a, studies, root)
+            if kind == "A":
+                fed = federation_from(dev, template, root, records)
+
+                async def run_a():
+                    try:
+                        return await federation_clients(fed, objective)
+                    finally:
+                        await fed.aclose()
+                run = asyncio.run(run_a())
+                del fed
+            else:
+                run = asyncio.run(transport_clients(dev, template, root,
+                                                    objective))
+                workers = add_counts(workers, run["launches"]["total"])
+            runs.append(dict(kind=kind, **run))
+        line["clients"] = runs
+        line["clients_median"] = {
+            kind: {k: statistics.median(r[k] for r in runs
+                                        if r["kind"] == kind)
+                   for k in ("suggestions_per_s", "seconds")}
+            for kind in ("A", "C")}
+        line["gateway_clients_median"] = gateway_line["clients_median"]
+        counts = diff_counts(read_counts(), b_share)
+        line["launches"] = counts
+        line["launches_b"] = b_share
+        line["worker_launches"] = workers
+    finally:
+        for d in roots.values():
+            shutil.rmtree(d, ignore_errors=True)
+    line["seconds"] = time.perf_counter() - start
+    emit(line)
+    require_launches("A", counts)
+    require_launches("C's workers", workers)
+    return counts, workers
+
+
+def study_views_fed(fed, sids) -> dict:
+    """`study_views` of a federation, each study on its shard."""
+    return {s: study_views(shard_gw(fed, s), [s])[s] for s in sids}
 
 
 def trsv_launches(dev) -> dict:
@@ -4622,8 +5412,14 @@ def main(argv: list[str] | None = None) -> int:
         emit(line)
     # The gateway last: it serves q-asks, and it starts from the studies
     # the float pool's protocol left.
-    launches_by_path["gateway"] = gateway_path(dev, pools["pool"],
-                                               pool_lines["pool"])
+    launches_by_path["gateway"], gateway_line = gateway_path(
+        dev, pools["pool"], pool_lines["pool"])
+    # The federation after it, over the same studies: two shards of the
+    # gateway phase's gateway in one process, its single-pool twin, and
+    # two shard worker processes on the same card.
+    (launches_by_path["federation"],
+     launches_by_path["federation_workers"]) = federation_path(
+        dev, pools["pool"], gateway_line)
     # Device time beside the event time from the kernels phase (the gram's
     # from its 1024^2 call): the difference is the wrapper's host work
     # while the card idles.

@@ -14,12 +14,26 @@
   * `gateway.py`   — `GatewayConfig` and `StudyGateway`, the asyncio
     ask/tell front end: coalesced (and pipelined) ticks over one pool, LRU
     eviction and restore of more logical studies than slots, admission
-    control, escalation, q-asks and whole-gateway checkpoints.
-The federation and transport come with later slices.
+    control, escalation, q-asks and whole-gateway checkpoints;
+  * `federation.py` — `FederatedGateway`, N gateway shards in one process
+    behind one global study id space (rendezvous routing, migration,
+    registry epochs, shard kill / revive);
+  * `transport.py` / `shard_worker.py` — `TransportFederation`, the same
+    federation over one shard worker process each, length-prefixed JSON
+    frames on a socket (`ShardServer`, `ShardClient`).
 """
+from repro_torch.hpo.federation import (FederatedGateway, FederationBase,
+                                        FederationConfig, rendezvous_shard)
 from repro_torch.hpo.gateway import GatewayConfig, StudyGateway
 from repro_torch.hpo.pool import SchedulerConfig, StudyPool, Trial
 from repro_torch.hpo.scheduler import TrialScheduler
+from repro_torch.hpo.transport import (ShardClient, ShardConnectionError,
+                                       ShardServer, TransportConfig,
+                                       TransportError, TransportFederation)
 
-__all__ = ["GatewayConfig", "SchedulerConfig", "StudyGateway", "StudyPool",
-           "Trial", "TrialScheduler"]
+__all__ = ["FederatedGateway", "FederationBase", "FederationConfig",
+           "GatewayConfig", "SchedulerConfig", "ShardClient",
+           "ShardConnectionError", "ShardServer", "StudyGateway",
+           "StudyPool", "TransportConfig", "TransportError",
+           "TransportFederation", "Trial", "TrialScheduler",
+           "rendezvous_shard"]

@@ -99,7 +99,7 @@ def engine_draws(key, n_studies: int, restarts: int, dim: int,
     return keys, np.stack(seeds), np.stack(jitter)
 
 
-def mirror_pool_draws(tpool, seed: int, owner=None):
+def mirror_pool_draws(tpool, seed: int, owner=None, keys=None):
     """Make a port `StudyPool` draw what the reference's pool draws: each
     study's EI draws come from a JAX key stream that starts at
     PRNGKey(seed + i) and is split as the reference's pool splits it (one
@@ -108,15 +108,17 @@ def mirror_pool_draws(tpool, seed: int, owner=None):
     Under a gateway pass `owner(slot)` (the logical study in a slot,
     `gw._owner[slot]`): the streams then follow the logical study i, as
     the reference gateway's keys do (seeded seed + i, carried through
-    eviction snapshots), not the slot.  Returns the streams' keys (a list,
-    or a dict by logical study, the caller may read)."""
+    eviction snapshots), not the slot; pools that pass one `keys` dict
+    share the streams, so a study's keys follow it from pool to pool (the
+    shards of a federation).  Returns the streams' keys (a list, or a dict
+    by logical study, the caller may read)."""
     if owner is None:
         keys = [jax.random.PRNGKey(seed + i) for i in range(tpool.n_studies)]
 
         def who(slot):
             return slot
     else:
-        keys = {}
+        keys = {} if keys is None else keys
 
         def who(slot):
             sid = owner(slot)

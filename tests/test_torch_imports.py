@@ -26,7 +26,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.hpo.engine, repro_torch.hpo.mesh, "
             "repro_torch.hpo.pool, repro_torch.core.neural_basis, "
             "repro_torch.checkpoint, repro_torch.checkpoint.store, "
-            "repro_torch.hpo.scheduler, repro_torch.hpo.gateway\n"
+            "repro_torch.hpo.scheduler, repro_torch.hpo.gateway, "
+            "repro_torch.hpo.federation, repro_torch.hpo.transport, "
+            "repro_torch.hpo.shard_worker\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -58,6 +60,11 @@ def test_entry_points_default_to_cuda():
     from repro_torch.hpo import StudyGateway, StudyPool, TrialScheduler
     for cls in (StudyGateway, StudyPool, TrialScheduler):
         assert cls.__init__.__kwdefaults__["device"] == "cuda"
+    from repro_torch.hpo import FederatedGateway, TransportFederation
+    from repro_torch.hpo import transport
+    for cls in (FederatedGateway, TransportFederation):
+        assert cls.__init__.__kwdefaults__["device"] == "cuda"
+    assert transport.build_spec.__kwdefaults__["device"] == "cuda"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -82,6 +89,25 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.hpo import StudyGateway
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StudyGateway(RESNET_SPACE, SchedulerConfig(n_max=8, ckpt_dir="."))
+    from repro_torch.hpo import FederatedGateway
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FederatedGateway(RESNET_SPACE, SchedulerConfig(n_max=8, ckpt_dir="."))
+
+
+def test_spec_without_device_builds_on_the_card(tmp_path, monkeypatch):
+    """A worker spec with no `device` (a reference front end's) means the
+    card: without one, `gateway_from_spec` raises instead of falling back
+    to the CPU; the port's own specs name their device."""
+    from repro_torch.hpo import GatewayConfig, SchedulerConfig
+    from repro_torch.hpo import transport
+    from repro_torch.hpo.space import RESNET_SPACE
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = transport.build_spec(RESNET_SPACE, SchedulerConfig(n_max=8),
+                                GatewayConfig(slots=2))
+    assert spec["device"] == "cuda"
+    del spec["device"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transport.gateway_from_spec(spec, str(tmp_path))
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
