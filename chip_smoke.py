@@ -281,11 +281,34 @@ Phases, each printing one JSON line:
                held to A's and B's pool calls); `federation_workers`,
                C's workers', which each worker writes as it exits (the
                SIGKILLed lifetime writes none).
+ 13. lm      — the language-model trainer (`lm_path`): tiny-lm's full
+               config (4 layers, d_model 256, 8 / 4 heads, d_ff 1024, vocab
+               4096) at examples/train_e2e.py's batch 8 x 256, 20 AdamW
+               steps through `repro_torch.launch.train.run` with
+               checkpoints at 10 and 20, then a second run from a copy of
+               the step-10 checkpoint to 20.  Held: the first step's loss
+               to the same loss on the CPU from the card's parameters and
+               batch converted by tree path (TOL_LM_FIRST), a falling loss,
+               the resumed losses to the uninterrupted run's
+               (TOL_LM_RESUME; `bitwise` printed), no hand-written kernel
+               launched.  Printed: the parameter count, the losses, median
+               step ms after the first step, tokens a second, peak memory.
+ 14. nn_hpo  — benchmarks/bench_nn_hpo.py's objective at tiny-lm's full
+               width (`nn_hpo_path`): each trial 25 SGD-momentum steps at
+               8 x 64 with the trial's lr / weight decay / momentum as 0-d
+               tensors, eval accuracy on a held-out step, under the port's
+               `run_bo` over RESNET_SPACE's unit cube (lazy, 4 seeds,
+               budget 12).  Held: accuracies finite in [0, 1], suggestions
+               in the cube, the Matérn gram, the Cholesky and the fused EI
+               launched.  Printed: mean trial s beside mean GP (absorb) s
+               and suggest s, their shares, the best accuracy and its
+               trajectory.  Then one AdamW step of the lm phase profiled
+               (`lm_step_profile`: device kernels, span, busy, host ms).
 Then the `{"kernels": [...]}` line (seven kernels: L X = I and the general
 solve, two C entries of `csrc/trsv.cu`, count apart; launches per path:
 main, mixed, append, engine, engine_mixed, pool, pool_mixed, neural,
 neural_mixed, fantasy, fantasy_mixed, gateway, federation,
-federation_workers), the nvidia-smi
+federation_workers, lm, nn_hpo), the nvidia-smi
 line and, last, `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
@@ -5258,6 +5281,277 @@ def profile_steps(name, driver, state, hist, steps: int = 4) -> None:
                           for k, (ms, c) in top]})
 
 
+# ---------------------------------------------------------------------------
+# The language-model side: the trainer (phase `lm`) and an NN-HPO run that
+# tunes it (phase `nn_hpo`).  Neither path reaches a hand-written kernel of
+# the model; the NN-HPO run reaches the GP's through `run_bo`.
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "tiny-lm"       # full CONFIG: 4 layers, d_model 256, 8 / 4 heads
+LM_STEPS = 20             # AdamW steps of the uninterrupted run
+LM_CKPT = 10              # the step the resumed run starts from
+LM_BATCH, LM_SEQ = 8, 256  # examples/train_e2e.py's batch and sequence
+LM_LR, LM_WARMUP = 1e-3, 2
+LM_SEED = 0
+TOL_LM_FIRST = 1e-4       # |loss_card - loss_cpu| / loss_cpu, first step
+TOL_LM_RESUME = 1e-4      # resumed losses against the uninterrupted run's,
+#                           relative: the same state and batches, so only
+#                           the card's atomics (the embedding's backward)
+#                           may move a bit
+NN_BUDGET = 12            # benchmarks/bench_nn_hpo.py:21-80 at full width:
+NN_SEED_POINTS = 4        # run_bo(lazy, n_seed 4, n_max budget + 12) over
+NN_STEPS = 25             # RESNET_SPACE's unit cube; each trial 25 SGD-
+NN_BATCH, NN_SEQ = 8, 64  # momentum steps at 8 x 64, eval accuracy on a
+NN_EVAL_STEP = 10_000     # held-out step
+
+
+def lm_args(ckpt_dir: str, device: str):
+    from repro_torch.launch import train
+    return train.parse_args([
+        "--arch", LM_ARCH, "--steps", str(LM_STEPS), "--seq-len", str(LM_SEQ),
+        "--global-batch", str(LM_BATCH), "--lr", str(LM_LR),
+        "--warmup", str(LM_WARMUP), "--ckpt-dir", ckpt_dir,
+        "--ckpt-every", str(LM_CKPT), "--log-every", "1",
+        "--seed", str(LM_SEED), "--device", device])
+
+
+def lm_first_step_on_cpu(dev) -> dict:
+    """The first step's loss on the CPU from the card's parameters and batch
+    (converted by tree path), beside the card's own eval of the same."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_tokens
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.common import count_params
+    cfg = get_config(LM_ARCH)
+    params, _ = init_params(cfg, LM_SEED, device=dev)
+    batch = synth_tokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                    global_batch=LM_BATCH, seed=LM_SEED), 0,
+                         device=dev)
+    cpu = torch.device("cpu")
+    cpu_params = convert.lm_params_from_numpy(
+        convert.lm_params_to_numpy(params), device=cpu)
+    with torch.no_grad():
+        card, _ = lm_loss(params, cfg, batch)
+        host, _ = lm_loss(cpu_params, cfg, {k: v.to(cpu)
+                                            for k, v in batch.items()})
+    return {"card": float(card), "cpu": float(host),
+            "n_params": count_params(params),
+            "n_params_config": cfg.n_params()}
+
+
+def lm_path(dev) -> tuple[dict, dict]:
+    """Phase `lm`: tiny-lm's full config through `launch.train.run` on the
+    card, 20 AdamW steps checkpointed at 10 and 20, then a second run from
+    a copy of the step-10 checkpoint to 20.  Held: the first step's loss to
+    the CPU's on the same converted parameters and batch, a falling loss,
+    the resumed losses to the uninterrupted run's, no hand-written kernel
+    launched.  Returns (launches, line)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train
+    first = lm_first_step_on_cpu(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as root:
+        whole, resumed = os.path.join(root, "a"), os.path.join(root, "b")
+        reset_counts()
+        # The reset lowers the peak only to what earlier phases still hold:
+        # the trainer's own peak is the rise above that base.
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        a = train.run(lm_args(whole, dev.type))
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        step_dir = f"step_{LM_CKPT:09d}"
+        shutil.copytree(os.path.join(whole, step_dir),
+                        os.path.join(resumed, step_dir))
+        b = train.run(lm_args(resumed, dev.type))
+        launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"lm: hand-written kernels launched: {launches}")
+    losses = a["losses"]
+    if a["steps"] != list(range(LM_STEPS)) or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"lm: steps {a['steps']}, losses {losses}")
+    first_rel = abs(losses[0] - first["cpu"]) / abs(first["cpu"])
+    if first_rel > TOL_LM_FIRST:
+        raise AssertionError(f"lm: first loss {losses[0]} on the card, "
+                             f"{first['cpu']} on the CPU")
+    falls = (losses[-1] < losses[0]
+             and np.mean(losses[-5:]) < np.mean(losses[:5]))
+    if not falls:
+        raise AssertionError(f"lm: the loss does not fall: {losses}")
+    if b["start"] != LM_CKPT or b["steps"] != list(range(LM_CKPT, LM_STEPS)):
+        raise AssertionError(f"lm: resumed at {b['start']}, steps {b['steps']}")
+    resume_rel = max(abs(x - y) / abs(y)
+                     for x, y in zip(b["losses"], losses[LM_CKPT:]))
+    if resume_rel > TOL_LM_RESUME:
+        raise AssertionError(f"lm: resumed losses {b['losses']} against "
+                             f"{losses[LM_CKPT:]}")
+    step_s = np.diff(a["seconds"])
+    median_ms = 1e3 * float(np.median(step_s))
+    line = {"phase": "lm", "nvidia_smi": nvidia_smi_line(),
+            "config": {"arch": LM_ARCH, "batch": LM_BATCH, "seq": LM_SEQ,
+                       "steps": LM_STEPS, "optimizer": "adamw", "lr": LM_LR,
+                       "warmup": LM_WARMUP},
+            "n_params": first["n_params"],
+            "n_params_config": first["n_params_config"],
+            "first_loss": {"card": losses[0], "cpu": first["cpu"],
+                           "card_eval": first["card"], "rel": first_rel,
+                           "tol": TOL_LM_FIRST},
+            "losses": losses, "loss_falls": bool(falls),
+            "resume": {"from": LM_CKPT, "losses": b["losses"],
+                       "uninterrupted": losses[LM_CKPT:],
+                       "max_rel": resume_rel, "tol": TOL_LM_RESUME,
+                       "bitwise": b["losses"] == losses[LM_CKPT:]},
+            "first_step_ms": 1e3 * a["seconds"][0],
+            "median_step_ms": median_ms,
+            "step_ms": {"min": 1e3 * float(step_s.min()),
+                        "max": 1e3 * float(step_s.max())},
+            "tokens_per_s": LM_BATCH * LM_SEQ / (median_ms / 1e3),
+            "peak_memory_bytes": peak, "memory_base_bytes": base,
+            "seconds": seconds,
+            "launches": launches}
+    emit(line)
+    return launches, line
+
+
+def lm_step_profile(dev) -> dict:
+    """One AdamW step of the `lm` phase's configuration under torch.profiler
+    (after every timed phase: a profiling session leaves host overhead on
+    later launches): its device kernels, span, busy and idle time, beside
+    the step's host time."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_tokens
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.training import init_train_state, make_train_step
+    cfg = get_config(LM_ARCH)
+    opt_cfg = OptimizerConfig(lr=LM_LR, warmup_steps=LM_WARMUP,
+                              total_steps=LM_STEPS)
+    params, opt_state, _ = init_train_state(cfg, opt_cfg, LM_SEED, device=dev)
+    batch = synth_tokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                    global_batch=LM_BATCH, seed=LM_SEED), 0,
+                         device=dev)
+    step = make_train_step(cfg, opt_cfg)
+
+    def one():
+        step(params, opt_state, batch)
+
+    split = device_split(one)
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    return {"nvidia_smi": nvidia_smi_line(), "host_ms": host_ms,
+            "span_ms": split["span_ms"], "busy_ms": split["busy_ms"],
+            "idle_ms": split["idle_ms"],
+            "device_kernels": sum(k["count"] for k in split["by_name"]),
+            "top": split["by_name"][:10]}
+
+
+def nn_objective(dev):
+    """bench_nn_hpo's objective (benchmarks/bench_nn_hpo.py:21-80) on the
+    port at tiny-lm's full width: each trial trains from the same seeded
+    init for 25 SGD-momentum steps at the trial's lr / weight decay /
+    momentum, which enter as 0-d tensors so every trial runs one code path,
+    and returns the eval accuracy on a held-out step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.hpo.space import RESNET_SPACE
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.training import make_eval_step, value_and_grad
+    cfg = get_config(LM_ARCH)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=NN_SEQ,
+                      global_batch=NN_BATCH, seed=7)
+    params0, _ = init_params(cfg, 1, device=dev)
+    eval_step = make_eval_step(cfg)
+    eval_batch = next(DataIterator(dcfg, start_step=NN_EVAL_STEP, device=dev))
+    it = DataIterator(dcfg, device=dev)
+    batches = [next(it) for _ in range(NN_STEPS)]
+
+    def loss_fn(p, batch):
+        return lm_loss(p, cfg, batch)
+
+    def sgdm_step(params, mu, batch, lr, wd, mom):
+        (loss, _), grads = value_and_grad(loss_fn, params, batch)
+        with torch.no_grad():
+            grads, _ = clip_by_global_norm(
+                tree_map(lambda g: g.float(), grads), 1.0)
+            mu = tree_map(lambda a, g: mom * a + g, mu, grads)
+            params = tree_map(
+                lambda p, a: (p.float() - lr * (a + wd * p.float())
+                              ).to(p.dtype), params, mu)
+        return params, mu, loss
+
+    def objective(units: np.ndarray) -> np.ndarray:
+        outs = []
+        for u in np.atleast_2d(units):
+            hp = RESNET_SPACE.to_hparams(u)
+            knobs = [torch.tensor(hp[k], dtype=torch.float32, device=dev)
+                     for k in ("lr", "weight_decay", "momentum")]
+            params, mu = params0, tree_map(torch.zeros_like, params0)
+            for batch in batches:
+                params, mu, _ = sgdm_step(params, mu, batch, *knobs)
+            outs.append(float(eval_step(params, eval_batch)["accuracy"]))
+        return np.asarray(outs)
+
+    return objective
+
+
+def nn_hpo_path(dev) -> tuple[dict, dict]:
+    """Phase `nn_hpo`: the port's `run_bo` (lazy) tunes the trainer's
+    SGD-momentum knobs.  Held: every accuracy finite in [0, 1], every
+    suggestion in the unit cube, the Matérn gram, the Cholesky and the
+    fused EI launched.  Returns (launches, line)."""
+    from repro_torch.core import run_bo
+    from repro_torch.hpo.space import RESNET_SPACE
+    objective = nn_objective(dev)
+    dim = RESNET_SPACE.dim
+    reset_counts()
+    t0 = time.perf_counter()
+    state, hist = run_bo(objective, np.zeros(dim), np.ones(dim), NN_BUDGET,
+                         dim=dim, mode="lazy", n_seed=NN_SEED_POINTS,
+                         n_max=NN_BUDGET + 12, seed=0, device=dev.type)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    ys, xs = np.asarray(hist.ys), np.asarray(hist.xs)
+    if len(ys) != NN_SEED_POINTS + NN_BUDGET or state.n != len(ys):
+        raise AssertionError(f"nn_hpo: {len(ys)} trials, n {state.n}")
+    if not (np.all(np.isfinite(ys)) and np.all((ys >= 0) & (ys <= 1))):
+        raise AssertionError(f"nn_hpo: accuracies {ys.tolist()}")
+    if not (np.all(xs >= 0.0) and np.all(xs <= 1.0)):
+        raise AssertionError("nn_hpo: a suggestion left the unit cube")
+    missing = [k for k in ("matern", "chol", "acq") if not launches[k]]
+    if missing:
+        raise AssertionError(f"nn_hpo: no launch of {missing}: {launches}")
+    train_s = float(np.mean(hist.obj_seconds))
+    gp_s = float(np.mean(hist.gp_seconds))
+    acq_s = float(np.mean(hist.acq_seconds))
+    traj, best = [], -np.inf
+    for i, y in enumerate(hist.ys):
+        if y > best:
+            best = y
+            traj.append([i, y])
+    best_x, best_y = hist.best()
+    line = {"phase": "nn_hpo", "nvidia_smi": nvidia_smi_line(),
+            "config": {"arch": LM_ARCH, "steps": NN_STEPS, "batch": NN_BATCH,
+                       "seq": NN_SEQ, "budget": NN_BUDGET,
+                       "n_seed": NN_SEED_POINTS, "mode": "lazy"},
+            "trial_s_mean": train_s, "gp_s_mean": gp_s,
+            "suggest_s_mean": acq_s,
+            "gp_share": gp_s / (train_s + gp_s),
+            "gp_and_suggest_share": (gp_s + acq_s) / (train_s + gp_s + acq_s),
+            "best_accuracy": best_y,
+            "best_hparams": {k: float(v) for k, v in
+                             RESNET_SPACE.to_hparams(best_x).items()},
+            "trajectory": traj, "accuracies": ys.tolist(),
+            "seconds": seconds, "launches": launches}
+    emit(line)
+    return launches, line
+
+
 SOURCES = {
     "matern52_gram": ("matern", "src/repro_torch/csrc/matern.cu",
                       "src/repro/kernels/matern.py:29"),
@@ -5420,6 +5714,11 @@ def main(argv: list[str] | None = None) -> int:
     (launches_by_path["federation"],
      launches_by_path["federation_workers"]) = federation_path(
         dev, pools["pool"], gateway_line)
+    # The language-model side last: the trainer, then an NN-HPO run that
+    # tunes it through run_bo.
+    launches_by_path["lm"], _ = lm_path(dev)
+    launches_by_path["nn_hpo"], _ = nn_hpo_path(dev)
+    emit({"phase": "profile", "part": "lm step", **lm_step_profile(dev)})
     # Device time beside the event time from the kernels phase (the gram's
     # from its 1024^2 call): the difference is the wrapper's host work
     # while the card idles.

@@ -13,19 +13,24 @@ names (the keys of the reference's `nb_to_json`): float32 leaves and 0-d
 int32 counters, each the shape the reference holds.  A pool
 checkpoint's tree (`POOL_KEYS`, `pool_tree_*`) is the stacked state under
 the names the reference's `StudyPool.checkpoint` writes
-(`dataclasses.asdict` of the state: no leading dots).
+(`dataclasses.asdict` of the state: no leading dots).  A language model's
+parameter tree (`lm_params_*`) and its `OptState` (`opt_state_*`) go under
+the names the reference's store writes for `launch/train.py`'s checkpoint:
+paths joined with "/" (`blocks/attn/wq`, `mu/embed`, `step`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import _flatten_with_paths
 from repro_torch.core.descriptor import TypeDescriptor
 from repro_torch.core.gp import LazyGPState, resolve_device
 from repro_torch.core.kernels import KernelParams
 from repro_torch.core.neural_basis import COUNTERS as NB_COUNTERS
 from repro_torch.core.neural_basis import FIELDS as NB_KEYS
 from repro_torch.core.neural_basis import NeuralBasisState
+from repro_torch.optim.optimizers import OptState
 
 BUFFERS = (".x_buf", ".y_buf", ".l_buf", ".li_buf", ".alpha")
 COUNTERS = (".n", ".since_refit")
@@ -151,3 +156,48 @@ def pool_tree_from_numpy(leaves: dict[str, np.ndarray],
         raise KeyError(f"pool checkpoint leaves missing: {missing}")
     return state_from_numpy({"." + k.replace("/", "/."): leaves[k]
                              for k in POOL_KEYS}, device)
+
+
+def _unflatten(leaves: dict) -> dict:
+    """The tree of dicts whose `_flatten_with_paths` names are `leaves`."""
+    tree: dict = {}
+    for name, v in leaves.items():
+        *path, last = name.split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def lm_params_to_numpy(params: dict) -> dict[str, np.ndarray]:
+    """A model's parameter tree as numpy arrays under the reference's tree
+    paths (`blocks/attn/wq`, `embed`, ...), bits kept."""
+    names, leaves, _ = _flatten_with_paths(params)
+    return {k: v.detach().cpu().numpy() for k, v in zip(names, leaves)}
+
+
+def lm_params_from_numpy(leaves: dict[str, np.ndarray],
+                         device: str | torch.device = "cuda") -> dict:
+    """A model's parameter tree on `device` from tree-path leaves (the
+    reference's params, flattened), bits kept."""
+    dev = resolve_device(device)
+    return _unflatten({k: torch.from_numpy(np.array(v)).to(dev)
+                       for k, v in leaves.items()})
+
+
+def opt_state_to_numpy(state: OptState) -> dict[str, np.ndarray]:
+    """An `OptState` under the reference's names (`step`, `mu/...`,
+    `nu/...`, `ef_residual/...`; a None moment has no leaves)."""
+    return lm_params_to_numpy(state._asdict())
+
+
+def opt_state_from_numpy(leaves: dict[str, np.ndarray],
+                         device: str | torch.device = "cuda") -> OptState:
+    """An `OptState` on `device` from the reference's names; `step` becomes
+    the 0-d int32 counter, a moment without leaves None."""
+    if "step" not in leaves:
+        raise KeyError("optimizer state leaves missing: ['step']")
+    tree = lm_params_from_numpy(leaves, device)
+    tree["step"] = tree["step"].to(torch.int32)
+    return OptState(**{k: tree.get(k) for k in OptState._fields})

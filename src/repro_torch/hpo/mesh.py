@@ -5,7 +5,7 @@ The reference maps the stacked engine's (study x restart) axes onto a
 now: `"none"`, and `"auto"` on one device, both give no mesh, the single
 program on one card.  Any spec that needs more than one device raises
 `NotImplementedError` until the mesh itself is ported (ROADMAP queue 1,
-item 7: the study x restart split across CUDA devices).
+item 1: the study x restart split across CUDA devices).
 """
 from __future__ import annotations
 
@@ -41,4 +41,4 @@ def build(spec: str, n_studies: int, restarts: int, devices: int = 1) -> None:
     raise NotImplementedError(
         f"mesh {spec!r} over {devices} device(s): the port runs the "
         f"unsharded engine only (mesh='none'); the study x restart mesh is "
-        f"ROADMAP queue 1, item 7")
+        f"ROADMAP queue 1, item 1")

@@ -1,0 +1,8 @@
+"""Model zoo, dense GQA path (counterpart of `repro.models`)."""
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import (decode_step, forward, init_cache,
+                                      init_params, lm_loss,
+                                      logits_from_hidden, prefill)
+
+__all__ = ["ModelConfig", "decode_step", "forward", "init_cache",
+           "init_params", "lm_loss", "logits_from_hidden", "prefill"]

@@ -1,0 +1,122 @@
+"""Train and eval step builders (counterpart of `repro/training/steps.py`).
+
+`make_train_step` closes over (ModelConfig, OptimizerConfig) and returns
+
+    train_step(params, opt_state, batch) -> (params, opt_state, metrics)
+
+a pure function of its arguments: the gradient is taken with respect to
+detached copies of the parameter leaves, and the update returns new
+tensors.  Microbatching (gradient accumulation) loops over slices of the
+batch and sums the gradients in float32, as the reference's scan does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.models import init_params, lm_loss
+from repro_torch.models.common import not_ported, tree_map
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim.optimizers import (OptimizerConfig, OptState,
+                                          apply_updates, init_opt_state)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    microbatches: int = 1     # gradient-accumulation steps per update
+    bf16_grads: bool = False  # differentiate with respect to a bf16 copy of
+    # the params: the gradients become bf16, the float32 master update is
+    # unchanged
+
+
+def make_loss_fn(cfg: ModelConfig) -> Callable:
+    def loss_fn(params, batch):
+        return lm_loss(params, cfg, batch)
+    return loss_fn
+
+
+def value_and_grad(loss_fn: Callable, params, batch,
+                   dtype: torch.dtype | None = None):
+    """((loss, metrics), grads) of `loss_fn(params, batch)` with respect to
+    every leaf of `params` (cast to `dtype` first where given); the grads
+    keep the params' tree, and nothing returned holds a graph."""
+    watched = []
+
+    def watch(x):
+        x = x.detach()
+        if dtype is not None and x.is_floating_point():
+            x = x.to(dtype)
+        watched.append(x.requires_grad_(True))
+        return watched[-1]
+
+    with torch.enable_grad():
+        loss, metrics = loss_fn(tree_map(watch, params), batch)
+        grads = iter(torch.autograd.grad(loss, watched))
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            tree_map(lambda _: next(grads), params))
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                    train_cfg: TrainConfig | None = None) -> Callable:
+    train_cfg = train_cfg or TrainConfig()
+    loss_fn = make_loss_fn(cfg)
+
+    def single_step(params, opt_state: OptState, batch):
+        dtype = torch.bfloat16 if train_cfg.bf16_grads else None
+        (loss, metrics), grads = value_and_grad(loss_fn, params, batch, dtype)
+        params, opt_state, opt_metrics = apply_updates(
+            opt_cfg, params, grads, opt_state)
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        return params, opt_state, metrics
+
+    if train_cfg.microbatches <= 1:
+        return single_step
+
+    m = train_cfg.microbatches
+
+    def accum_step(params, opt_state: OptState, batch):
+        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device), params)
+        some = next(iter(batch.values()))
+        lsum = torch.zeros((), dtype=torch.float32, device=some.device)
+        mb = some.shape[0] // m
+        for i in range(m):
+            micro = {k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
+            (loss, _), grads = value_and_grad(loss_fn, params, micro)
+            gsum = tree_map(torch.add, gsum, grads)
+            lsum = lsum + loss
+        grads = tree_map(lambda g: g / m, gsum)
+        params, opt_state, opt_metrics = apply_updates(
+            opt_cfg, params, grads, opt_state)
+        metrics = dict(loss=lsum / m, **opt_metrics)
+        return params, opt_state, metrics
+
+    return accum_step
+
+
+def make_eval_step(cfg: ModelConfig) -> Callable:
+    loss_fn = make_loss_fn(cfg)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss, metrics = loss_fn(params, batch)
+        return dict(metrics, loss=loss)
+
+    return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
+    raise not_ported("the prefill step", "prefill/decode")
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    raise not_ported("the decode step", "prefill/decode")
+
+
+def init_train_state(cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                     seed: int | torch.Generator, *,
+                     device: str | torch.device = "cuda"):
+    params, specs = init_params(cfg, seed, device=device)
+    return params, init_opt_state(opt_cfg, params), specs

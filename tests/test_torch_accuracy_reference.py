@@ -11,15 +11,38 @@ core):
 """
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 from test_torch_accuracy import (DIM, ITERATIONS, MODES, N_SEED, OPTIMUM,
                                  PER_SEED_MARGIN, objective, port_regret,
                                  random_search_regret)
 
+from repro.core import gp as jgp
 from repro.core import levy_bounds, run_bo
 from repro.core.acquisition import AcqConfig
 
 SEEDS = tuple(range(int(os.environ.get("REPRO_ACCURACY_SEEDS", "3"))))
+
+
+def counting_nan_picks(monkeypatch) -> list[bool]:
+    """Wrap the reference's `refit_params` so that each refit records
+    whether its grid argmax picked a NaN log marginal likelihood (its
+    unclamped CPU Cholesky; ROADMAP.md queue 3).  The pick's LML is
+    recomputed, which leaves the run's values as they were."""
+    picks: list[bool] = []
+    refit = jgp.refit_params
+
+    def counted(state, kernel, *args, **kwargs):
+        params = refit(state, kernel, *args, **kwargs)
+        lml = jgp._lml_for(state, kernel, params,
+                           kwargs.get("implementation", "auto"))
+        jax.debug.callback(lambda bad: picks.append(bool(bad)),
+                           jnp.isnan(lml))
+        return params
+
+    monkeypatch.setattr(jgp, "refit_params", counted)
+    return picks
 
 
 def reference_regret(mode: str, seed: int) -> float:
@@ -30,17 +53,30 @@ def reference_regret(mode: str, seed: int) -> float:
     return OPTIMUM - hist.best_y[-1]
 
 
-def test_regrets_beside_reference():
-    """Print both packages' regrets per seed and their paired statistics;
-    every regret must be finite and non-negative."""
+def test_regrets_beside_reference(monkeypatch):
+    """Print both packages' regrets per seed and their paired statistics,
+    and beside the reference's the number of its refits that picked a NaN
+    LML per seed; every regret must be finite and non-negative."""
+    picks = counting_nan_picks(monkeypatch)
     random = np.array([random_search_regret(s) for s in SEEDS])
     print(f"\nseeds 0-{len(SEEDS) - 1}, random search mean "
           f"{random.mean():.3f}")
     for name, fn in (("port", port_regret), ("reference", reference_regret)):
-        got = {mode: np.array([fn(mode, s) for s in SEEDS]) for mode in MODES}
+        got, nan_picks = {}, {}
+        for mode in MODES:
+            regrets, counts = [], []
+            for s in SEEDS:
+                picks.clear()
+                regrets.append(fn(mode, s))
+                jax.effects_barrier()
+                counts.append(f"{sum(picks)}/{len(picks)}")
+            got[mode], nan_picks[mode] = np.array(regrets), counts
         diff = got["lazy"] - got["naive"]
         for mode in MODES:
-            print(f"{name} {mode}: {got[mode].round(3).tolist()}")
+            line = f"{name} {mode}: {got[mode].round(3).tolist()}"
+            if name == "reference":
+                line += f"; NaN picks / refits by seed: {nan_picks[mode]}"
+            print(line)
             assert np.all(np.isfinite(got[mode]))
             assert np.all(got[mode] >= OPTIMUM - 1e-6)
         print(f"{name}: mean lazy {got['lazy'].mean():.3f}, mean naive "

@@ -28,7 +28,16 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.checkpoint, repro_torch.checkpoint.store, "
             "repro_torch.hpo.scheduler, repro_torch.hpo.gateway, "
             "repro_torch.hpo.federation, repro_torch.hpo.transport, "
-            "repro_torch.hpo.shard_worker\n"
+            "repro_torch.hpo.shard_worker, repro_torch.models, "
+            "repro_torch.models.attention, repro_torch.models.common, "
+            "repro_torch.models.config, repro_torch.models.model, "
+            "repro_torch.optim, repro_torch.optim.optimizers, "
+            "repro_torch.data, repro_torch.data.pipeline, "
+            "repro_torch.training, repro_torch.training.steps, "
+            "repro_torch.launch, repro_torch.launch.train, "
+            "repro_torch.configs\n"
+            "for arch in repro_torch.configs.REGISTRY:\n"
+            "    repro_torch.configs.get_config(arch, reduced=True)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -65,6 +74,15 @@ def test_entry_points_default_to_cuda():
     for cls in (FederatedGateway, TransportFederation):
         assert cls.__init__.__kwdefaults__["device"] == "cuda"
     assert transport.build_spec.__kwdefaults__["device"] == "cuda"
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.training import steps
+    for fn in (model.init_params, steps.init_train_state,
+               pipeline.synth_tokens, pipeline.host_local_batch,
+               pipeline.DataIterator.__init__):
+        assert fn.__kwdefaults__["device"] == "cuda"
+    assert train.parse_args(["--arch", "tiny-lm"]).device == "cuda"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -92,6 +110,16 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.hpo import FederatedGateway
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FederatedGateway(RESNET_SPACE, SchedulerConfig(n_max=8, ckpt_dir="."))
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(get_config("tiny-lm", reduced=True), 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DataIterator(DataConfig(vocab_size=8, seq_len=4, global_batch=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.run(train.parse_args(["--arch", "tiny-lm", "--reduced"]))
 
 
 def test_spec_without_device_builds_on_the_card(tmp_path, monkeypatch):

@@ -1,0 +1,200 @@
+"""The port's dense GQA models against the reference's: the same parameters
+(the reference's init, converted by tree path) and the same token batches
+through both packages; hidden states, logits, the loss and every
+parameter's gradient against `jax.value_and_grad`, for the five dense
+configs at reduced size.  Mirrors `tests/test_models.py:34-54, 97-118,
+273-290` for the dense archs.
+
+Tolerances, relative to each tensor's largest entry: float32 activations
+2e-5 for hidden states and logits, 1e-5 for the loss, 2e-5 for each
+gradient leaf (measured: 1e-6-2e-6); bfloat16 activations (the configs'
+own dtype) 1e-3 for the loss and 6e-2 for gradients (bfloat16 keeps 8 bits;
+measured 4e-4 and 3e-2).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_port import CPU, jax_state_leaves, n
+
+from repro.configs import get_config as jget_config
+from repro.models import forward as jforward
+from repro.models import init_params as jinit_params
+from repro.models import lm_loss as jlm_loss
+from repro.models.model import layer_windows as jlayer_windows
+from repro.models.model import logits_from_hidden as jlogits
+from repro_torch import convert
+from repro_torch.configs import get_config
+from repro_torch.models import forward, init_params, lm_loss
+from repro_torch.models.model import layer_windows, logits_from_hidden
+from repro_torch.training import value_and_grad
+
+DENSE = ("tiny-lm", "granite-3-2b", "deepseek-coder-33b", "gemma3-4b",
+         "chameleon-34b")
+F32 = dict(hidden=2e-5, loss=1e-5, grad=2e-5)
+BF16 = dict(loss=1e-3, grad=6e-2)
+
+
+def _configs(arch, **changes):
+    return (dataclasses.replace(jget_config(arch, reduced=True), **changes),
+            dataclasses.replace(get_config(arch, reduced=True), **changes))
+
+
+def _batch(cfg, b=2, s=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"inputs": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+            "targets": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+
+
+def _params(jcfg, seed=0):
+    jp, _ = jinit_params(jcfg, jax.random.PRNGKey(seed))
+    return jp, convert.lm_params_from_numpy(jax_state_leaves(jp), device=CPU)
+
+
+def _close(got, want, tol, what=""):
+    got, want = n(got).astype(np.float64), np.asarray(want, np.float64)
+    scale = max(float(np.max(np.abs(want))), 1e-30)
+    err = float(np.max(np.abs(got - want))) / scale
+    assert err <= tol, f"{what}: {err:.3g} > {tol}"
+
+
+def _loss_and_grads(jcfg, tcfg, jp, tp, batch):
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p: jlm_loss(p, jcfg, jb), has_aux=True))(jp)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    (tl, tm), tg = value_and_grad(lambda p, b: lm_loss(p, tcfg, b), tp, tb)
+    return (jl, jm, jax_state_leaves(jg)), (tl, tm, convert.lm_params_to_numpy(tg))
+
+
+def _held(jres, tres, tol):
+    (jl, jm, jg), (tl, tm, tg) = jres, tres
+    _close(tl, jl, tol["loss"], "loss")
+    _close(tm["ce"], jm["ce"], tol["loss"], "ce")
+    assert sorted(tg) == sorted(jg)
+    for k in jg:
+        _close(tg[k], jg[k], tol["grad"], k)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_init_tree_matches_reference(arch):
+    """The same tree paths, shapes and dtypes as the reference's init, and
+    the same init laws (unit norms; embedding std 0.02; fan-in dense)."""
+    jcfg, tcfg = _configs(arch)
+    jp, _ = jinit_params(jcfg, jax.random.PRNGKey(0))
+    tp, specs = init_params(tcfg, 0, device="cpu")
+    want, got = jax_state_leaves(jp), convert.lm_params_to_numpy(tp)
+    assert {k: (v.shape, str(v.dtype)) for k, v in got.items()} == \
+        {k: (v.shape, str(v.dtype)) for k, v in want.items()}
+    assert np.all(got["final_norm"] == 1.0)
+    assert abs(float(got["embed"].std()) - 0.02) < 2e-3
+    wq = got["blocks/attn/wq"]
+    # truncated normal on [-2, 2] has std 0.8796 before the fan-in scale
+    assert abs(float(wq.std()) * np.sqrt(tcfg.d_model) - 0.8796) < 0.05
+    assert float(np.abs(wq).max()) * np.sqrt(tcfg.d_model) <= 2.0
+    again, _ = init_params(tcfg, 0, device="cpu")
+    for k, v in convert.lm_params_to_numpy(again).items():
+        assert np.array_equal(v, got[k])
+    assert specs["blocks"]["attn"]["wq"] == ("layers", "embed", "heads")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_and_logits_match_reference(arch):
+    jcfg, tcfg = _configs(arch, dtype="float32")
+    jp, tp = _params(jcfg)
+    toks = _batch(jcfg)["inputs"]
+    jx, jaux, _ = jforward(jp, jcfg, jnp.asarray(toks))
+    tx, taux, _ = forward(tp, tcfg, torch.from_numpy(toks))
+    _close(tx, jx, F32["hidden"], "hidden")
+    _close(logits_from_hidden(tp, tcfg, tx), jlogits(jp, jcfg, jx),
+           F32["hidden"], "logits")
+    assert float(taux) == float(jaux) == 0.0
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_loss_and_grads_match_reference_float32(arch):
+    jcfg, tcfg = _configs(arch, dtype="float32")
+    jp, tp = _params(jcfg)
+    _held(*_loss_and_grads(jcfg, tcfg, jp, tp, _batch(jcfg)), F32)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_loss_and_grads_near_reference_bfloat16(arch):
+    """The configs' own activation dtype (bfloat16 but for tiny-lm), with
+    remat on as in the full configs."""
+    jcfg, tcfg = _configs(arch, remat=True)
+    jp, tp = _params(jcfg)
+    _held(*_loss_and_grads(jcfg, tcfg, jp, tp, _batch(jcfg)),
+          F32 if tcfg.dtype == "float32" else BF16)
+
+
+@pytest.mark.parametrize("changes", [dict(vocab_size=200),
+                                     dict(tie_embeddings=True),
+                                     dict(remat=True)],
+                         ids=["padded-vocab", "tied", "remat"])
+def test_variants_match_reference(changes):
+    """The padded vocabulary's rows masked at -1e30, a tied head, and
+    remat through torch.utils.checkpoint."""
+    jcfg, tcfg = _configs("tiny-lm", **changes)
+    jp, tp = _params(jcfg)
+    batch = _batch(jcfg)
+    if "vocab_size" in changes:
+        assert tcfg.vocab_padded == 256 != tcfg.vocab_size
+    _held(*_loss_and_grads(jcfg, tcfg, jp, tp, batch), F32)
+
+
+def test_remat_keeps_loss_and_grads():
+    """torch.utils.checkpoint recomputes each block in the backward: the
+    same loss and gradients, bit for bit, as without it."""
+    _, tcfg = _configs("granite-3-2b", dtype="float32")
+    tp, _ = init_params(tcfg, 3, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
+    outs = []
+    for remat in (False, True):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        (loss, _), grads = value_and_grad(lambda p, b: lm_loss(p, cfg, b),
+                                          tp, batch)
+        outs.append((loss, convert.lm_params_to_numpy(grads)))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for k, v in outs[0][1].items():
+        assert np.array_equal(v, outs[1][1][k]), k
+
+
+def test_layer_windows_match_reference():
+    for arch in DENSE:
+        jcfg, tcfg = _configs(arch)
+        assert layer_windows(tcfg) == np.asarray(jlayer_windows(jcfg)).tolist()
+    _, gemma = _configs("gemma3-4b")
+    assert layer_windows(gemma) == [8, 0, 8, 0]
+
+
+def test_causal_arch_is_causal():
+    _, cfg = _configs("granite-3-2b", dtype="float32")
+    params, _ = init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(_batch(cfg, b=1, s=16)["inputs"])
+    x1, _, _ = forward(params, cfg, toks)
+    toks2 = toks.clone()
+    toks2[:, -1] = (toks2[:, -1] + 1) % cfg.vocab_size
+    x2, _, _ = forward(params, cfg, toks2)
+    torch.testing.assert_close(x1[:, :-1], x2[:, :-1], atol=1e-5, rtol=0)
+    assert float((x1[:, -1] - x2[:, -1]).abs().max()) > 1e-6
+
+
+def test_banded_layers_see_only_their_window():
+    """gemma3 (reduced): a token outside every local window and before the
+    global layers' reach changes nothing; within reach it does."""
+    _, cfg = _configs("gemma3-4b", dtype="float32",
+                      global_every=0)           # every layer local, window 8
+    params, _ = init_params(cfg, 1, device="cpu")
+    toks = torch.from_numpy(_batch(cfg, b=1, s=64)["inputs"])
+    x1, _, _ = forward(params, cfg, toks)
+    toks2 = toks.clone()
+    toks2[:, 0] = (toks2[:, 0] + 1) % cfg.vocab_size
+    x2, _, _ = forward(params, cfg, toks2)
+    reach = cfg.num_layers * (cfg.sliding_window - 1)   # 4 layers x 7
+    torch.testing.assert_close(x1[:, reach + 1:], x2[:, reach + 1:],
+                               atol=1e-5, rtol=0)
+    assert float((x1[:, 1] - x2[:, 1]).abs().max()) > 1e-6
