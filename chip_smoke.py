@@ -5,7 +5,8 @@
 
 Phases, each printing one JSON line:
   1. device  — the card's name and power limit as nvidia-smi reports them;
-               TF32 off for matmuls and convolutions (fp32 like the reference).
+               TF32 off for matmuls and convolutions, and bfloat16 GEMMs
+               reduced in float32 (fp32 like the reference).
   2. build   — nvcc builds the five kernel libraries of
                `src/repro_torch/csrc/` (seven kernels: acq.cu holds the
                float and the mixed fused EI, trsv.cu L X = I and the
@@ -302,13 +303,35 @@ Phases, each printing one JSON line:
                in the cube, the Matérn gram, the Cholesky and the fused EI
                launched.  Printed: mean trial s beside mean GP (absorb) s
                and suggest s, their shares, the best accuracy and its
-               trajectory.  Then one AdamW step of the lm phase profiled
-               (`lm_step_profile`: device kernels, span, busy, host ms).
-Then the `{"kernels": [...]}` line (seven kernels: L X = I and the general
-solve, two C entries of `csrc/trsv.cu`, count apart; launches per path:
-main, mixed, append, engine, engine_mixed, pool, pool_mixed, neural,
-neural_mixed, fantasy, fantasy_mixed, gateway, federation,
-federation_workers, lm, nn_hpo), the nvidia-smi
+               trajectory.
+ 15. lm_moe  — the routed feed-forward at full width (`wide_lm_path`):
+               granite-moe-3b-a800m (d_model 1536, 24 / 8 heads, 40 experts
+               in 48-row tables, top 8, d_ff 512, vocab 49155 padded to
+               49408), depth cut to 2 layers (`wide_config`, listed as
+               `reduced`), 10 AdamW steps at 8 x 256 through
+               `training/steps.py`, bfloat16 activations over float32
+               masters.  Held: the first loss to the same loss on the CPU
+               from the card's parameters and batch converted by tree path
+               (TOL_WIDE_FIRST), a falling loss, a finite aux, no hand-
+               written kernel launched.  Printed: the parameter count, the
+               losses and aux, the share of layer 0's (token, choice)
+               routing decisions that differ between card and CPU, median
+               step ms after the first, tokens a second, the trainer's own
+               peak memory.  Then `launch.train.run` on qwen3-moe-30b-a3b's
+               reduced config, 10 steps checkpointed at 5, and a run from a
+               copy of the step-5 checkpoint: its losses bit for bit.
+ 16. lm_mla  — minicpm3-4b's multi-head latent attention at full width
+               (d_model 2560, 40 heads, q_lora 768, kv_lora 256, nope / rope
+               / v 64 / 32 / 64, d_ff 6400, vocab 73448 padded to 73472),
+               2 layers, held and printed as lm_moe (no routing, no
+               launcher run).
+Then one AdamW step of the lm phase and one of lm_moe's profiled
+(`lm_step_profile`: device kernels, span, busy, host ms, device ms by
+kind of kernel and the top 15 kernels).  Then the `{"kernels": [...]}` line (seven kernels: L X = I and
+the general solve, two C entries of `csrc/trsv.cu`, count apart; launches
+per path: main, mixed, append, engine, engine_mixed, pool, pool_mixed,
+neural, neural_mixed, fantasy, fantasy_mixed, gateway, federation,
+federation_workers, lm, nn_hpo, lm_moe, lm_mla), the nvidia-smi
 line and, last, `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
@@ -5415,16 +5438,41 @@ def lm_path(dev) -> tuple[dict, dict]:
     return launches, line
 
 
-def lm_step_profile(dev) -> dict:
-    """One AdamW step of the `lm` phase's configuration under torch.profiler
-    (after every timed phase: a profiling session leaves host overhead on
-    later launches): its device kernels, span, busy and idle time, beside
-    the step's host time."""
+# Device kernels of a step by kind, from their (truncated) names, first
+# match wins: the GEMMs; the MoE's dispatch, combine and routing (indexing,
+# scatters, sorts); copies and casts; reductions; other elementwise ops.
+STEP_KINDS = (("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+              ("index_scatter_sort", ("index", "scatter", "gather", "sort",
+                                      "radix")),
+              ("copy_cast", ("copy", "memcpy", "memset")),
+              ("reduce", ("reduce",)),
+              ("elementwise", ("",)))
+
+
+def step_kinds(by_name) -> dict:
+    """`device_split`'s kernels summed by STEP_KINDS: {kind: [count, ms]}."""
+    out = {kind: [0, 0.0] for kind, _ in STEP_KINDS}
+    for k in by_name:
+        name = k["name"].lower()
+        kind = next(kind for kind, keys in STEP_KINDS
+                    if any(key in name for key in keys))
+        out[kind][0] += k["count"]
+        out[kind][1] += k["ms"]
+    return out
+
+
+def lm_step_profile(dev, cfg=None) -> dict:
+    """One AdamW step of the `lm` phase's configuration (or `cfg`) under
+    torch.profiler (after every timed phase: a profiling session leaves
+    host overhead on later launches): its device kernels, span, busy and
+    idle time, beside the step's host time; then the step's AdamW update
+    alone (`apply_updates` on the same state and one step's gradients)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, synth_tokens
-    from repro_torch.optim import OptimizerConfig
-    from repro_torch.training import init_train_state, make_train_step
-    cfg = get_config(LM_ARCH)
+    from repro_torch.optim import OptimizerConfig, apply_updates
+    from repro_torch.training import (init_train_state, make_loss_fn,
+                                      make_train_step, value_and_grad)
+    cfg = cfg or get_config(LM_ARCH)
     opt_cfg = OptimizerConfig(lr=LM_LR, warmup_steps=LM_WARMUP,
                               total_steps=LM_STEPS)
     params, opt_state, _ = init_train_state(cfg, opt_cfg, LM_SEED, device=dev)
@@ -5441,11 +5489,20 @@ def lm_step_profile(dev) -> dict:
     one()
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0)
+    _, grads = value_and_grad(make_loss_fn(cfg), params, batch)
+    opt = device_split(lambda: apply_updates(opt_cfg, params, grads,
+                                             opt_state))
+    del grads
     return {"nvidia_smi": nvidia_smi_line(), "host_ms": host_ms,
             "span_ms": split["span_ms"], "busy_ms": split["busy_ms"],
             "idle_ms": split["idle_ms"],
             "device_kernels": sum(k["count"] for k in split["by_name"]),
-            "top": split["by_name"][:10]}
+            "by_kind": step_kinds(split["by_name"]),
+            "optimizer": {"span_ms": opt["span_ms"], "busy_ms": opt["busy_ms"],
+                          "device_kernels": sum(k["count"]
+                                                for k in opt["by_name"]),
+                          "by_kind": step_kinds(opt["by_name"])},
+            "top": split["by_name"][:15]}
 
 
 def nn_objective(dev):
@@ -5552,6 +5609,202 @@ def nn_hpo_path(dev) -> tuple[dict, dict]:
     return launches, line
 
 
+# ---------------------------------------------------------------------------
+# The LM side's routed and latent-attention blocks at full width (phases
+# `lm_moe`, `lm_mla`): granite-moe-3b-a800m and minicpm3-4b, depth cut to
+# WIDE_LAYERS, 10 AdamW steps each through `training/steps.py`, bfloat16
+# activations over float32 master weights.  Then (lm_moe) the launcher on
+# qwen3-moe-30b-a3b's reduced config, checkpointed and resumed.  No hand-
+# written kernel is on either path.
+# ---------------------------------------------------------------------------
+
+WIDE_LAYERS = 2           # depth cut: full width, 2 of 32 / 62 layers
+WIDE_STEPS = 10
+WIDE_BATCH, WIDE_SEQ = LM_BATCH, LM_SEQ   # 8 x 256: capacity 64 (granite)
+WIDE_LR, WIDE_WARMUP = 1e-3, 2
+WIDE_SEED = 0
+TOL_WIDE_FIRST = 1e-3     # |loss_card - loss_cpu| / loss_cpu, first step.
+#   The same bfloat16 function on both devices (every op rounds to
+#   bfloat16, products accumulate in float32 on both), so only the order of
+#   a product's sums differs; it moves a logit by an ulp at most, and the
+#   loss averages 2048 tokens.  A flipped routing decision changes one
+#   token's expert output.  1e-3 is the CPU parity tests' bfloat16 loss
+#   tolerance for the same models (tests/test_torch_lm_model.py, BF16).
+MOE_LAUNCH_ARCH = "qwen3-moe-30b-a3b"     # --reduced through the launcher
+MOE_LAUNCH_STEPS, MOE_LAUNCH_CKPT = 10, 5
+
+
+def wide_config(arch: str):
+    """`arch`'s full CONFIG with its depth cut to WIDE_LAYERS."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=WIDE_LAYERS)
+
+
+def first_layer_experts(params, cfg, tokens):
+    """Layer 0's top-k experts of every (token, choice): the embedding, the
+    attention sublayer, the norm and the router, as `forward` runs them."""
+    from repro_torch.models.common import cast_tree, rms_norm, tree_map
+    from repro_torch.models.model import attn_block_forward, layer_windows
+    from repro_torch.models.moe import router_top_k
+    act = cfg.activation_dtype
+    lp = cast_tree(tree_map(lambda a: a[0], params["blocks"]), act)
+    x = params["embed"].to(act)[tokens.long()]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    x, _ = attn_block_forward(lp, cfg, x, layer_windows(cfg)[0], positions)
+    xn = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return router_top_k(xn, lp["moe"]["router"], cfg.top_k)[2]
+
+
+def moe_launcher_args(ckpt_dir: str, device: str):
+    from repro_torch.launch import train
+    return train.parse_args([
+        "--arch", MOE_LAUNCH_ARCH, "--reduced",
+        "--steps", str(MOE_LAUNCH_STEPS), "--seq-len", str(WIDE_SEQ),
+        "--global-batch", str(WIDE_BATCH), "--lr", str(WIDE_LR),
+        "--warmup", str(WIDE_WARMUP), "--ckpt-dir", ckpt_dir,
+        "--ckpt-every", str(MOE_LAUNCH_CKPT), "--log-every", "1",
+        "--seed", str(WIDE_SEED), "--device", device])
+
+
+def moe_launcher_resume(dev) -> dict:
+    """The launcher on MOE_LAUNCH_ARCH's reduced config: 10 steps
+    checkpointed at 5, then a run from a copy of the step-5 checkpoint,
+    whose losses must equal the uninterrupted run's bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as root:
+        whole, resumed = os.path.join(root, "a"), os.path.join(root, "b")
+        a = train.run(moe_launcher_args(whole, dev.type))
+        step_dir = f"step_{MOE_LAUNCH_CKPT:09d}"
+        shutil.copytree(os.path.join(whole, step_dir),
+                        os.path.join(resumed, step_dir))
+        b = train.run(moe_launcher_args(resumed, dev.type))
+    if a["steps"] != list(range(MOE_LAUNCH_STEPS)) \
+            or not np.all(np.isfinite(a["losses"])):
+        raise AssertionError(f"lm_moe launcher: steps {a['steps']}, "
+                             f"losses {a['losses']}")
+    if b["start"] != MOE_LAUNCH_CKPT \
+            or b["steps"] != list(range(MOE_LAUNCH_CKPT, MOE_LAUNCH_STEPS)):
+        raise AssertionError(f"lm_moe launcher: resumed at {b['start']}, "
+                             f"steps {b['steps']}")
+    bitwise = b["losses"] == a["losses"][MOE_LAUNCH_CKPT:]
+    if not bitwise:
+        raise AssertionError(f"lm_moe launcher: resumed losses {b['losses']} "
+                             f"against {a['losses'][MOE_LAUNCH_CKPT:]}")
+    return {"arch": MOE_LAUNCH_ARCH, "reduced": True,
+            "steps": MOE_LAUNCH_STEPS, "losses": a["losses"],
+            "resume": {"from": MOE_LAUNCH_CKPT, "losses": b["losses"],
+                       "bitwise": bitwise}}
+
+
+def wide_lm_path(dev, phase: str, arch: str) -> tuple[dict, dict]:
+    """Phases `lm_moe` / `lm_mla`: `arch` at full width and WIDE_LAYERS
+    layers, WIDE_STEPS AdamW steps at 8 x 256 on the card.  Held: the first
+    loss to the same loss on the CPU from the card's parameters and batch
+    converted by tree path (TOL_WIDE_FIRST), a falling loss, a finite aux,
+    no hand-written kernel launched.  Printed: the parameter count, the
+    losses, the share of layer 0's (token, choice) routing decisions that
+    differ between card and CPU (MoE), median step ms after the first,
+    tokens a second and the trainer's own peak memory above its base.
+    Returns (launches, line)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_tokens
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.common import count_params
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.training import make_train_step
+    cfg = wide_config(arch)
+    cpu = torch.device("cpu")
+    batch = synth_tokens(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=WIDE_SEQ, global_batch=WIDE_BATCH,
+                                    seed=WIDE_SEED), 0, device=dev)
+    cpu_batch = {k: v.to(cpu) for k, v in batch.items()}
+    reset_counts()
+    # The reset lowers the peak only to what earlier phases still hold: the
+    # trainer's own peak is the rise above that base.
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, _ = init_params(cfg, WIDE_SEED, device=dev)
+    init_s = time.perf_counter() - t0
+    n_params = count_params(params)
+    cpu_params = convert.lm_params_from_numpy(
+        convert.lm_params_to_numpy(params), device=cpu)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        card_eval, _ = lm_loss(params, cfg, batch)
+        cpu_loss, cpu_metrics = lm_loss(cpu_params, cfg, cpu_batch)
+        routing = None
+        if cfg.is_moe:
+            on_card = first_layer_experts(params, cfg, batch["inputs"]).cpu()
+            on_cpu = first_layer_experts(cpu_params, cfg,
+                                         cpu_batch["inputs"])
+            routing = {"decisions": on_cpu.numel(),
+                       "differ": int((on_card != on_cpu).sum()),
+                       "share": float((on_card != on_cpu).float().mean())}
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    opt_cfg = OptimizerConfig(lr=WIDE_LR, warmup_steps=WIDE_WARMUP,
+                              total_steps=WIDE_STEPS)
+    opt_state = init_opt_state(opt_cfg, params)
+    step = make_train_step(cfg, opt_cfg)
+    losses, auxes, step_s = [], [], []
+    for _ in range(WIDE_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        auxes.append(float(metrics["aux"]))
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(auxes))):
+        raise AssertionError(f"{phase}: losses {losses}, aux {auxes}")
+    first_rel = abs(losses[0] - float(cpu_loss)) / abs(float(cpu_loss))
+    if first_rel > TOL_WIDE_FIRST:
+        raise AssertionError(f"{phase}: first loss {losses[0]} on the card, "
+                             f"{float(cpu_loss)} on the CPU")
+    falls = (losses[-1] < losses[0]
+             and np.mean(losses[-3:]) < np.mean(losses[:3]))
+    if not falls:
+        raise AssertionError(f"{phase}: the loss does not fall: {losses}")
+    median_ms = 1e3 * float(np.median(step_s[1:]))
+    line = {"phase": phase, "nvidia_smi": nvidia_smi_line(),
+            "config": {"arch": arch, "num_layers": cfg.num_layers,
+                       "reduced": {"num_layers": [cfg.num_layers,
+                                                  get_config(arch).num_layers]},
+                       "d_model": cfg.d_model, "batch": WIDE_BATCH,
+                       "seq": WIDE_SEQ, "steps": WIDE_STEPS,
+                       "optimizer": "adamw", "lr": WIDE_LR,
+                       "warmup": WIDE_WARMUP, "dtype": cfg.dtype,
+                       "param_dtype": cfg.param_dtype},
+            "n_params": n_params, "n_params_config": cfg.n_params(),
+            "init_s": init_s, "cpu_check_s": cpu_s,
+            "first_loss": {"card": losses[0], "cpu": float(cpu_loss),
+                           "card_eval": float(card_eval), "rel": first_rel,
+                           "tol": TOL_WIDE_FIRST},
+            "losses": losses, "aux": auxes, "loss_falls": bool(falls),
+            "routing_layer0": routing,
+            "first_step_ms": 1e3 * step_s[0], "median_step_ms": median_ms,
+            "step_ms": {"min": 1e3 * min(step_s[1:]),
+                        "max": 1e3 * max(step_s[1:])},
+            "tokens_per_s": WIDE_BATCH * WIDE_SEQ / (median_ms / 1e3),
+            "peak_memory_bytes": peak, "memory_base_bytes": base}
+    if cfg.is_moe:
+        line["launcher"] = moe_launcher_resume(dev)
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: hand-written kernels launched: "
+                             f"{launches}")
+    line["launches"] = launches
+    emit(line)
+    return launches, line
+
+
 SOURCES = {
     "matern52_gram": ("matern", "src/repro_torch/csrc/matern.cu",
                       "src/repro/kernels/matern.py:29"),
@@ -5605,6 +5858,7 @@ def main(argv: list[str] | None = None) -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if argv:
         return digests_only(dev, src)
     smi = nvidia_smi_line()
@@ -5718,7 +5972,14 @@ def main(argv: list[str] | None = None) -> int:
     # tunes it through run_bo.
     launches_by_path["lm"], _ = lm_path(dev)
     launches_by_path["nn_hpo"], _ = nn_hpo_path(dev)
+    # The routed and the latent-attention blocks at full width, before the
+    # step profile (a profiling session slows later host launches).
+    launches_by_path["lm_moe"], _ = wide_lm_path(dev, "lm_moe",
+                                                 "granite-moe-3b-a800m")
+    launches_by_path["lm_mla"], _ = wide_lm_path(dev, "lm_mla", "minicpm3-4b")
     emit({"phase": "profile", "part": "lm step", **lm_step_profile(dev)})
+    emit({"phase": "profile", "part": "lm_moe step",
+          **lm_step_profile(dev, wide_config("granite-moe-3b-a800m"))})
     # Device time beside the event time from the kernels phase (the gram's
     # from its 1024^2 call): the difference is the wrapper's host work
     # while the card idles.

@@ -68,9 +68,12 @@ def run(args) -> dict:
             f"item 1")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
-        # fp32 like the reference: no TF32 in matmuls or convolutions.
+        # fp32 like the reference: no TF32 in matmuls or convolutions, and
+        # bfloat16 products accumulated in float32 throughout.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
 
     opt_cfg = OptimizerConfig(
         name=args.optimizer, lr=args.lr, weight_decay=args.weight_decay,

@@ -1,4 +1,5 @@
-"""Model zoo, dense GQA path (counterpart of `repro.models`)."""
+"""Model zoo, the attention stacks' train path (counterpart of
+`repro.models`)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, forward, init_cache,
                                       init_params, lm_loss,

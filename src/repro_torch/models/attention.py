@@ -1,4 +1,4 @@
-"""Attention variants for the dense GQA path: full, chunked and banded
+"""Attention variants of the GQA and MLA blocks: full, chunked and banded
 (counterpart of `repro/models/attention.py`).
 
 Memory regimes (chosen by `dispatch_attention` from the sequence length):
@@ -13,8 +13,9 @@ Memory regimes (chosen by `dispatch_attention` from the sequence length):
 GQA never materializes repeated KV heads: Q is reshaped to
 (batch, seq, kv_heads, q_per_kv, ...) and contracted group-wise.  Scores
 and the flash accumulators are float32 whatever the activation dtype (the
-reference's `preferred_element_type=jnp.float32`).  Everything here is plain
-tensor ops; the one-token decode attention and MLA are not ported yet.
+reference's `preferred_element_type=jnp.float32`).  The value width may
+differ from the query/key width (MLA: 96 and 64).  Everything here is plain
+tensor ops; the one-token decode attention is not ported yet.
 """
 from __future__ import annotations
 

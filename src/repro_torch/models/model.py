@@ -1,5 +1,5 @@
-"""Model assembly for the dense GQA stacks: blocks, the layer stack, the LM
-head and the loss (counterpart of `repro/models/model.py`, dense path).
+"""Model assembly for the attention stacks: blocks, the layer stack, the LM
+head and the loss (counterpart of `repro/models/model.py`, train path).
 
 Params keep the reference's tree: `blocks` holds every layer's leaves
 stacked on a leading layer axis (`blocks/attn/wq` is (L, d, H * dh)), beside
@@ -10,10 +10,17 @@ layer dispatches statically, as the reference does when unrolled.  `remat`
 recomputes each block in the backward through `torch.utils.checkpoint`
 (both of the reference's policies give the same values).
 
-MLA, MoE, mamba, mLSTM, shared attention, the frames frontend and the
-serving paths (`prefill`, `decode_step`, `init_cache`) are not ported yet:
-building or running such a model raises `NotImplementedError` naming its
-ROADMAP.md entry.  The configs themselves are all data
+A block's attention is GQA (full, banded or chunked) or multi-head latent
+attention (MLA: low-rank query and key/value projections, per-head keys
+and values materialized on the train path); its feed-forward is a dense
+SwiGLU or a top-k routed MoE (`models/moe.py`), whose load-balance loss
+`forward` sums over the layers and `lm_loss` weighs by
+`router_aux_weight`.
+
+Mamba, mLSTM, shared attention, the frames frontend and the serving paths
+(`prefill`, `decode_step`, `init_cache`, MLA's latent decode) are not
+ported yet: building or running such a model raises `NotImplementedError`
+naming its ROADMAP.md entry.  The configs themselves are all data
 (`repro_torch.configs`).
 """
 from __future__ import annotations
@@ -26,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.gp import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_rope, cast_tree, init_dense,
                                        init_embed, init_scale, not_ported,
                                        rms_norm, split_tree,
@@ -36,8 +44,9 @@ from repro_torch.models.config import ModelConfig
 Tensor = torch.Tensor
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for any part of `cfg` beyond the dense GQA path."""
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for any part of `cfg` the port does not build yet: the attention
+    stacks (GQA or MLA, dense or MoE feed-forward) are ported."""
     if cfg.frontend == "frames":
         raise not_ported(f"{cfg.name}: the frames frontend", "frames/encoder")
     if cfg.block_pattern == "mamba" or cfg.shared_attn_every > 0:
@@ -45,10 +54,6 @@ def check_dense(cfg: ModelConfig) -> None:
                          "mamba and shared attention")
     if cfg.block_pattern == "mlstm":
         raise not_ported(f"{cfg.name}: mLSTM blocks", "mLSTM")
-    if cfg.attention == "mla":
-        raise not_ported(f"{cfg.name}: multi-head latent attention", "MLA")
-    if cfg.is_moe:
-        raise not_ported(f"{cfg.name}: the MoE feed-forward", "MoE")
 
 
 # ---------------------------------------------------------------------------
@@ -58,6 +63,23 @@ def check_dense(cfg: ModelConfig) -> None:
 def _init_attn_params(gen: torch.Generator, cfg: ModelConfig):
     d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     dt = cfg.parameter_dtype
+    if cfg.attention == "mla":
+        qdim = cfg.qk_nope_dim + cfg.qk_rope_dim
+        return {
+            "wdq": init_dense(gen, (d, cfg.q_lora_rank), ("embed", "mlp"), dt),
+            "q_norm": init_scale(cfg.q_lora_rank, dt),
+            "wuq": init_dense(gen, (cfg.q_lora_rank, h * qdim),
+                              ("mlp", "heads"), dt),
+            "wdkv": init_dense(gen, (d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                               ("embed", "mlp"), dt),
+            "kv_norm": init_scale(cfg.kv_lora_rank, dt),
+            "wuk": init_dense(gen, (cfg.kv_lora_rank, h * cfg.qk_nope_dim),
+                              ("mlp", "heads"), dt),
+            "wuv": init_dense(gen, (cfg.kv_lora_rank, h * cfg.v_head_dim),
+                              ("mlp", "heads"), dt),
+            "wo": init_dense(gen, (h * cfg.v_head_dim, d),
+                             ("heads", "embed"), dt),
+        }
     tree = {
         "wq": init_dense(gen, (d, h * dh), ("embed", "heads"), dt),
         "wk": init_dense(gen, (d, kv * dh), ("embed", "kv_heads"), dt),
@@ -82,12 +104,18 @@ def _init_mlp_params(gen: torch.Generator, cfg: ModelConfig):
 
 def _init_block_params(gen: torch.Generator, cfg: ModelConfig):
     dt = cfg.parameter_dtype
-    return split_tree({
+    params, specs = split_tree({
         "ln1": init_scale(cfg.d_model, dt),
         "attn": _init_attn_params(gen, cfg),
         "ln2": init_scale(cfg.d_model, dt),
-        "mlp": _init_mlp_params(gen, cfg),
     })
+    if cfg.is_moe:
+        params["moe"], specs["moe"] = moe_mod.init_moe_params(
+            gen, cfg.d_model, cfg.d_ff, cfg.num_experts, dt,
+            num_experts_padded=cfg.num_experts_padded)
+    else:
+        params["mlp"], specs["mlp"] = split_tree(_init_mlp_params(gen, cfg))
+    return params, specs
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -111,7 +139,7 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator, *,
     """Returns (params, logical-axis specs), params on `device`.  The draws
     come from a CPU generator (`seed`, or the generator given), so a seed
     gives the same tree on every device."""
-    check_dense(cfg)
+    check_ported(cfg)
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) \
         else torch.Generator().manual_seed(int(seed))
@@ -149,11 +177,13 @@ def _gqa_qkv(p, cfg: ModelConfig, x: Tensor, positions: Tensor):
 
 def attn_block_forward(p, cfg: ModelConfig, x: Tensor, window: int,
                        positions: Tensor):
-    """Full-sequence attention sublayer (GQA).  `window` is the layer's
-    (0: a global layer of a local:global stack).  Returns (out, (k, v))."""
-    if cfg.attention == "mla":
-        raise not_ported(f"{cfg.name}: multi-head latent attention", "MLA")
+    """Full-sequence attention sublayer (GQA or MLA).  `window` is the
+    layer's (0: a global layer of a local:global stack).  Returns (out,
+    (k, v)), or for MLA (out, (c_kv, k_rope)), the latent pair."""
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.attention == "mla":
+        out, latent = _mla_forward(p["attn"], cfg, xn, positions)
+        return x + out, latent
     q, k, v = _gqa_qkv(p["attn"], cfg, xn, positions)
     if cfg.sliding_window > 0 and cfg.global_every > 0:
         if window <= 0:
@@ -173,11 +203,41 @@ def attn_block_forward(p, cfg: ModelConfig, x: Tensor, window: int,
     return x + out @ p["attn"]["wo"], (k, v)
 
 
+def _mla_forward(p, cfg: ModelConfig, xn: Tensor, positions: Tensor):
+    """MLA train path: per-head keys and values materialized from the
+    latent; returns (out, (c_kv, k_rope)), the latent pair a decode cache
+    would hold."""
+    b, s, _ = xn.shape
+    h = cfg.num_heads
+    nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    cq = rms_norm(xn @ p["wdq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(b, s, h, nope + rdim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv_full = xn @ p["wdkv"]                              # (b,s,kvr+rdim)
+    c_kv = rms_norm(ckv_full[..., :cfg.kv_lora_rank], p["kv_norm"],
+                    cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[..., cfg.kv_lora_rank:][:, :, None, :],
+                        positions, cfg.rope_theta)          # (b,s,1,rdim)
+    k_nope = (c_kv @ p["wuk"]).reshape(b, s, h, nope)
+    v = (c_kv @ p["wuv"]).reshape(b, s, h, vdim)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, rdim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = attn_mod.dispatch_attention(q_full, k, v, causal=cfg.causal)
+    out = out.reshape(b, s, h * vdim) @ p["wo"]
+    return out, (c_kv, k_rope[:, :, 0, :])
+
+
 def mlp_forward(p, cfg: ModelConfig, x: Tensor):
-    """SwiGLU feed-forward sublayer (dense).  Returns (out, aux = 0)."""
-    if cfg.is_moe:
-        raise not_ported(f"{cfg.name}: the MoE feed-forward", "MoE")
+    """Feed-forward sublayer: SwiGLU, or the routed MoE.  Returns (out, aux),
+    aux the MoE's load-balance loss (0 when dense)."""
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.is_moe:
+        out, aux = moe_mod.moe_ffn(p["moe"], xn, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor,
+                                   dispatch=cfg.moe_dispatch)
+        return x + out, aux
     h = F.silu(xn @ p["mlp"]["wg"]) * (xn @ p["mlp"]["wi"])
     return (x + h @ p["mlp"]["wo"],
             torch.zeros((), dtype=torch.float32, device=x.device))
@@ -197,7 +257,7 @@ def _block(cfg: ModelConfig, window: int, positions: Tensor, x: Tensor,
 def forward(params, cfg: ModelConfig, tokens: Tensor,
             collect_cache: bool = False):
     """tokens: (B, S) integer ids.  Returns (hidden (B,S,D), aux_loss, None)."""
-    check_dense(cfg)
+    check_ported(cfg)
     if collect_cache:
         raise not_ported("the KV cache of a forward", "prefill/decode")
     act = cfg.activation_dtype
@@ -230,7 +290,7 @@ def logits_from_hidden(params, cfg: ModelConfig, x: Tensor) -> Tensor:
 
 
 def lm_loss(params, cfg: ModelConfig, batch) -> tuple[Tensor, dict]:
-    """Next-token cross entropy (+ the MoE aux term, 0 on the dense path);
+    """Next-token cross entropy (+ the weighted MoE aux term, 0 when dense);
     the padded vocabulary rows are masked out at -1e30."""
     targets = batch["targets"].long()
     mask = batch.get("mask")

@@ -90,6 +90,27 @@ def test_chunked_attention_matches_full(causal, window):
         _close(a, n(b), GRAD)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_attention_mla_widths_match_reference(causal):
+    """MLA's widths (query/key 96 = nope 64 + rope 32, value 64) through
+    the chunked path at the reference's default 1024-blocks, 2 x 2 of them
+    at a sequence past `dispatch_attention`'s full threshold: forward and
+    the flash backward, whose dv carries the value width."""
+    rng = np.random.default_rng(5)
+    b, s, h = 1, 2048, 2
+    q, k = (rng.standard_normal((b, s, h, 96)).astype(np.float32)
+            for _ in range(2))
+    v, cot = (rng.standard_normal((b, s, h, 64)).astype(np.float32)
+              for _ in range(2))
+    jres, tres = _both(
+        lambda a, b_, c: jattn.dispatch_attention(a, b_, c, causal=causal),
+        lambda a, b_, c: attn.dispatch_attention(a, b_, c, causal=causal),
+        q, k, v, cot)
+    assert tuple(tres[0].shape) == (b, s, h, 64)
+    assert tuple(tres[1][2].shape) == (b, s, h, 64)
+    _held(jres, tres)
+
+
 def test_chunked_backward_saves_no_score_matrix():
     """The backward recomputes the probabilities from the saved lse: what
     autograd keeps is (q, k, v, out, lse), nothing of size S x S."""

@@ -16,12 +16,12 @@ from repro_torch.models.config import ModelConfig
 ARCHS = sorted(jconfigs.REGISTRY)
 PROPERTIES = ("head_dim_", "vocab_padded", "is_moe", "num_experts_padded",
               "supports_decode", "supports_long_context")
-# The dense GQA configs the port builds and trains; the rest wait
-# (ROADMAP.md queue 1, item 2).
+# The configs the port builds and trains (dense GQA, MoE, MLA); the rest
+# wait (ROADMAP.md queue 1, item 2).
 DENSE = ("tiny-lm", "granite-3-2b", "deepseek-coder-33b", "gemma3-4b",
          "chameleon-34b")
-WAITING = {"granite-moe-3b-a800m": "MoE", "qwen3-moe-30b-a3b": "MoE",
-           "minicpm3-4b": "MLA", "hubert-xlarge": "frames/encoder",
+MOE_MLA = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b", "minicpm3-4b")
+WAITING = {"hubert-xlarge": "frames/encoder",
            "zamba2-1.2b": "mamba and shared attention",
            "xlstm-1.3b": "mLSTM"}
 
@@ -29,7 +29,7 @@ WAITING = {"granite-moe-3b-a800m": "MoE", "qwen3-moe-30b-a3b": "MoE",
 def test_registry_matches():
     assert configs.REGISTRY == jconfigs.REGISTRY
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
-    assert set(DENSE) | set(WAITING) == set(ARCHS)
+    assert set(DENSE) | set(MOE_MLA) | set(WAITING) == set(ARCHS)
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("no-such-arch")
 
@@ -54,8 +54,8 @@ def test_config_field_by_field(arch, reduced):
 
 @pytest.mark.parametrize("arch", sorted(WAITING))
 def test_waiting_kinds_raise_on_build(arch):
-    """A config beyond the dense GQA path is data: building its model raises
-    NotImplementedError naming its ROADMAP.md entry."""
+    """A config beyond the attention stacks is data: building its model
+    raises NotImplementedError naming its ROADMAP.md entry."""
     cfg = configs.get_config(arch, reduced=True)
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP.md queue 1, item 2 .*{WAITING[arch]}"):
@@ -76,3 +76,42 @@ def test_dense_built_tree_counts(arch):
             * (1 if cfg.tie_embeddings else 2) + d)
     assert count_params(params) == want
     assert set(specs) == set(params)
+
+
+@pytest.mark.parametrize("arch", MOE_MLA)
+def test_moe_and_mla_built_tree_counts(arch):
+    """The built tree at reduced size: MLA's eight attention leaves, or the
+    MoE router over the experts beside tables padded to
+    `num_experts_padded`; with the config's own count (which counts the
+    unpadded experts) the difference is exactly the padding."""
+    cfg = configs.get_config(arch, reduced=True)
+    params, specs = init_params(cfg, 0, device="cpu")
+    d, f, h = cfg.d_model, cfg.d_ff, cfg.num_heads
+    if cfg.attention == "mla":
+        nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        attn = (d * qr + qr + qr * h * (nope + rdim) + d * (kvr + rdim)
+                + kvr + kvr * h * nope + kvr * h * vdim + h * vdim * d)
+        assert sorted(params["blocks"]["attn"]) == sorted(
+            ["wdq", "q_norm", "wuq", "wdkv", "kv_norm", "wuk", "wuv", "wo"])
+    else:
+        dh = cfg.head_dim_
+        attn = d * h * dh * 2 + 2 * d * cfg.num_kv_heads * dh
+    if cfg.is_moe:
+        ffn = d * cfg.num_experts + cfg.num_experts_padded * 3 * d * f
+        assert params["blocks"]["moe"]["wi"].shape == (
+            cfg.num_layers, cfg.num_experts_padded, d, f)
+        assert specs["blocks"]["moe"]["router"] == ("layers", "embed",
+                                                    "expert")
+    else:
+        ffn = 3 * d * f
+    per_layer = attn + ffn + 2 * d
+    want = (cfg.num_layers * per_layer + cfg.vocab_padded * d
+            * (1 if cfg.tie_embeddings else 2) + d)
+    assert count_params(params) == want
+    assert set(specs) == set(params)
+    pad = (cfg.num_experts_padded - cfg.num_experts) * 3 * d * f
+    norms = (2 * d + (qr + kvr if cfg.attention == "mla" else 0))
+    assert count_params(params) - cfg.n_params() == \
+        cfg.num_layers * (pad + norms) + (cfg.vocab_padded - cfg.vocab_size) \
+        * d * (1 if cfg.tie_embeddings else 2) + d

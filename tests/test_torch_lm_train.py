@@ -12,6 +12,7 @@ AdamW amplifies sign noise in near-zero gradients (after step 1,
 mhat / sqrt(vhat) is +-1), so it is held by its losses, 1e-4 over five
 steps.  bfloat16 gradients: 1e-2.
 """
+import dataclasses
 import os
 import shutil
 import signal
@@ -55,9 +56,9 @@ def _close(got, want, tol, what=""):
     assert err <= tol, f"{what}: {err:.3g} > {tol}"
 
 
-def _setup(opt_kw, seed=0):
-    jcfg = jget_config(ARCH, reduced=True)
-    tcfg = get_config(ARCH, reduced=True)
+def _setup(opt_kw, seed=0, arch=ARCH, **cfg_changes):
+    jcfg = dataclasses.replace(jget_config(arch, reduced=True), **cfg_changes)
+    tcfg = dataclasses.replace(get_config(arch, reduced=True), **cfg_changes)
     jp, _ = jinit_params(jcfg, jax.random.PRNGKey(seed))
     tp = convert.lm_params_from_numpy(jax_state_leaves(jp), device=CPU)
     jo, to = JOptimizerConfig(**opt_kw), OptimizerConfig(**opt_kw)
@@ -100,6 +101,43 @@ def test_three_sgdm_steps_match_reference():
     for k, v in convert.lm_params_to_numpy(ts.mu).items():
         _close(v, mu_want[k], TOL_SGDM, f"mu/{k}")
     assert int(ts.step) == 3 and ts.nu is None
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+                                  "minicpm3-4b"])
+def test_moe_and_mla_sgdm_steps_match_reference(arch):
+    """Three SGD-momentum steps of a reduced MoE or MLA model at float32
+    (the router's aux loss in the loss), each from the reference's state
+    of the step before (converted by tree path): the loss, params and
+    momentum against the reference's step.  Run on their own, the two
+    packages' float32 sums drift apart by 1e-7, and routing is a
+    discontinuous function of them: at granite-moe's third step two
+    experts' probabilities (0.17245048, 0.17245066) swap order, and the
+    loss moves by 1e-4."""
+    jcfg, tcfg, jp, _, jo, to = _setup(SGDM, seed=5, arch=arch,
+                                       dtype="float32")
+    jstep, tstep = jax.jit(jmake_train_step(jcfg, jo)), make_train_step(tcfg,
+                                                                        to)
+    js = jinit_opt_state(jo, jp)
+    for batch in _batches(3):
+        tp = convert.lm_params_from_numpy(jax_state_leaves(jp), device=CPU)
+        ts = convert.opt_state_from_numpy(jax_state_leaves(js._asdict()),
+                                          device=CPU)
+        jp, js, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in
+                                    batch.items()})
+        tp, ts, tm = tstep(tp, ts, {k: torch.tensor(v) for k, v in
+                                    batch.items()})
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=TOL_SGDM)
+        want, got = jax_state_leaves(jp), convert.lm_params_to_numpy(tp)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _close(got[k], want[k], TOL_SGDM, k)
+        mu_want = jax_state_leaves(js.mu)
+        for k, v in convert.lm_params_to_numpy(ts.mu).items():
+            _close(v, mu_want[k], TOL_SGDM, f"mu/{k}")
+    assert any(k.startswith("blocks/moe/") for k in want) == tcfg.is_moe
+    assert int(ts.step) == 3
 
 
 def test_microbatched_step_matches_reference():
@@ -199,6 +237,28 @@ def test_train_cli_checkpoints_and_resumes(tmp_path):
                                rtol=1e-6)
     more = train.run(_args(tmp_path / "a", 10))
     assert more["start"] == 8 and ckpt.latest_step(tmp_path / "a") == 10
+
+
+def test_moe_launcher_resumes_bit_for_bit(tmp_path):
+    """`--arch qwen3-moe-30b-a3b --reduced` (bfloat16, routed): a run to 6
+    checkpointing at 4, then a run from a copy of step 4 logs steps 4 and 5
+    with the first run's losses bit for bit (the same routing, the same
+    reductions)."""
+    def args(d):
+        return train.parse_args([
+            "--arch", "qwen3-moe-30b-a3b", "--reduced", "--steps", "6",
+            "--seq-len", "32", "--global-batch", "4", "--ckpt-every", "4",
+            "--log-every", "1", "--ckpt-dir", str(d), "--device", "cpu"])
+
+    first = train.run(args(tmp_path / "a"))
+    assert first["steps"] == list(range(6))
+    os.makedirs(tmp_path / "b")
+    shutil.copytree(tmp_path / "a" / "step_000000004",
+                    tmp_path / "b" / "step_000000004")
+    resumed = train.run(args(tmp_path / "b"))
+    assert resumed["start"] == 4 and resumed["steps"] == [4, 5]
+    assert resumed["losses"] == first["losses"][4:]
+    assert first["losses"][-1] < first["losses"][0]
 
 
 def test_train_sigterm_checkpoints_and_exits_3(tmp_path, monkeypatch):
