@@ -325,14 +325,35 @@ Phases, each printing one JSON line:
                / v 64 / 32 / 64, d_ff 6400, vocab 73448 padded to 73472),
                2 layers, held and printed as lm_moe (no routing, no
                launcher run).
-Then one AdamW step of the lm phase and one of lm_moe's profiled
-(`lm_step_profile`: device kernels, span, busy, host ms, device ms by
-kind of kernel and the top 15 kernels).  Then the `{"kernels": [...]}` line (seven kernels: L X = I and
-the general solve, two C entries of `csrc/trsv.cu`, count apart; launches
-per path: main, mixed, append, engine, engine_mixed, pool, pool_mixed,
-neural, neural_mixed, fantasy, fantasy_mixed, gateway, federation,
-federation_workers, lm, nn_hpo, lm_moe, lm_mla), the nvidia-smi
-line and, last, `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
+Then `recurrence` (`recurrence_check`): the chunked scans against their
+per-token recurrences on the card in float32 at the full widths, one
+sequence of 512 steps in chunks of 256: zamba2's SSD (64 heads of 64,
+state 64, one group) from an initial state, and xlstm's mLSTM (4 heads of
+512); outputs and final states held to TOL_RECURRENCE.  Then the
+recurrent and encoder families at full width, each held and printed as
+lm_mla (`wide_lm_path`, 10 AdamW steps at batch 8, bfloat16 over float32
+masters; the CPU checks the loss of the batch's first sequence, beside
+the card's loss of the same sequence):
+ 17. lm_frames — hubert-xlarge (d_model 1280, 16 heads, d_ff 5120,
+               bidirectional, frames projected by `frame_proj` with
+               sinusoidal positions, vocab 504 padded to 512), 2 of 48
+               layers, 8 x 256 frames.
+ 18. lm_mamba  — zamba2-1.2b (d_model 2048, d_inner 4096, 64 SSD heads of
+               64, state 64, chunk 256, the shared attention block of 32
+               heads and d_ff 8192), 12 of 38 layers (the shared block
+               fires after layers 5 and 11), 8 x 512 tokens (two chunks).
+ 19. lm_mlstm  — xlstm-1.3b (d_model 2048, 4 heads of 512, pf 1.0, chunk
+               256, vocab 50304), 2 of 48 layers, 8 x 512 tokens.
+Then one AdamW step each of the lm phase, of lm_moe's and of lm_mamba's
+profiled (`lm_step_profile`: device kernels, span, busy, host ms, device
+ms by kind of kernel and the top 15 kernels).  Then the
+`{"kernels": [...]}` line (seven kernels: L X = I and the general solve,
+two C entries of `csrc/trsv.cu`, count apart; launches per path: main,
+mixed, append, engine, engine_mixed, pool, pool_mixed, neural,
+neural_mixed, fantasy, fantasy_mixed, gateway, federation,
+federation_workers, lm, nn_hpo, lm_moe, lm_mla, lm_frames, lm_mamba,
+lm_mlstm), the nvidia-smi line and, last,
+`{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
 
@@ -5461,8 +5482,9 @@ def step_kinds(by_name) -> dict:
     return out
 
 
-def lm_step_profile(dev, cfg=None) -> dict:
-    """One AdamW step of the `lm` phase's configuration (or `cfg`) under
+def lm_step_profile(dev, cfg=None, seq: int | None = None) -> dict:
+    """One AdamW step of the `lm` phase's configuration (or `cfg`, at `seq`
+    tokens a sequence, LM_SEQ by default) under
     torch.profiler (after every timed phase: a profiling session leaves
     host overhead on later launches): its device kernels, span, busy and
     idle time, beside the step's host time; then the step's AdamW update
@@ -5476,7 +5498,8 @@ def lm_step_profile(dev, cfg=None) -> dict:
     opt_cfg = OptimizerConfig(lr=LM_LR, warmup_steps=LM_WARMUP,
                               total_steps=LM_STEPS)
     params, opt_state, _ = init_train_state(cfg, opt_cfg, LM_SEED, device=dev)
-    batch = synth_tokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+    batch = synth_tokens(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=seq or LM_SEQ,
                                     global_batch=LM_BATCH, seed=LM_SEED), 0,
                          device=dev)
     step = make_train_step(cfg, opt_cfg)
@@ -5632,12 +5655,28 @@ TOL_WIDE_FIRST = 1e-3     # |loss_card - loss_cpu| / loss_cpu, first step.
 #   tolerance for the same models (tests/test_torch_lm_model.py, BF16).
 MOE_LAUNCH_ARCH = "qwen3-moe-30b-a3b"     # --reduced through the launcher
 MOE_LAUNCH_STEPS, MOE_LAUNCH_CKPT = 10, 5
+# The recurrent and encoder families at full width (phases `lm_frames`,
+# `lm_mamba`, `lm_mlstm`): (phase, arch, depth, sequence), batch WIDE_BATCH.
+# zamba2 at 12 of 38 layers fires its shared block twice (after layers 5
+# and 11); 512 steps are two chunks of 256, so the carry between chunks
+# runs on the card.
+RECURRENT_PHASES = (("lm_frames", "hubert-xlarge", 2, 256),
+                    ("lm_mamba", "zamba2-1.2b", 12, 512),
+                    ("lm_mlstm", "xlstm-1.3b", 2, 512))
+RECURRENT_CPU_ROWS = 1    # sequences of the batch whose loss the CPU checks
+RECURRENCE_STEPS, RECURRENCE_CHUNK = 512, 256
+TOL_RECURRENCE = 1e-4     # max |chunked - recurrent| / max |recurrent|,
+#   float32 on the card at the full widths (outputs, and the final states;
+#   the mLSTM's up to its stabilizer's gauge, C e^m).  The two forms sum in
+#   other orders: on the CPU at these shapes 8e-6 (SSD outputs), 1.2e-5
+#   (SSD state) and 5e-6 (mLSTM outputs).  tests/test_models.py holds the
+#   reference's pair to 2e-4 elementwise.
 
 
-def wide_config(arch: str):
-    """`arch`'s full CONFIG with its depth cut to WIDE_LAYERS."""
+def wide_config(arch: str, layers: int = WIDE_LAYERS):
+    """`arch`'s full CONFIG with its depth cut to `layers`."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(arch), num_layers=WIDE_LAYERS)
+    return dataclasses.replace(get_config(arch), num_layers=layers)
 
 
 def first_layer_experts(params, cfg, tokens):
@@ -5699,12 +5738,16 @@ def moe_launcher_resume(dev) -> dict:
                        "bitwise": bitwise}}
 
 
-def wide_lm_path(dev, phase: str, arch: str) -> tuple[dict, dict]:
-    """Phases `lm_moe` / `lm_mla`: `arch` at full width and WIDE_LAYERS
-    layers, WIDE_STEPS AdamW steps at 8 x 256 on the card.  Held: the first
-    loss to the same loss on the CPU from the card's parameters and batch
-    converted by tree path (TOL_WIDE_FIRST), a falling loss, a finite aux,
-    no hand-written kernel launched.  Printed: the parameter count, the
+def wide_lm_path(dev, phase: str, arch: str, layers: int = WIDE_LAYERS,
+                 seq: int = WIDE_SEQ,
+                 cpu_rows: int | None = None) -> tuple[dict, dict]:
+    """Phases `lm_moe` / `lm_mla` (and `lm_frames`, `lm_mamba`,
+    `lm_mlstm`): `arch` at full width and `layers` layers, WIDE_STEPS AdamW
+    steps at WIDE_BATCH x `seq` on the card.  Held: the first loss to the
+    same loss on the CPU from the card's parameters and batch converted by
+    tree path (TOL_WIDE_FIRST; with `cpu_rows`, the loss of the batch's
+    first `cpu_rows` sequences on both), a falling loss, a finite aux, no
+    hand-written kernel launched.  Printed: the parameter count, the
     losses, the share of layer 0's (token, choice) routing decisions that
     differ between card and CPU (MoE), median step ms after the first,
     tokens a second and the trainer's own peak memory above its base.
@@ -5716,12 +5759,15 @@ def wide_lm_path(dev, phase: str, arch: str) -> tuple[dict, dict]:
     from repro_torch.models.common import count_params
     from repro_torch.optim import OptimizerConfig, init_opt_state
     from repro_torch.training import make_train_step
-    cfg = wide_config(arch)
+    cfg = wide_config(arch, layers)
     cpu = torch.device("cpu")
-    batch = synth_tokens(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=WIDE_SEQ, global_batch=WIDE_BATCH,
-                                    seed=WIDE_SEED), 0, device=dev)
-    cpu_batch = {k: v.to(cpu) for k, v in batch.items()}
+    batch = synth_tokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=WIDE_BATCH, seed=WIDE_SEED,
+                                    frontend=cfg.frontend,
+                                    d_model=cfg.d_model), 0, device=dev)
+    checked = batch if cpu_rows is None else {k: v[:cpu_rows]
+                                              for k, v in batch.items()}
+    cpu_batch = {k: v.to(cpu) for k, v in checked.items()}
     reset_counts()
     # The reset lowers the peak only to what earlier phases still hold: the
     # trainer's own peak is the rise above that base.
@@ -5736,6 +5782,8 @@ def wide_lm_path(dev, phase: str, arch: str) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     with torch.no_grad():
         card_eval, _ = lm_loss(params, cfg, batch)
+        card_checked = card_eval if cpu_rows is None \
+            else lm_loss(params, cfg, checked)[0]
         cpu_loss, cpu_metrics = lm_loss(cpu_params, cfg, cpu_batch)
         routing = None
         if cfg.is_moe:
@@ -5764,9 +5812,12 @@ def wide_lm_path(dev, phase: str, arch: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(auxes))):
         raise AssertionError(f"{phase}: losses {losses}, aux {auxes}")
-    first_rel = abs(losses[0] - float(cpu_loss)) / abs(float(cpu_loss))
+    # The first step's loss is the whole batch's; with `cpu_rows`, the card
+    # holds the checked sequences' loss against the CPU's.
+    card_first = losses[0] if cpu_rows is None else float(card_checked)
+    first_rel = abs(card_first - float(cpu_loss)) / abs(float(cpu_loss))
     if first_rel > TOL_WIDE_FIRST:
-        raise AssertionError(f"{phase}: first loss {losses[0]} on the card, "
+        raise AssertionError(f"{phase}: first loss {card_first} on the card, "
                              f"{float(cpu_loss)} on the CPU")
     falls = (losses[-1] < losses[0]
              and np.mean(losses[-3:]) < np.mean(losses[:3]))
@@ -5778,13 +5829,15 @@ def wide_lm_path(dev, phase: str, arch: str) -> tuple[dict, dict]:
                        "reduced": {"num_layers": [cfg.num_layers,
                                                   get_config(arch).num_layers]},
                        "d_model": cfg.d_model, "batch": WIDE_BATCH,
-                       "seq": WIDE_SEQ, "steps": WIDE_STEPS,
+                       "seq": seq, "steps": WIDE_STEPS,
+                       "cpu_rows": cpu_rows or WIDE_BATCH,
                        "optimizer": "adamw", "lr": WIDE_LR,
                        "warmup": WIDE_WARMUP, "dtype": cfg.dtype,
                        "param_dtype": cfg.param_dtype},
             "n_params": n_params, "n_params_config": cfg.n_params(),
             "init_s": init_s, "cpu_check_s": cpu_s,
-            "first_loss": {"card": losses[0], "cpu": float(cpu_loss),
+            "first_loss": {"card": card_first, "cpu": float(cpu_loss),
+                           "card_step": losses[0],
                            "card_eval": float(card_eval), "rel": first_rel,
                            "tol": TOL_WIDE_FIRST},
             "losses": losses, "aux": auxes, "loss_falls": bool(falls),
@@ -5792,7 +5845,7 @@ def wide_lm_path(dev, phase: str, arch: str) -> tuple[dict, dict]:
             "first_step_ms": 1e3 * step_s[0], "median_step_ms": median_ms,
             "step_ms": {"min": 1e3 * min(step_s[1:]),
                         "max": 1e3 * max(step_s[1:])},
-            "tokens_per_s": WIDE_BATCH * WIDE_SEQ / (median_ms / 1e3),
+            "tokens_per_s": WIDE_BATCH * seq / (median_ms / 1e3),
             "peak_memory_bytes": peak, "memory_base_bytes": base}
     if cfg.is_moe:
         line["launcher"] = moe_launcher_resume(dev)
@@ -5803,6 +5856,71 @@ def wide_lm_path(dev, phase: str, arch: str) -> tuple[dict, dict]:
     line["launches"] = launches
     emit(line)
     return launches, line
+
+
+def recurrence_check(dev) -> dict:
+    """The chunked scans against their per-token recurrences on the card, in
+    float32, at the full configs' widths: zamba2's SSD (64 heads of 64,
+    state 64, one group) with an initial state, and xlstm's mLSTM (4 heads
+    of 512), one sequence of RECURRENCE_STEPS steps in chunks of
+    RECURRENCE_CHUNK.  Held to TOL_RECURRENCE: the outputs and the final
+    states (the mLSTM's up to its stabilizer's gauge)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm, xlstm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(WIDE_SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    zcfg, xcfg = get_config("zamba2-1.2b"), get_config("xlstm-1.3b")
+    steps = RECURRENCE_STEPS
+    h = zcfg.ssm_expand * zcfg.d_model // zcfg.ssm_head_dim
+    p, n, g = zcfg.ssm_head_dim, zcfg.ssm_state, zcfg.ssm_groups
+    x, dt = randn(1, steps, h, p), F.softplus(randn(1, steps, h))
+    a = -torch.exp(0.5 * randn(h))
+    bm, cm = 0.3 * randn(1, steps, g, n), 0.3 * randn(1, steps, g, n)
+    h0 = 0.1 * randn(1, h, p, n)
+    t0 = time.perf_counter()
+    y_chunk, s_chunk = ssm.ssd_chunked(x, dt, a, bm, cm,
+                                       chunk=RECURRENCE_CHUNK, h0=h0,
+                                       return_final_state=True)
+    y_rec, s_rec = ssm.ssd_recurrent_ref(x, dt, a, bm, cm, h0=h0)
+    torch.cuda.synchronize()
+    ssd_s = time.perf_counter() - t0
+    ssd = {"shape": {"heads": h, "head_dim": p, "state": n, "groups": g,
+                     "steps": steps, "chunk": RECURRENCE_CHUNK, "h0": True},
+           "y_rel": rel(y_chunk, y_rec), "state_rel": rel(s_chunk, s_rec),
+           "seconds": ssd_s}
+    hm = xcfg.mlstm_heads
+    dh = int(xcfg.mlstm_pf * xcfg.d_model) // hm
+    q, v = randn(1, steps, hm, dh), randn(1, steps, hm, dh)
+    k = randn(1, steps, hm, dh) / dh ** 0.5
+    logi, logf = randn(1, steps, hm), F.logsigmoid(randn(1, steps, hm) + 3.0)
+    t0 = time.perf_counter()
+    y_chunk, (c1, _, m1) = xlstm.mlstm_chunked(
+        q, k, v, logi, logf, chunk=RECURRENCE_CHUNK, return_final_state=True)
+    y_rec, (c2, _, m2) = xlstm.mlstm_recurrent_ref(q, k, v, logi, logf)
+    torch.cuda.synchronize()
+    mlstm = {"shape": {"heads": hm, "head_dim": dh, "steps": steps,
+                       "chunk": RECURRENCE_CHUNK},
+             "y_rel": rel(y_chunk, y_rec),
+             "state_rel": rel(c1 * torch.exp(m1)[..., None, None],
+                              c2 * torch.exp(m2)[..., None, None]),
+             "seconds": time.perf_counter() - t0}
+    line = {"phase": "recurrence", "nvidia_smi": nvidia_smi_line(),
+            "dtype": "float32", "tol": TOL_RECURRENCE, "ssd": ssd,
+            "mlstm": mlstm}
+    worst = max(ssd["y_rel"], ssd["state_rel"], mlstm["y_rel"],
+                mlstm["state_rel"])
+    if not worst <= TOL_RECURRENCE:
+        raise AssertionError(f"recurrence: chunked against recurrent "
+                             f"{worst} > {TOL_RECURRENCE}: {line}")
+    return line
 
 
 SOURCES = {
@@ -5977,9 +6095,18 @@ def main(argv: list[str] | None = None) -> int:
     launches_by_path["lm_moe"], _ = wide_lm_path(dev, "lm_moe",
                                                  "granite-moe-3b-a800m")
     launches_by_path["lm_mla"], _ = wide_lm_path(dev, "lm_mla", "minicpm3-4b")
+    # The recurrent and encoder families: the chunked scans against their
+    # recurrences at full width, then hubert, zamba2 and xlstm trained.
+    emit(recurrence_check(dev))
+    for phase, arch, layers, seq in RECURRENT_PHASES:
+        launches_by_path[phase], _ = wide_lm_path(
+            dev, phase, arch, layers, seq, cpu_rows=RECURRENT_CPU_ROWS)
     emit({"phase": "profile", "part": "lm step", **lm_step_profile(dev)})
     emit({"phase": "profile", "part": "lm_moe step",
           **lm_step_profile(dev, wide_config("granite-moe-3b-a800m"))})
+    _, arch, layers, seq = RECURRENT_PHASES[1]
+    emit({"phase": "profile", "part": "lm_mamba step",
+          **lm_step_profile(dev, wide_config(arch, layers), seq)})
     # Device time beside the event time from the kernels phase (the gram's
     # from its 1024^2 call): the difference is the wrapper's host work
     # while the card idles.

@@ -59,6 +59,28 @@ def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
     return (x32 * torch.rsqrt(var + eps)).to(dt) * scale
 
 
+def silu_stepwise(x: Tensor) -> Tensor:
+    """x * sigmoid(x), the sigmoid as 1 / (1 + exp(-x)) with every step in
+    x's dtype, as XLA expands the reference's `jax.nn.silu` op by op.  In
+    bfloat16 each step rounds; a fused `F.silu` rounds once and differs by
+    an ulp on about 40% of the elements: enough to flip the MoE's routing
+    in the next layer, and to move the gradients of the recurrent blocks,
+    whose jitted reference rounds as its op-by-op run does."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """Depthwise causal conv1d (the Mamba-2 and mLSTM blocks' short
+    convolution), its taps added one at a time in x's dtype as the
+    reference adds them.  x: (B, L, C); w: (W, C); b: (C,)."""
+    width = w.shape[0]
+    xp = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + xp[:, i:i + x.shape[1], :] * w[i]
+    return out + b
+
+
 def truncated_normal(gen: torch.Generator, shape: Sequence[int]) -> Tensor:
     """Standard normal truncated to [-2, 2], float32, by the inverse CDF
     (the reference draws the same law from JAX's bits)."""
@@ -110,6 +132,19 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     o1 = x1 * cos - x2 * sin
     o2 = x2 * cos + x1 * sin
     return torch.cat([o1, o2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int,
+                         device: torch.device | str = "cpu") -> Tensor:
+    """Fixed sinusoidal embeddings (encoder stacks without RoPE), float32
+    (seq, d): sines in the even columns, cosines in the odd."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d)
+    out = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(angle)
+    out[:, 1::2] = torch.cos(angle[:, : (d - d // 2)])
+    return out
 
 
 # ---------------------------------------------------------------------------

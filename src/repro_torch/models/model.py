@@ -1,30 +1,39 @@
-"""Model assembly for the attention stacks: blocks, the layer stack, the LM
-head and the loss (counterpart of `repro/models/model.py`, train path).
+"""Model assembly: blocks, the layer stack, the LM head and the loss
+(counterpart of `repro/models/model.py`, train path).
 
 Params keep the reference's tree: `blocks` holds every layer's leaves
 stacked on a leading layer axis (`blocks/attn/wq` is (L, d, H * dh)), beside
-`embed`, `final_norm` and, unless `tie_embeddings`, `lm_head`.  The
-reference's `lax.scan` over the stacked layers is a Python loop here; a
-layer's window (gemma3's 5:1 local:global pattern) is a Python int, so each
-layer dispatches statically, as the reference does when unrolled.  `remat`
-recomputes each block in the backward through `torch.utils.checkpoint`
-(both of the reference's policies give the same values).
+`embed` (or `frame_proj` for a frames frontend), `final_norm`, unless
+`tie_embeddings` `lm_head`, and zamba2's `shared_attn`.  The reference's
+`lax.scan` over the stacked layers is a Python loop here; a layer's window
+(gemma3's 5:1 local:global pattern) and whether the shared block fires
+after it are Python ints, so each layer dispatches statically, as the
+reference does when unrolled.  `remat` recomputes each layer's body (the
+shared block's application after it included) in the backward through
+`torch.utils.checkpoint` (both of the reference's policies give the same
+values).
 
-A block's attention is GQA (full, banded or chunked) or multi-head latent
-attention (MLA: low-rank query and key/value projections, per-head keys
-and values materialized on the train path); its feed-forward is a dense
-SwiGLU or a top-k routed MoE (`models/moe.py`), whose load-balance loss
-`forward` sums over the layers and `lm_loss` weighs by
-`router_aux_weight`.
+Block kinds:
+  * "attn": GQA (full, banded or chunked) or multi-head latent attention
+    (MLA: low-rank query and key/value projections, per-head keys and
+    values materialized on the train path), then a dense SwiGLU or a top-k
+    routed MoE (`models/moe.py`), whose load-balance loss `forward` sums
+    over the layers and `lm_loss` weighs by `router_aux_weight`;
+  * "mamba": a Mamba-2 mixer (`models/ssm.py`) behind a norm;
+  * "mlstm": an mLSTM block (`models/xlstm.py`) behind a norm.
+zamba2's shared attention block is ONE parameter set (an attention block
+with a dense MLP) applied after every `shared_attn_every`-th layer; the
+gradients of its applications add up in its one leaf.  A frames frontend
+(hubert) projects the input frames with `frame_proj` and adds sinusoidal
+positions; its attention is bidirectional.
 
-Mamba, mLSTM, shared attention, the frames frontend and the serving paths
-(`prefill`, `decode_step`, `init_cache`, MLA's latent decode) are not
-ported yet: building or running such a model raises `NotImplementedError`
-naming its ROADMAP.md entry.  The configs themselves are all data
-(`repro_torch.configs`).
+The serving paths (`prefill`, `decode_step`, `init_cache`, the KV cache of
+a forward, MLA's latent decode) are not ported yet: they raise
+`NotImplementedError` naming their ROADMAP.md entry.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -34,26 +43,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.gp import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (apply_rope, cast_tree, init_dense,
                                        init_embed, init_scale, not_ported,
-                                       rms_norm, split_tree,
-                                       stack_layer_params, stacked_specs,
-                                       tree_map)
+                                       rms_norm, sinusoidal_positions,
+                                       split_tree, stack_layer_params,
+                                       stacked_specs, tree_map)
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for any part of `cfg` the port does not build yet: the attention
-    stacks (GQA or MLA, dense or MoE feed-forward) are ported."""
-    if cfg.frontend == "frames":
-        raise not_ported(f"{cfg.name}: the frames frontend", "frames/encoder")
-    if cfg.block_pattern == "mamba" or cfg.shared_attn_every > 0:
-        raise not_ported(f"{cfg.name}: mamba blocks and shared attention",
-                         "mamba and shared attention")
-    if cfg.block_pattern == "mlstm":
-        raise not_ported(f"{cfg.name}: mLSTM blocks", "mLSTM")
 
 
 # ---------------------------------------------------------------------------
@@ -102,8 +101,20 @@ def _init_mlp_params(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
-def _init_block_params(gen: torch.Generator, cfg: ModelConfig):
+def _init_block_params(gen: torch.Generator, cfg: ModelConfig, kind: str):
     dt = cfg.parameter_dtype
+    if kind == "mamba":
+        params, specs = split_tree({"ln": init_scale(cfg.d_model, dt)})
+        params["mixer"], specs["mixer"] = ssm_mod.init_mamba_params(
+            gen, cfg.d_model, expand=cfg.ssm_expand, state=cfg.ssm_state,
+            head_dim=cfg.ssm_head_dim, groups=cfg.ssm_groups, dtype=dt)
+        return params, specs
+    if kind == "mlstm":
+        params, specs = split_tree({"ln": init_scale(cfg.d_model, dt)})
+        params["mixer"], specs["mixer"] = xlstm_mod.init_mlstm_params(
+            gen, cfg.d_model, heads=cfg.mlstm_heads or cfg.num_heads,
+            pf=cfg.mlstm_pf, dtype=dt)
+        return params, specs
     params, specs = split_tree({
         "ln1": init_scale(cfg.d_model, dt),
         "attn": _init_attn_params(gen, cfg),
@@ -134,24 +145,53 @@ def layer_windows(cfg: ModelConfig) -> list[int]:
             else cfg.sliding_window for i in range(cfg.num_layers)]
 
 
+def shared_slots(cfg: ModelConfig) -> list[int]:
+    """zamba2: per layer, 0, or k > 0 when the shared attention block fires
+    after the layer for the k-th time (every `shared_attn_every`-th
+    layer), as Python ints."""
+    if cfg.shared_attn_every <= 0:
+        return [0] * cfg.num_layers
+    out, count = [], 0
+    for i in range(cfg.num_layers):
+        fire = (i % cfg.shared_attn_every) == (cfg.shared_attn_every - 1)
+        count += int(fire)
+        out.append(count if fire else 0)
+    return out
+
+
+def num_shared_apps(cfg: ModelConfig) -> int:
+    if cfg.shared_attn_every <= 0:
+        return 0
+    return cfg.num_layers // cfg.shared_attn_every
+
+
 def init_params(cfg: ModelConfig, seed: int | torch.Generator, *,
                 device: str | torch.device = "cuda"):
     """Returns (params, logical-axis specs), params on `device`.  The draws
     come from a CPU generator (`seed`, or the generator given), so a seed
     gives the same tree on every device."""
-    check_ported(cfg)
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) \
         else torch.Generator().manual_seed(int(seed))
-    per_layer = [_init_block_params(gen, cfg) for _ in range(cfg.num_layers)]
+    dt = cfg.parameter_dtype
+    kind = block_kind(cfg)
+    per_layer = [_init_block_params(gen, cfg, kind)
+                 for _ in range(cfg.num_layers)]
     tree = {"blocks": (stack_layer_params([p for p, _ in per_layer]),
-                       stacked_specs(per_layer[0][1])),
-            "embed": init_embed(gen, cfg.vocab_padded, cfg.d_model,
-                                cfg.parameter_dtype),
-            "final_norm": init_scale(cfg.d_model, cfg.parameter_dtype)}
+                       stacked_specs(per_layer[0][1]))}
+    if cfg.frontend == "frames":
+        tree["frame_proj"] = init_dense(gen, (cfg.d_model, cfg.d_model),
+                                        ("embed", "mlp"), dt)
+    else:
+        tree["embed"] = init_embed(gen, cfg.vocab_padded, cfg.d_model, dt)
+    tree["final_norm"] = init_scale(cfg.d_model, dt)
     if not cfg.tie_embeddings:
         tree["lm_head"] = init_dense(gen, (cfg.d_model, cfg.vocab_padded),
-                                     ("embed", "vocab"), cfg.parameter_dtype)
+                                     ("embed", "vocab"), dt)
+    if num_shared_apps(cfg) > 0:
+        shared_cfg = dataclasses.replace(cfg, block_pattern="attn",
+                                         num_experts=0)
+        tree["shared_attn"] = _init_block_params(gen, shared_cfg, "attn")
     params, specs = split_tree(tree)
     return tree_map(lambda x: x.to(dev), params), specs
 
@@ -247,34 +287,64 @@ def mlp_forward(p, cfg: ModelConfig, x: Tensor):
 # Full-sequence forward (train)
 # ---------------------------------------------------------------------------
 
-def _block(cfg: ModelConfig, window: int, positions: Tensor, x: Tensor,
-           layer_p):
+def _shared_block(cfg: ModelConfig, positions: Tensor, x: Tensor, shared_p):
+    """zamba2's shared attention block: attention then the dense MLP, with
+    the one parameter set every application uses."""
+    sp = cast_tree(shared_p, cfg.activation_dtype)
+    x, _ = attn_block_forward(sp, cfg, x, 0, positions)
+    x, _ = mlp_forward(sp, cfg, x)
+    return x
+
+
+def _block(cfg: ModelConfig, kind: str, window: int, shared_slot: int,
+           positions: Tensor, x: Tensor, layer_p, shared_p):
+    """One layer's body: its block, then the shared block where it fires.
+    Returns (x, aux)."""
     layer_p = cast_tree(layer_p, cfg.activation_dtype)
-    x, _ = attn_block_forward(layer_p, cfg, x, window, positions)
-    return mlp_forward(layer_p, cfg, x)
+    if kind == "attn":
+        x, _ = attn_block_forward(layer_p, cfg, x, window, positions)
+        x, aux = mlp_forward(layer_p, cfg, x)
+    else:
+        mixer = ssm_mod.mamba_block if kind == "mamba" \
+            else xlstm_mod.mlstm_block
+        xn = rms_norm(x, layer_p["ln"], cfg.norm_eps)
+        x = x + mixer(layer_p["mixer"], xn, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if shared_slot > 0:
+        x = _shared_block(cfg, positions, x, shared_p)
+    return x, aux
 
 
 def forward(params, cfg: ModelConfig, tokens: Tensor,
             collect_cache: bool = False):
-    """tokens: (B, S) integer ids.  Returns (hidden (B,S,D), aux_loss, None)."""
-    check_ported(cfg)
+    """tokens: (B, S) integer ids, or (B, S, D) frames for
+    `frontend="frames"`.  Returns (hidden (B,S,D), aux_loss, None)."""
     if collect_cache:
         raise not_ported("the KV cache of a forward", "prefill/decode")
     act = cfg.activation_dtype
-    x = params["embed"].to(act)[tokens.long()]
+    if cfg.frontend == "frames":
+        x = tokens.to(act) @ params["frame_proj"].to(act)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(act)
+    else:
+        x = params["embed"].to(act)[tokens.long()]
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    kind = block_kind(cfg)
+    shared_p = params.get("shared_attn")
     # One unbind per stacked leaf: its backward builds one stack, where an
     # index per layer would add L full-size zero-filled gradients.
     unbound = tree_map(lambda a: a.unbind(0), params["blocks"])
-    for i, window in enumerate(layer_windows(cfg)):
+    for i, (window, slot) in enumerate(zip(layer_windows(cfg),
+                                           shared_slots(cfg))):
         layer_p = tree_map(lambda _, u: u[i], params["blocks"], unbound)
-        body = functools.partial(_block, cfg, window, positions)
+        body = functools.partial(_block, cfg, kind, window, slot, positions)
         if cfg.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(body, x, layer_p, use_reentrant=False)
+            x, aux = checkpoint(body, x, layer_p, shared_p,
+                                use_reentrant=False)
         else:
-            x, aux = body(x, layer_p)
+            x, aux = body(x, layer_p, shared_p)
         aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"].to(act), cfg.norm_eps)
     return x, aux_total, None
@@ -290,8 +360,9 @@ def logits_from_hidden(params, cfg: ModelConfig, x: Tensor) -> Tensor:
 
 
 def lm_loss(params, cfg: ModelConfig, batch) -> tuple[Tensor, dict]:
-    """Next-token cross entropy (+ the weighted MoE aux term, 0 when dense);
-    the padded vocabulary rows are masked out at -1e30."""
+    """Next-token (or frame-label) cross entropy (+ the weighted MoE aux
+    term, 0 when dense); the padded vocabulary rows are masked out at
+    -1e30."""
     targets = batch["targets"].long()
     mask = batch.get("mask")
     x, aux, _ = forward(params, cfg, batch["inputs"])
@@ -313,7 +384,7 @@ def lm_loss(params, cfg: ModelConfig, batch) -> tuple[Tensor, dict]:
 
 
 # ---------------------------------------------------------------------------
-# Serving: not ported yet
+# Serving: not ported yet (ROADMAP.md queue 1, item 2, prefill/decode)
 # ---------------------------------------------------------------------------
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int):

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import init_dense, split_tree
+from repro_torch.models.common import init_dense, silu_stepwise, split_tree
 
 Tensor = torch.Tensor
 
@@ -96,15 +96,6 @@ class _GatherRows(torch.autograd.Function):
 def gather_rows(flat: Tensor, idx: Tensor) -> Tensor:
     """`flat[b, idx[b, m]]`: (B, N, d) and (B, M) in [0, N) -> (B, M, d)."""
     return _GatherRows.apply(flat, idx)
-
-
-def _silu(x: Tensor) -> Tensor:
-    """x * sigmoid(x), the sigmoid as 1 / (1 + exp(-x)) with every step in
-    x's dtype, as XLA expands the reference's `jax.nn.silu` op by op.  In
-    bfloat16 each step rounds; a fused `F.silu` rounds once and differs by
-    an ulp on about 40% of the elements, enough to flip the next layer's
-    routing."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
 def init_moe_params(gen: torch.Generator, d_model: int, d_ff: int,
@@ -208,7 +199,7 @@ def moe_ffn(params, x: Tensor, *, top_k: int, capacity_factor: float,
 
     hidden = torch.einsum("becd,edf->becf", buf, params["wi"][:e])
     gate_h = torch.einsum("becd,edf->becf", buf, params["wg"][:e])
-    hidden = _silu(gate_h) * hidden
+    hidden = silu_stepwise(gate_h) * hidden
     expert_out = torch.einsum("becf,efd->becd", hidden, params["wo"][:e])
 
     flat = torch.cat([expert_out.reshape(b, e * capacity, d),

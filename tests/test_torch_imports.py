@@ -31,6 +31,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.hpo.shard_worker, repro_torch.models, "
             "repro_torch.models.attention, repro_torch.models.common, "
             "repro_torch.models.config, repro_torch.models.model, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.models.xlstm, "
             "repro_torch.optim, repro_torch.optim.optimizers, "
             "repro_torch.data, repro_torch.data.pipeline, "
             "repro_torch.training, repro_torch.training.steps, "

@@ -1,6 +1,7 @@
 """The port's model configs against the reference's: every config and its
 `reduced()`, field by field, with every derived property and the
-parameter counts; and which kinds the port builds."""
+parameter counts; the trees the port builds for every kind; and the
+serving entries, which wait for prefill/decode."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -9,27 +10,27 @@ import torch
 
 from repro import configs as jconfigs
 from repro_torch import configs
-from repro_torch.models import init_params
+from repro_torch.models import (decode_step, forward, init_cache,
+                                init_params, prefill)
 from repro_torch.models.common import count_params
 from repro_torch.models.config import ModelConfig
+from repro_torch.training import make_decode_step, make_prefill_step
 
 ARCHS = sorted(jconfigs.REGISTRY)
 PROPERTIES = ("head_dim_", "vocab_padded", "is_moe", "num_experts_padded",
               "supports_decode", "supports_long_context")
-# The configs the port builds and trains (dense GQA, MoE, MLA); the rest
-# wait (ROADMAP.md queue 1, item 2).
+# The port builds and trains every config: dense GQA, MoE, MLA, the frames
+# encoder, the mamba stack with shared attention and the mLSTM stack.
 DENSE = ("tiny-lm", "granite-3-2b", "deepseek-coder-33b", "gemma3-4b",
          "chameleon-34b")
 MOE_MLA = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b", "minicpm3-4b")
-WAITING = {"hubert-xlarge": "frames/encoder",
-           "zamba2-1.2b": "mamba and shared attention",
-           "xlstm-1.3b": "mLSTM"}
+RECURRENT_FRAMES = ("hubert-xlarge", "zamba2-1.2b", "xlstm-1.3b")
 
 
 def test_registry_matches():
     assert configs.REGISTRY == jconfigs.REGISTRY
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
-    assert set(DENSE) | set(MOE_MLA) | set(WAITING) == set(ARCHS)
+    assert set(DENSE) | set(MOE_MLA) | set(RECURRENT_FRAMES) == set(ARCHS)
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("no-such-arch")
 
@@ -50,16 +51,6 @@ def test_config_field_by_field(arch, reduced):
                          (got.parameter_dtype, ref.parameter_dtype)):
         assert isinstance(ours, torch.dtype)
         assert str(ours) == f"torch.{jnp.dtype(theirs).name}"
-
-
-@pytest.mark.parametrize("arch", sorted(WAITING))
-def test_waiting_kinds_raise_on_build(arch):
-    """A config beyond the attention stacks is data: building its model
-    raises NotImplementedError naming its ROADMAP.md entry."""
-    cfg = configs.get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP.md queue 1, item 2 .*{WAITING[arch]}"):
-        init_params(cfg, 0, device="cpu")
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -115,3 +106,73 @@ def test_moe_and_mla_built_tree_counts(arch):
     assert count_params(params) - cfg.n_params() == \
         cfg.num_layers * (pad + norms) + (cfg.vocab_padded - cfg.vocab_size) \
         * d * (1 if cfg.tie_embeddings else 2) + d
+
+
+def _mixer_count(cfg) -> int:
+    """One layer's mixer leaves, as `init_mamba_params` /
+    `init_mlstm_params` draw them."""
+    d = cfg.d_model
+    if cfg.block_pattern == "mamba":
+        din = cfg.ssm_expand * d
+        heads = din // cfg.ssm_head_dim
+        gn = cfg.ssm_groups * cfg.ssm_state
+        conv = din + 2 * gn
+        return (d * (2 * din + 2 * gn + heads) + 4 * conv + conv
+                + 3 * heads + din + din * d)
+    heads = cfg.mlstm_heads or cfg.num_heads
+    dv = int(cfg.mlstm_pf * d)
+    return (2 * d * dv + 4 * dv + dv + 3 * dv * dv + 2 * dv * heads
+            + 2 * heads + dv + dv * d)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_FRAMES)
+def test_recurrent_and_frames_built_tree_counts(arch):
+    """The built tree at reduced size: hubert's `frame_proj` in place of the
+    embedding; a mixer and a norm a layer for mamba and mLSTM; zamba2's one
+    `shared_attn` block (attention and a dense MLP) beside its layers; the
+    vocabulary padded.  The config's own count leaves out the norms and the
+    padding, and counts the shared block once."""
+    cfg = configs.get_config(arch, reduced=True)
+    params, specs = init_params(cfg, 0, device="cpu")
+    d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    attn = d * cfg.num_heads * dh * 2 + 2 * d * cfg.num_kv_heads * dh
+    if cfg.block_pattern == "attn":
+        per_layer = attn + 3 * d * f + 2 * d
+    else:
+        per_layer = _mixer_count(cfg) + d
+    front = d * d if cfg.frontend == "frames" else cfg.vocab_padded * d
+    shared = attn + 3 * d * f + 2 * d if cfg.shared_attn_every else 0
+    want = (cfg.num_layers * per_layer + front + d
+            + (0 if cfg.tie_embeddings else d * cfg.vocab_padded) + shared)
+    assert count_params(params) == want
+    assert set(specs) == set(params)
+    assert ("frame_proj" in params) == (cfg.frontend == "frames") \
+        == ("embed" not in params)
+    assert ("shared_attn" in params) == (cfg.shared_attn_every > 0)
+    assert specs["blocks"].get("ln", ("layers", "norm")) == ("layers", "norm")
+
+
+def _serving_calls(cfg, params):
+    toks = torch.zeros((1, 8), dtype=torch.int64)
+    return {
+        "prefill": lambda: prefill(params, cfg, toks, 16),
+        "decode_step": lambda: decode_step(params, cfg, {}, toks[:, :1]),
+        "init_cache": lambda: init_cache(params, cfg, 1, 16),
+        "forward collect_cache": lambda: forward(params, cfg, toks,
+                                                 collect_cache=True),
+        "make_prefill_step": lambda: make_prefill_step(cfg, 16),
+        "make_decode_step": lambda: make_decode_step(cfg)}
+
+
+@pytest.mark.parametrize("entry", ["prefill", "decode_step", "init_cache",
+                                   "forward collect_cache",
+                                   "make_prefill_step", "make_decode_step"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_serving_entries_wait_for_prefill_decode(arch, entry):
+    """Every config builds; the serving entries raise NotImplementedError
+    naming ROADMAP.md's prefill/decode entry."""
+    cfg = configs.get_config(arch, reduced=True)
+    params, _ = init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md queue 1, item 2 .*prefill/decode"):
+        _serving_calls(cfg, params)[entry]()

@@ -10,7 +10,10 @@ Tolerances, relative to each leaf's largest entry: SGD-momentum params
 after three steps 1e-5, losses 1e-5 (float32; measured about 1e-6).
 AdamW amplifies sign noise in near-zero gradients (after step 1,
 mhat / sqrt(vhat) is +-1), so it is held by its losses, 1e-4 over five
-steps.  bfloat16 gradients: 1e-2.
+steps.  bfloat16 gradients: 1e-2.  zamba2's `a_log` momentum after a
+step (its gradient) 5e-5: that gradient sums terms of both signs over the
+sequence, and each package's float32 value lies about 2.7e-5 from a
+float64 run (tests/test_torch_lm_ssm.py).
 """
 import dataclasses
 import os
@@ -47,6 +50,7 @@ from repro_torch.training import (TrainConfig, init_train_state,
 ARCH = "tiny-lm"
 TOL_SGDM = 1e-5
 TOL_ADAMW_LOSS = 1e-4
+TOL_A_LOG = 5e-5
 
 
 def _close(got, want, tol, what=""):
@@ -65,11 +69,11 @@ def _setup(opt_kw, seed=0, arch=ARCH, **cfg_changes):
     return jcfg, tcfg, jp, tp, jo, to
 
 
-def _batches(steps, seq=32, batch=8, vocab=256):
+def _batches(steps, seq=32, batch=8, vocab=256, **data):
     """The reference pipeline's batches as numpy (threefry bits cannot be
-    drawn in the port)."""
+    drawn in the port); `data` passes a frames frontend and its width."""
     dcfg = JDataConfig(vocab_size=vocab, seq_len=seq, global_batch=batch,
-                       seed=1)
+                       seed=1, **data)
     return [{k: np.asarray(v) for k, v in jsynth_tokens(dcfg, s).items()}
             for s in range(steps)]
 
@@ -138,6 +142,32 @@ def test_moe_and_mla_sgdm_steps_match_reference(arch):
             _close(v, mu_want[k], TOL_SGDM, f"mu/{k}")
     assert any(k.startswith("blocks/moe/") for k in want) == tcfg.is_moe
     assert int(ts.step) == 3
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "zamba2-1.2b",
+                                  "xlstm-1.3b"])
+def test_recurrent_and_frames_sgdm_step_matches_reference(arch):
+    """One SGD-momentum step of the reduced frames encoder, mamba stack
+    with shared attention, and mLSTM stack at float32, on the reference
+    pipeline's batch (frames for hubert, with their frame labels): the
+    loss, params and momentum against the reference's step."""
+    jcfg, tcfg, jp, tp, jo, to = _setup(SGDM, seed=6, arch=arch,
+                                       dtype="float32")
+    data = ({"frontend": "frames", "d_model": jcfg.d_model}
+            if jcfg.frontend == "frames" else {})
+    (jp, js, jl), (tp, ts, tl) = _run_both(
+        jax.jit(jmake_train_step(jcfg, jo)), make_train_step(tcfg, to),
+        jp, tp, jinit_opt_state(jo, jp), init_opt_state(to, tp),
+        _batches(1, vocab=jcfg.vocab_size, **data))
+    np.testing.assert_allclose(tl, jl, rtol=TOL_SGDM)
+    want, got = jax_state_leaves(jp), convert.lm_params_to_numpy(tp)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        _close(got[k], want[k], TOL_SGDM, k)
+    mu_want = jax_state_leaves(js.mu)
+    for k, v in convert.lm_params_to_numpy(ts.mu).items():
+        _close(v, mu_want[k], TOL_A_LOG if k.endswith("a_log") else TOL_SGDM,
+               f"mu/{k}")
 
 
 def test_microbatched_step_matches_reference():
@@ -259,6 +289,22 @@ def test_moe_launcher_resumes_bit_for_bit(tmp_path):
     assert resumed["start"] == 4 and resumed["steps"] == [4, 5]
     assert resumed["losses"] == first["losses"][4:]
     assert first["losses"][-1] < first["losses"][0]
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "zamba2-1.2b",
+                                  "xlstm-1.3b"])
+def test_launcher_trains_recurrent_and_frames(arch):
+    """`launch.train.run --arch A --reduced --device cpu` trains the frames
+    encoder (frame batches from the pipeline), the mamba stack with shared
+    attention and the mLSTM stack: six AdamW steps, finite losses that
+    fall."""
+    out = train.run(train.parse_args([
+        "--arch", arch, "--reduced", "--steps", "6", "--seq-len", "32",
+        "--global-batch", "4", "--lr", "3e-3", "--warmup", "1",
+        "--log-every", "1", "--device", "cpu"]))
+    assert out["steps"] == list(range(6))
+    assert np.all(np.isfinite(out["losses"]))
+    assert out["losses"][-1] < out["losses"][0]
 
 
 def test_train_sigterm_checkpoints_and_exits_3(tmp_path, monkeypatch):
