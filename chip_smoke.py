@@ -344,15 +344,37 @@ the card's loss of the same sequence):
                fires after layers 5 and 11), 8 x 512 tokens (two chunks).
  19. lm_mlstm  — xlstm-1.3b (d_model 2048, 4 heads of 512, pf 1.0, chunk
                256, vocab 50304), 2 of 48 layers, 8 x 512 tokens.
+ 20. lm_serve  — the serving path at full width (`lm_serve_path`,
+               SERVE_PARTS): gemma3-4b at 6 of 34 layers (5 local of
+               window 1024, 1 global; batch 2, prompt 1024, 1024 float32
+               decode steps, 64 timed bfloat16), granite-moe-3b-a800m and
+               minicpm3-4b at 2 layers, zamba2-1.2b at 12, xlstm-1.3b at 2
+               (batch 8, prompt 512, 32 steps), float32 masters from
+               `init_params`, MoE dropless (`dropless`).  (a) float32:
+               prefill, then
+               teacher-forced decode steps, each logit row held to the
+               card's full forward at its position and the cache after
+               the steps to a prefill over all the tokens (TOL_SERVE; the
+               recurrent states TOL_RECURRENCE, the mLSTM's C and n up to
+               e^m); a token whose routing differs between the two forms
+               is named and its row held only before it.  (b) the
+               config's own dtype, timed: prefill ms, decode ms (median
+               after 2 warm-up steps), tokens a second, cache bytes, peak
+               memory above the base, the argmax agreement with the same
+               dtype's forward, every logit finite, and the weight bytes a
+               step reads beside their time at the memory rate; one more
+               step under `set_sync_debug_mode("error")`.  No hand-written
+               kernel launched.
 Then one AdamW step each of the lm phase, of lm_moe's and of lm_mamba's
 profiled (`lm_step_profile`: device kernels, span, busy, host ms, device
-ms by kind of kernel and the top 15 kernels).  Then the
+ms by kind of kernel and the top 15 kernels), and one decode step each of
+lm_serve's gemma3 and zamba2 (`serve_step_profile`).  Then the
 `{"kernels": [...]}` line (seven kernels: L X = I and the general solve,
 two C entries of `csrc/trsv.cu`, count apart; launches per path: main,
 mixed, append, engine, engine_mixed, pool, pool_mixed, neural,
 neural_mixed, fantasy, fantasy_mixed, gateway, federation,
 federation_workers, lm, nn_hpo, lm_moe, lm_mla, lm_frames, lm_mamba,
-lm_mlstm), the nvidia-smi line and, last,
+lm_mlstm, lm_serve), the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
@@ -5923,6 +5945,343 @@ def recurrence_check(dev) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# Phase `lm_serve`: the serving path (`init_cache`, `prefill`, `decode_step`)
+# of five families at full width, depth the only cut.  No hand-written
+# kernel is on it: no function of the reference's serving path reaches
+# `pl.pallas_call`.
+# ---------------------------------------------------------------------------
+
+# (part, arch, layers, batch, prompt P, float32 decode steps, bfloat16 timed
+# decode steps).  gemma3 at 6 of 34 layers is the least depth with both a
+# local (window 1024) and a global layer; P = 1024 prefills within the
+# window, every decode step is past it, and its forward over P + 1024 =
+# 2048 takes the banded path, which needs a multiple of 1024 tokens.
+# granite-moe, minicpm3, zamba2 and xlstm at the wide phases' depths:
+# zamba2's decode carries on across two SSD chunks and two shared-KV slots
+# (after layers 5 and 11), xlstm's from two mLSTM chunks.
+SERVE_PARTS = (("gemma3", "gemma3-4b", 6, 2, 1024, 1024, 64),
+               ("granite_moe", "granite-moe-3b-a800m", 2, 8, 512, 32, 32),
+               ("minicpm3", "minicpm3-4b", 2, 8, 512, 32, 32),
+               ("zamba2", "zamba2-1.2b", 12, 8, 512, 32, 32),
+               ("xlstm", "xlstm-1.3b", 2, 8, 512, 32, 32))
+SERVE_WARMUP = 2          # bfloat16 decode steps before the timed ones
+SERVE_SEED = 0
+SERVE_PROFILED = ("gemma3", "zamba2")   # one decode step each, profiled
+TOL_SERVE = 1e-4          # max |decode - forward| / max |forward| of the
+#   float32 logits (the prefill's at P - 1, each step's at its position),
+#   and of the K/V and MLA latents of the cache after the steps against a
+#   prefill over all P + K tokens: tests/test_models.py:55-83's 1e-4
+#   (atol and rtol), made relative.  The recurrent states are held to
+#   TOL_RECURRENCE (the mLSTM's up to its stabilizer's gauge, C e^m).
+
+
+def dropless(cfg):
+    """`cfg` with each expert's capacity a whole row (capacity factor E /
+    top_k), so no token is dropped whatever the routing; unchanged without
+    experts.  A decode step never drops (capacity 1 at one token a row),
+    and a dropped token changes the hidden state it leaves, so the forward
+    a decode step is held to must not drop either.  The reference test's
+    4.0 is dropless at the reduced configs, but gives granite-moe's 40
+    experts at top 8 0.8 of a row: in this phase's first call, one row's
+    hot expert took more than that in layer 0, and the forward over 544
+    tokens (capacity 440) kept tokens the prefill over 512 (capacity 416)
+    dropped."""
+    if not cfg.is_moe:
+        return cfg
+    return dataclasses.replace(cfg,
+                               capacity_factor=cfg.num_experts / cfg.top_k)
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Record each `moe.router_top_k` call's expert choices (sorted per
+    token) while active: one (B, S, k) tensor per MoE layer a forward."""
+    from repro_torch.models import moe
+    orig, log = moe.router_top_k, []
+
+    def record(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        log.append(out[2].sort(dim=-1).values)
+        return out
+
+    moe.router_top_k = record
+    try:
+        yield log
+    finally:
+        moe.router_top_k = orig
+
+
+def routing_flips(full: list, served: list, layers: int) -> list:
+    """(row, position, layer) of every token whose top-k experts differ
+    between the full forward (`full`: one (B, P + K, k) per layer) and the
+    served path (`served`: the prefill's (B, P, k) per layer, then each
+    decode step's (B, 1, k) per layer)."""
+    flips = []
+    for layer in range(len(full)):
+        mine = torch.cat(served[layer::layers], dim=1)
+        differ = (mine != full[layer]).any(dim=-1).nonzero().tolist()
+        flips += [{"row": r, "position": p, "layer": layer}
+                  for r, p in differ]
+    return flips
+
+
+def serve_cache_errors(got: dict, want: dict, rows) -> dict:
+    """Each cache leaf of `got` against `want`'s over the batch `rows`,
+    relative to `want`'s largest entry there (batch axis 1 in every leaf);
+    the mLSTM's c and n scaled by e^m first (the stabilizer's gauge)."""
+    from repro_torch.checkpoint.store import _flatten_with_paths
+
+    def leaves(cache):
+        tree = {k: v for k, v in cache.items() if k != "pos"}
+        if "mlstm" in tree:
+            st = dict(tree["mlstm"])
+            em = torch.exp(st.pop("m"))
+            tree["mlstm"] = {"conv": st["conv"],
+                             "c_e^m": st["c"] * em[..., None, None],
+                             "n_e^m": st["n"] * em[..., None]}
+        names, vals, _ = _flatten_with_paths(tree)
+        return dict(zip(names, vals))
+
+    a, b = leaves(got), leaves(want)
+    return {k: float((a[k][:, rows].float() - b[k][:, rows].float()).abs()
+                     .max() / b[k][:, rows].float().abs().max().clamp_min(
+                         1e-30)) for k in b}
+
+
+def serve_float32(params, cfg, toks, prompt: int, steps: int) -> dict:
+    """Run (a), float32 activations (MoE dropless, `dropless`): prefill
+    `prompt` tokens and `steps` teacher-forced decode steps, each logit row
+    held to the card's full forward over prompt + steps at its position,
+    and the cache after the steps to a prefill over all of them.  A token
+    whose routing differs between the two forms (a near tie) is named, and
+    its row is held only before it."""
+    from repro_torch.models import (decode_step, forward,
+                                    logits_from_hidden, prefill)
+    b, total = toks.shape[0], prompt + steps
+    with torch.no_grad(), routing_log() as log:
+        x, _, _ = forward(params, cfg, toks[:, :total])
+        full = list(log)
+        log.clear()
+        errs = torch.zeros((b, steps + 1), device=toks.device)
+        scale = torch.zeros((steps + 1,), device=toks.device)
+
+        def hold(j, got):
+            ref = logits_from_hidden(params, cfg,
+                                     x[:, prompt - 1 + j:prompt + j])
+            errs[:, j] = (got - ref).abs().amax(dim=(1, 2))
+            scale[j] = ref.abs().amax()
+
+        logits, cache = prefill(params, cfg, toks[:, :prompt], total)
+        hold(0, logits)
+        for i in range(prompt, total):
+            logits, cache = decode_step(params, cfg, cache,
+                                        toks[:, i:i + 1])
+            hold(i - prompt + 1, logits)
+        served = list(log)
+        log.clear()
+        _, whole = prefill(params, cfg, toks[:, :total], total)
+    flips = routing_flips(full, served, cfg.num_layers)
+    first = {r: total for r in range(b)}
+    for f in flips:
+        first[f["row"]] = min(first[f["row"]], f["position"])
+    held = torch.tensor([[prompt - 1 + j < first[r] for j in range(steps + 1)]
+                         for r in range(b)], device=toks.device)
+    rows = [r for r in range(b) if first[r] == total]
+    if not rows or not bool(held.any()):
+        raise AssertionError(f"lm_serve: every row has a routing flip: "
+                             f"{flips[:8]}")
+    rel = float(errs[held].max() / scale.max())
+    prefill_rel = float(errs[:, 0][held[:, 0]].max() / scale[0]) \
+        if bool(held[:, 0].any()) else None
+    return {"logits_rel": rel, "prefill_rel": prefill_rel,
+            "logits_scale": float(scale.max()), "held_positions":
+            int(held.sum()), "routing_flips": flips[:16],
+            "routing_flip_count": len(flips),
+            "cache_rows": rows,
+            "cache_rel": serve_cache_errors(cache, whole, rows)}
+
+
+def serve_bfloat16(params, cfg, toks, prompt: int, steps: int) -> dict:
+    """Run (b), the config's own dtype as served (MoE dropless, as run
+    (a)): a prefill of `prompt` tokens (after one untimed prefill),
+    SERVE_WARMUP + `steps` decode steps, each timed on the host clock
+    around a synchronize, then one more under
+    `torch.cuda.set_sync_debug_mode("error")`: a device read in a step (an
+    .item(), a boolean-mask index, a blocking copy) raises.  Printed:
+    prefill ms, the median step ms of the `steps` after the warm-up,
+    tokens a second, the cache's bytes, the peak memory above the base
+    (the weights and earlier parts' leftovers), every logit finite, and
+    the share of positions whose argmax over the real vocabulary agrees
+    with the same dtype's full forward."""
+    from repro_torch.models import (decode_step, forward,
+                                    logits_from_hidden, prefill)
+    from repro_torch.models.common import tree_leaves
+    b = toks.shape[0]
+    total = prompt + SERVE_WARMUP + steps
+    max_len = total + 1                 # room for the sync-free step
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        prefill(params, cfg, toks[:, :prompt], max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, toks[:, :prompt], max_len)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        picks, finite = [logits[:, 0, :cfg.vocab_size].argmax(-1)], \
+            [torch.isfinite(logits).all()]
+        step_ms = []
+        for i in range(prompt, total):
+            t0 = time.perf_counter()
+            logits, cache = decode_step(params, cfg, cache,
+                                        toks[:, i:i + 1])
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            picks.append(logits[:, 0, :cfg.vocab_size].argmax(-1))
+            finite.append(torch.isfinite(logits).all())
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decode_step(params, cfg, cache, toks[:, total - 1:total])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        cache_bytes = sum(v.numel() * v.element_size()
+                          for v in tree_leaves(cache)
+                          if isinstance(v, torch.Tensor))
+        x, _, _ = forward(params, cfg, toks)
+        want = [logits_from_hidden(params, cfg, x[:, p:p + 1])
+                [:, 0, :cfg.vocab_size].argmax(-1)
+                for p in range(prompt - 1, total)]
+    agree = torch.stack(picks) == torch.stack(want)
+    median = float(np.median(step_ms[SERVE_WARMUP:]))
+    return {"prefill_ms": prefill_ms,
+            "decode_ms": {"median": median,
+                          "min": min(step_ms[SERVE_WARMUP:]),
+                          "max": max(step_ms[SERVE_WARMUP:]),
+                          "warmup": step_ms[:SERVE_WARMUP]},
+            "decode_tokens_per_s": b * 1e3 / median,
+            "cache_bytes": cache_bytes, "cache_max_len": max_len,
+            "sync_free_step": True,
+            "peak_above_base_bytes": peak, "memory_base_bytes": base,
+            "argmax_agree": float(agree.float().mean()),
+            "argmax_positions": int(agree.numel()),
+            "finite": bool(torch.stack(finite).all())}
+
+
+def step_weight_bytes(params, cfg, batch: int) -> int:
+    """Bytes of the float32 masters one decode step must read: every leaf
+    once, but the embedding's `batch` gathered rows only (unless tied: then
+    the head reads the whole table) and the expert tables' rows of real
+    experts only (the padded ones never receive a token)."""
+    from repro_torch.models.common import tree_leaves
+    total = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    if "embed" in params and not cfg.tie_embeddings:
+        emb = params["embed"]
+        total -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
+    for name in ("wi", "wg", "wo") if cfg.is_moe else ():
+        table = params["blocks"]["moe"][name]        # (L, E_pad, ., .)
+        unused = table.shape[1] - cfg.num_experts
+        total -= table[:, :unused].numel() * table.element_size()
+    return total
+
+
+def lm_serve_path(dev) -> tuple[dict, dict, dict]:
+    """Phase `lm_serve`: each of SERVE_PARTS at full width and its cut
+    depth, float32 masters from `init_params` on the card, run twice, MoE
+    dropless (`dropless`): (a) in float32, held to the card's own full
+    forward and to a prefill over all the tokens (`serve_float32`); (b) in
+    the config's own dtype, timed (`serve_bfloat16`), beside the weight
+    bytes a step reads and the time they take at the memory rate.  Each
+    part's weights are freed before the next, but those of SERVE_PROFILED,
+    which the step profiles after the timed phases read.  Returns
+    (launches, line, {part: (params, config, tokens, prompt)} of
+    SERVE_PROFILED)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.common import count_params
+    t_phase = time.perf_counter()
+    reset_counts()
+    parts, kept = {}, {}
+    for part, arch, layers, batch, prompt, steps_a, steps_b in SERVE_PARTS:
+        own = dropless(wide_config(arch, layers))
+        cfg_a = dataclasses.replace(own, dtype="float32")
+        t0 = time.perf_counter()
+        params, _ = init_params(own, SERVE_SEED, device=dev)
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SERVE_SEED)
+        total = prompt + max(steps_a, SERVE_WARMUP + steps_b)
+        toks = torch.randint(0, own.vocab_size, (batch, total),
+                             generator=gen, device=dev)
+        t0 = time.perf_counter()
+        run_a = serve_float32(params, cfg_a, toks, prompt, steps_a)
+        run_a["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_b = serve_bfloat16(params, own, toks, prompt, steps_b)
+        run_b["seconds"] = time.perf_counter() - t0
+        weight_bytes = step_weight_bytes(params, own, batch)
+        run_b["weight_bytes"] = weight_bytes
+        run_b["weight_bound_ms"] = 1e3 * weight_bytes / PEAK_BYTES_PER_S
+        worst_kv = max((v for k, v in run_a["cache_rel"].items()
+                        if not k.startswith(("mamba/", "mlstm/"))),
+                       default=0.0)
+        worst_state = max((v for k, v in run_a["cache_rel"].items()
+                           if k.startswith(("mamba/", "mlstm/"))),
+                          default=0.0)
+        parts[part] = {
+            "arch": arch, "layers": [own.num_layers,
+                                     get_config(arch).num_layers],
+            "batch": batch, "prompt": prompt,
+            "capacity_factor": own.capacity_factor if own.is_moe else None,
+            "decode_steps": {"float32": steps_a,
+                             own.dtype: SERVE_WARMUP + steps_b},
+            "n_params": count_params(params), "init_s": init_s,
+            "float32": run_a, own.dtype: run_b}
+        if not (run_a["logits_rel"] <= TOL_SERVE
+                and worst_kv <= TOL_SERVE
+                and worst_state <= TOL_RECURRENCE):
+            raise AssertionError(f"lm_serve {part}: float32 serving against "
+                                 f"the forward: {run_a}")
+        if not run_b["finite"]:
+            raise AssertionError(f"lm_serve {part}: non-finite logits in "
+                                 f"{own.dtype}")
+        if part in SERVE_PROFILED:
+            kept[part] = (params, own, toks, prompt)
+        del params
+        torch.cuda.empty_cache()
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"lm_serve: hand-written kernels launched: "
+                             f"{launches}")
+    line = {"phase": "lm_serve", "nvidia_smi": nvidia_smi_line(),
+            "tol": {"logits_kv": TOL_SERVE, "states": TOL_RECURRENCE},
+            "warmup_steps": SERVE_WARMUP, "seed": SERVE_SEED,
+            "parts": parts, "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    return launches, line, kept
+
+
+def serve_step_profile(part: str, params, cfg, toks, prompt: int) -> dict:
+    """One decode step of a kept part under torch.profiler (after every
+    timed phase): device kernels, span, busy and idle ms, by kind, top 10,
+    from a fresh prefill with room for the profiled steps."""
+    from repro_torch.models import decode_step, prefill
+    with torch.no_grad():
+        _, cache = prefill(params, cfg, toks[:, :prompt], prompt + 8)
+        tok = toks[:, prompt:prompt + 1]
+        split = device_split(lambda: decode_step(params, cfg, cache, tok))
+    return {"part": f"lm_serve {part} decode step",
+            "nvidia_smi": nvidia_smi_line(), "span_ms": split["span_ms"],
+            "busy_ms": split["busy_ms"], "idle_ms": split["idle_ms"],
+            "device_kernels": sum(k["count"] for k in split["by_name"]),
+            "by_kind": step_kinds(split["by_name"]),
+            "top": split["by_name"][:10]}
+
+
 SOURCES = {
     "matern52_gram": ("matern", "src/repro_torch/csrc/matern.cu",
                       "src/repro/kernels/matern.py:29"),
@@ -6101,12 +6460,17 @@ def main(argv: list[str] | None = None) -> int:
     for phase, arch, layers, seq in RECURRENT_PHASES:
         launches_by_path[phase], _ = wide_lm_path(
             dev, phase, arch, layers, seq, cpu_rows=RECURRENT_CPU_ROWS)
+    # The serving path at full width, before the profiles.
+    launches_by_path["lm_serve"], _, served = lm_serve_path(dev)
     emit({"phase": "profile", "part": "lm step", **lm_step_profile(dev)})
     emit({"phase": "profile", "part": "lm_moe step",
           **lm_step_profile(dev, wide_config("granite-moe-3b-a800m"))})
     _, arch, layers, seq = RECURRENT_PHASES[1]
     emit({"phase": "profile", "part": "lm_mamba step",
           **lm_step_profile(dev, wide_config(arch, layers), seq)})
+    for part in SERVE_PROFILED:
+        emit({"phase": "profile", **serve_step_profile(part,
+                                                       *served.pop(part))})
     # Device time beside the event time from the kernels phase (the gram's
     # from its 1024^2 call): the difference is the wrapper's host work
     # while the card idles.

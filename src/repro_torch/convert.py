@@ -16,7 +16,9 @@ the names the reference's `StudyPool.checkpoint` writes
 (`dataclasses.asdict` of the state: no leading dots).  A language model's
 parameter tree (`lm_params_*`) and its `OptState` (`opt_state_*`) go under
 the names the reference's store writes for `launch/train.py`'s checkpoint:
-paths joined with "/" (`blocks/attn/wq`, `mu/embed`, `step`).
+paths joined with "/" (`blocks/attn/wq`, `mu/embed`, `step`).  A decode
+cache (`lm_cache_*`) goes under the tree paths of the reference's
+`init_cache` (`k`, `mamba/ssm`, `pos`, ...).
 """
 from __future__ import annotations
 
@@ -201,3 +203,42 @@ def opt_state_from_numpy(leaves: dict[str, np.ndarray],
     tree = lm_params_from_numpy(leaves, device)
     tree["step"] = tree["step"].to(torch.int32)
     return OptState(**{k: tree.get(k) for k in OptState._fields})
+
+
+# The decode cache's float32 leaves (the recurrent carries); every other
+# float leaf is in the activation dtype.
+CACHE_FLOAT32 = ("mamba/ssm", "mlstm/c", "mlstm/n", "mlstm/m")
+
+
+def lm_cache_to_numpy(cache: dict) -> dict[str, np.ndarray]:
+    """A decode cache as numpy arrays under the reference's tree paths;
+    `pos` a 0-d int32 array.  Copies, never views: a decode step writes
+    the cache in place.  bfloat16 leaves widen to float32 (numpy has no
+    bfloat16), exactly."""
+    names, leaves, _ = _flatten_with_paths(
+        {k: v for k, v in cache.items() if k != "pos"})
+    out = {k: v.detach().to("cpu", torch.float32 if v.dtype == torch.bfloat16
+                            else v.dtype, copy=True).numpy()
+           for k, v in zip(names, leaves)}
+    out["pos"] = np.asarray(cache["pos"], np.int32)
+    return out
+
+
+def lm_cache_from_numpy(leaves: dict[str, np.ndarray], cfg,
+                        device: str | torch.device = "cuda") -> dict:
+    """A decode cache for `cfg` on `device` from tree-path leaves: the
+    reference's cache (its bfloat16 arrays included) or
+    `lm_cache_to_numpy`'s.  Each leaf takes the cache's dtype (the
+    activation dtype, float32 for `CACHE_FLOAT32`), bits kept; `pos`
+    becomes a Python int."""
+    dev = resolve_device(device)
+    tree = {}
+    for k, v in leaves.items():
+        if k == "pos":
+            tree[k] = int(np.asarray(v))
+            continue
+        dtype = torch.float32 if k in CACHE_FLOAT32 \
+            else cfg.activation_dtype
+        tree[k] = torch.from_numpy(np.asarray(v).astype(np.float32)).to(
+            device=dev, dtype=dtype)
+    return _unflatten(tree)

@@ -4,8 +4,8 @@ The reference maps the stacked engine's (study x restart) axes onto a
 `jax.sharding.Mesh` (DESIGN.md §8).  The port runs the unsharded case for
 now: `"none"`, and `"auto"` on one device, both give no mesh, the single
 program on one card.  Any spec that needs more than one device raises
-`NotImplementedError` until the mesh itself is ported (ROADMAP queue 1,
-item 1: the study x restart split across CUDA devices).
+`NotImplementedError` until the mesh itself is ported (ROADMAP.md, "the
+study x restart mesh": the study x restart split across CUDA devices).
 """
 from __future__ import annotations
 
@@ -40,5 +40,5 @@ def build(spec: str, n_studies: int, restarts: int, devices: int = 1) -> None:
         return None
     raise NotImplementedError(
         f"mesh {spec!r} over {devices} device(s): the port runs the "
-        f"unsharded engine only (mesh='none'); the study x restart mesh is "
-        f"ROADMAP queue 1, item 1")
+        f"unsharded engine only (mesh='none'); see ROADMAP.md, \"the "
+        f"study x restart mesh\"")

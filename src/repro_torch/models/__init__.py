@@ -1,4 +1,4 @@
-"""Model zoo, every config's train path (counterpart of
+"""Model zoo, every config's train and serving paths (counterpart of
 `repro.models`)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, forward, init_cache,

@@ -1,5 +1,5 @@
-"""Attention variants of the GQA and MLA blocks: full, chunked and banded
-(counterpart of `repro/models/attention.py`).
+"""Attention variants of the GQA and MLA blocks: full, chunked, banded and
+decode (counterpart of `repro/models/attention.py`).
 
 Memory regimes (chosen by `dispatch_attention` from the sequence length):
   * full     — one masked einsum; scores materialize.
@@ -9,20 +9,19 @@ Memory regimes (chosen by `dispatch_attention` from the sequence length):
                saved log-sum-exp, as the reference's custom VJP does.
   * banded   — sliding-window attention through explicit KV window slices;
                exact and O(S * (window + chunk)) compute (gemma3 local layers).
+  * decode   — one-token query against a KV cache (`decode_step`).
 
 GQA never materializes repeated KV heads: Q is reshaped to
 (batch, seq, kv_heads, q_per_kv, ...) and contracted group-wise.  Scores
 and the flash accumulators are float32 whatever the activation dtype (the
 reference's `preferred_element_type=jnp.float32`).  The value width may
 differ from the query/key width (MLA: 96 and 64).  Everything here is plain
-tensor ops; the one-token decode attention is not ported yet.
+tensor ops.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-
-from repro_torch.models.common import not_ported
 
 Tensor = torch.Tensor
 
@@ -248,9 +247,26 @@ def banded_attention(q: Tensor, k: Tensor, v: Tensor, *, window: int,
     return torch.stack(outs, dim=1).reshape(b, s, h, dv)
 
 
-def decode_attention(q, k_cache, v_cache, pos, window=0):
-    """One-token query against a KV cache: not ported yet."""
-    raise not_ported("decode attention", "prefill/decode")
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, pos: int,
+                     window: int = 0) -> Tensor:
+    """q: (B,1,H,dh); caches: (B,S,KV,dh) (the value width may differ);
+    pos: the current write index, a Python int.  Returns (B,1,H,dv).
+
+    Attends to cache positions [0, pos], or with `window` > 0 to the
+    trailing `window` of them, as the reference's mask `kj <= pos` and
+    `kj > pos - window` does.  Only those positions are read: the masked
+    rest would add exact zeros to the softmax.
+    """
+    b, _, h, dh = q.shape
+    if not 0 <= pos < k_cache.shape[1]:
+        raise ValueError(f"decode position {pos} outside the cache's "
+                         f"{k_cache.shape[1]}")
+    lo = max(0, pos - window + 1) if window > 0 else 0
+    k, v = k_cache[:, lo:pos + 1], v_cache[:, lo:pos + 1]
+    qg = _group(q, k.shape[2]) * _scale(dh)
+    probs = torch.softmax(_scores(qg, k), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, 1, h, v.shape[-1])
 
 
 def dispatch_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,

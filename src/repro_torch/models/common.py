@@ -20,14 +20,6 @@ Params = Any
 Specs = Any
 
 
-def not_ported(what: str, entry: str) -> NotImplementedError:
-    """The error a part of the LM side that waits raises: `entry` names its
-    place in ROADMAP.md's queue of the LM side's rest."""
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1, item 2 "
-        f"(the LM side's rest: {entry})")
-
-
 def tree_map(fn: Callable, tree, *rest):
     """`fn` over the leaves of `tree` (and the matching leaves of `rest`):
     dicts, lists and tuples are nodes, None is an empty subtree."""
@@ -79,6 +71,15 @@ def causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     for i in range(width):
         out = out + xp[:, i:i + x.shape[1], :] * w[i]
     return out + b
+
+
+def conv_step(hist: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """The causal conv at one new position (a decode step), from the window
+    of its last W inputs, oldest first: hist (B, W, C); w (W, C); b (C,).
+    The taps sum as the reference's `einsum("bwc,wc->bc", hist, w)`: in
+    float32, rounded once to hist's dtype; then the bias is added."""
+    return torch.einsum("bwc,wc->bc", hist.float(), w.float()).to(
+        hist.dtype) + b
 
 
 def truncated_normal(gen: torch.Generator, shape: Sequence[int]) -> Tensor:

@@ -1,5 +1,5 @@
-"""Model assembly: blocks, the layer stack, the LM head and the loss
-(counterpart of `repro/models/model.py`, train path).
+"""Model assembly: blocks, the layer stack, the LM head, the loss and the
+serving paths (counterpart of `repro/models/model.py`).
 
 Params keep the reference's tree: `blocks` holds every layer's leaves
 stacked on a leading layer axis (`blocks/attn/wq` is (L, d, H * dh)), beside
@@ -27,9 +27,16 @@ gradients of its applications add up in its one leaf.  A frames frontend
 (hubert) projects the input frames with `frame_proj` and adds sinusoidal
 positions; its attention is bidirectional.
 
-The serving paths (`prefill`, `decode_step`, `init_cache`, the KV cache of
-a forward, MLA's latent decode) are not ported yet: they raise
-`NotImplementedError` naming their ROADMAP.md entry.
+Serving: `forward(..., collect_cache=True)` also returns each layer's
+cache part (K/V, MLA's latent pair, a recurrent block's decode state,
+the shared block's K/V), stacked on a leading layer axis; `prefill` lays
+them into a preallocated cache (`init_cache`, the reference's keys,
+shapes and dtypes) and `decode_step` runs one token through every layer,
+writing the new position's K/V (or latents) and the recurrent states
+into that cache in place.  The cache's `pos` is a Python int, so a step
+reads no device value back: the windows and zamba2's shared slots are
+Python ints too.  MLA decodes in the latent space with W_uk folded into
+the query (`_mla_decode`).
 """
 from __future__ import annotations
 
@@ -46,10 +53,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (apply_rope, cast_tree, init_dense,
-                                       init_embed, init_scale, not_ported,
-                                       rms_norm, sinusoidal_positions,
-                                       split_tree, stack_layer_params,
-                                       stacked_specs, tree_map)
+                                       init_embed, init_scale, rms_norm,
+                                       sinusoidal_positions, split_tree,
+                                       stack_layer_params, stacked_specs,
+                                       tree_map)
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -244,9 +251,9 @@ def attn_block_forward(p, cfg: ModelConfig, x: Tensor, window: int,
 
 
 def _mla_forward(p, cfg: ModelConfig, xn: Tensor, positions: Tensor):
-    """MLA train path: per-head keys and values materialized from the
-    latent; returns (out, (c_kv, k_rope)), the latent pair a decode cache
-    would hold."""
+    """MLA train / prefill path: per-head keys and values materialized
+    from the latent; returns (out, (c_kv, k_rope)), the latent pair the
+    decode cache holds."""
     b, s, _ = xn.shape
     h = cfg.num_heads
     nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -284,43 +291,54 @@ def mlp_forward(p, cfg: ModelConfig, x: Tensor):
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (train)
+# Full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _shared_block(cfg: ModelConfig, positions: Tensor, x: Tensor, shared_p):
     """zamba2's shared attention block: attention then the dense MLP, with
-    the one parameter set every application uses."""
+    the one parameter set every application uses.  Returns (x, (k, v))."""
     sp = cast_tree(shared_p, cfg.activation_dtype)
-    x, _ = attn_block_forward(sp, cfg, x, 0, positions)
+    x, kv = attn_block_forward(sp, cfg, x, 0, positions)
     x, _ = mlp_forward(sp, cfg, x)
-    return x
+    return x, kv
 
 
 def _block(cfg: ModelConfig, kind: str, window: int, shared_slot: int,
-           positions: Tensor, x: Tensor, layer_p, shared_p):
+           collect: bool, positions: Tensor, x: Tensor, layer_p, shared_p):
     """One layer's body: its block, then the shared block where it fires.
-    Returns (x, aux)."""
+    Returns (x, aux, part): with `collect` the layer's cache part (its
+    block's state, the shared block's (k, v) or None), else None."""
     layer_p = cast_tree(layer_p, cfg.activation_dtype)
     if kind == "attn":
-        x, _ = attn_block_forward(layer_p, cfg, x, window, positions)
+        x, state = attn_block_forward(layer_p, cfg, x, window, positions)
         x, aux = mlp_forward(layer_p, cfg, x)
     else:
         mixer = ssm_mod.mamba_block if kind == "mamba" \
             else xlstm_mod.mlstm_block
         xn = rms_norm(x, layer_p["ln"], cfg.norm_eps)
-        x = x + mixer(layer_p["mixer"], xn, cfg)
+        if collect:
+            y, state = mixer(layer_p["mixer"], xn, cfg, return_state=True)
+        else:
+            y, state = mixer(layer_p["mixer"], xn, cfg), None
+        x = x + y
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    skv = None
     if shared_slot > 0:
-        x = _shared_block(cfg, positions, x, shared_p)
-    return x, aux
+        x, skv = _shared_block(cfg, positions, x, shared_p)
+    return x, aux, ((state, skv) if collect else None)
 
 
 def forward(params, cfg: ModelConfig, tokens: Tensor,
             collect_cache: bool = False):
     """tokens: (B, S) integer ids, or (B, S, D) frames for
-    `frontend="frames"`.  Returns (hidden (B,S,D), aux_loss, None)."""
-    if collect_cache:
-        raise not_ported("the KV cache of a forward", "prefill/decode")
+    `frontend="frames"`.  Returns (hidden (B,S,D), aux_loss, cache parts
+    or None).
+
+    With `collect_cache` the cache parts are (states, shared_kv), each
+    stacked on a leading layer axis: states are (k, v) for GQA, (c_kv,
+    k_rope) for MLA, or a recurrent block's decode-state dict; shared_kv
+    is zamba2's shared block's (k, v) where it fires and zeros elsewhere,
+    or None without a shared block."""
     act = cfg.activation_dtype
     if cfg.frontend == "frames":
         x = tokens.to(act) @ params["frame_proj"].to(act)
@@ -336,18 +354,32 @@ def forward(params, cfg: ModelConfig, tokens: Tensor,
     # One unbind per stacked leaf: its backward builds one stack, where an
     # index per layer would add L full-size zero-filled gradients.
     unbound = tree_map(lambda a: a.unbind(0), params["blocks"])
+    parts = []
     for i, (window, slot) in enumerate(zip(layer_windows(cfg),
                                            shared_slots(cfg))):
         layer_p = tree_map(lambda _, u: u[i], params["blocks"], unbound)
-        body = functools.partial(_block, cfg, kind, window, slot, positions)
+        body = functools.partial(_block, cfg, kind, window, slot,
+                                 collect_cache, positions)
         if cfg.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(body, x, layer_p, shared_p,
-                                use_reentrant=False)
+            x, aux, part = checkpoint(body, x, layer_p, shared_p,
+                                      use_reentrant=False)
         else:
-            x, aux = body(x, layer_p, shared_p)
+            x, aux, part = body(x, layer_p, shared_p)
         aux_total = aux_total + aux
+        parts.append(part)
     x = rms_norm(x, params["final_norm"].to(act), cfg.norm_eps)
-    return x, aux_total, None
+    if not collect_cache:
+        return x, aux_total, None
+    states = tree_map(lambda *xs: torch.stack(xs, dim=0),
+                      *(state for state, _ in parts))
+    shared_kv = None
+    if shared_p is not None:
+        zero = torch.zeros((b, s, cfg.num_kv_heads, cfg.head_dim_),
+                           dtype=act, device=x.device)
+        shared_kv = tuple(torch.stack([zero if skv is None else skv[j]
+                                       for _, skv in parts], dim=0)
+                          for j in range(2))
+    return x, aux_total, (states, shared_kv)
 
 
 def logits_from_hidden(params, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -384,16 +416,175 @@ def lm_loss(params, cfg: ModelConfig, batch) -> tuple[Tensor, dict]:
 
 
 # ---------------------------------------------------------------------------
-# Serving: not ported yet (ROADMAP.md queue 1, item 2, prefill/decode)
+# Serving: prefill + decode
 # ---------------------------------------------------------------------------
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int):
-    raise not_ported("the decode cache", "prefill/decode")
+    """The decode cache, zero, on the params' device: `pos` (a Python int,
+    0), then by block kind `k` / `v` (L, B, max_len, KV, dh), MLA's `c_kv`
+    (L, B, max_len, kv_lora_rank) and `k_rope` (L, B, max_len, rope dim),
+    or the `mamba` / `mlstm` decode state stacked on L (every leaf zero,
+    the mLSTM's m too, as the reference stacks it); zamba2's `shared_k` /
+    `shared_v` (applications, B, max_len, KV, dh).  Activations in the
+    config's dtype, the recurrent carries in float32."""
+    act = cfg.activation_dtype
+    kind = block_kind(cfg)
+    nl = cfg.num_layers
+    dev = params["final_norm"].device
+    zeros = functools.partial(torch.zeros, dtype=act, device=dev)
+    kv, dh = cfg.num_kv_heads, cfg.head_dim_
+    cache: dict = {"pos": 0}
+    if kind == "attn":
+        if cfg.attention == "mla":
+            cache["c_kv"] = zeros((nl, batch, max_len, cfg.kv_lora_rank))
+            cache["k_rope"] = zeros((nl, batch, max_len, cfg.qk_rope_dim))
+        else:
+            cache["k"] = zeros((nl, batch, max_len, kv, dh))
+            cache["v"] = zeros((nl, batch, max_len, kv, dh))
+    else:
+        init = ssm_mod.mamba_init_state if kind == "mamba" \
+            else xlstm_mod.mlstm_init_state
+        mixer0 = tree_map(lambda a: a[0], params["blocks"]["mixer"])
+        one = init(mixer0, batch, cfg, cfg.d_model, act)
+        cache[kind] = tree_map(
+            lambda z: torch.zeros((nl,) + tuple(z.shape), dtype=z.dtype,
+                                  device=dev), one)
+    napps = num_shared_apps(cfg)
+    if napps > 0:
+        cache["shared_k"] = zeros((napps, batch, max_len, kv, dh))
+        cache["shared_v"] = zeros((napps, batch, max_len, kv, dh))
+    return cache
 
 
 def prefill(params, cfg: ModelConfig, tokens: Tensor, max_len: int):
-    raise not_ported("prefill", "prefill/decode")
+    """Process the prompt; returns (last-position logits (B, 1, V), cache).
+
+    The cache's parts fall out of the forward (`collect_cache`): K/V or
+    MLA's latents at positions [0, S), the recurrent stacks' final
+    states, and zamba2's shared K/V in slots 0..apps-1, in the order of
+    the layers where the block fires."""
+    b, s = tokens.shape[:2]
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens past max_len {max_len}")
+    x, _, (states, shared_kv) = forward(params, cfg, tokens,
+                                        collect_cache=True)
+    logits = logits_from_hidden(params, cfg, x[:, -1:, :])
+    cache = init_cache(params, cfg, b, max_len)
+    cache["pos"] = s
+    kind = block_kind(cfg)
+    if kind == "attn":
+        names = ("c_kv", "k_rope") if cfg.attention == "mla" else ("k", "v")
+        for name, part in zip(names, states):
+            cache[name][:, :, :s] = part
+    else:
+        cache[kind] = states
+    if shared_kv is not None:
+        fired = [i for i, slot in enumerate(shared_slots(cfg)) if slot > 0]
+        for name, part in zip(("shared_k", "shared_v"), shared_kv):
+            cache[name][:, :, :s] = part[fired]
+    return logits, cache
+
+
+def _gqa_decode(p, cfg: ModelConfig, x: Tensor, k_c: Tensor, v_c: Tensor,
+                pos: int, positions: Tensor, window: int) -> Tensor:
+    """A GQA attention sublayer at one token: the new K/V written into the
+    layer's cache (B, max_len, KV, dh) at `pos`, in place."""
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k1, v1 = _gqa_qkv(p["attn"], cfg, xn, positions)
+    k_c[:, pos] = k1[:, 0]
+    v_c[:, pos] = v1[:, 0]
+    out = attn_mod.decode_attention(q, k_c, v_c, pos, window=window)
+    out = out.reshape(x.shape[0], 1, cfg.num_heads * cfg.head_dim_)
+    return x + out @ p["attn"]["wo"]
+
+
+def _mla_decode(p, cfg: ModelConfig, x: Tensor, ckv_c: Tensor,
+                krope_c: Tensor, pos: int, positions: Tensor) -> Tensor:
+    """Absorbed-projection MLA decode: attention in the latent space.  The
+    new latents are written into the layer's cache, (B, max_len, r) and
+    (B, max_len, rope dim), at `pos`, in place; W_uk is folded into the
+    query, the float32 scores divided by sqrt(nope + rope), the latent
+    output taken through W_uv, then wo."""
+    b = x.shape[0]
+    h = cfg.num_heads
+    nope, rdim = cfg.qk_nope_dim, cfg.qk_rope_dim
+    r = cfg.kv_lora_rank
+    ap = p["attn"]
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+
+    cq = rms_norm(xn @ ap["wdq"], ap["q_norm"], cfg.norm_eps)
+    q = (cq @ ap["wuq"]).reshape(b, 1, h, nope + rdim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv_full = xn @ ap["wdkv"]
+    ckv_c[:, pos] = rms_norm(ckv_full[:, 0, :r], ap["kv_norm"], cfg.norm_eps)
+    krope_c[:, pos] = apply_rope(ckv_full[..., r:][:, :, None, :], positions,
+                                 cfg.rope_theta)[:, 0, 0, :]
+    # Positions past `pos` would enter the softmax at exactly zero.
+    ckv, krope = ckv_c[:, :pos + 1], krope_c[:, :pos + 1]
+
+    wuk = ap["wuk"].reshape(r, h, nope)
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, wuk)
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_abs.float(), ckv.float())
+              + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                             krope.float()))
+    scores = scores / ((nope + rdim) ** 0.5)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o_latent = torch.einsum("bhqs,bsr->bqhr", probs, ckv)
+    wuv = ap["wuv"].reshape(r, h, cfg.v_head_dim)
+    o = torch.einsum("bqhr,rhv->bqhv", o_latent, wuv)
+    return x + o.reshape(b, 1, h * cfg.v_head_dim) @ ap["wo"]
 
 
 def decode_step(params, cfg: ModelConfig, cache, token: Tensor):
-    raise not_ported("decode_step", "prefill/decode")
+    """One decode step.  token: (B, 1) ids (or (B, 1, D) frames).
+
+    Returns (logits (B, 1, V), cache).  The cache's tensors are updated in
+    place (the new position's K/V or latents at `pos`, the recurrent
+    states, zamba2's shared K/V) and its `pos` advanced: the cache
+    returned is the one given.  The token is embedded by gathering its
+    rows and then casting them, which gives the bits of casting the table
+    first."""
+    act = cfg.activation_dtype
+    if cfg.frontend == "frames":
+        x = token.to(act) @ params["frame_proj"].to(act)
+    else:
+        x = params["embed"][token.long()].to(act)
+    b = x.shape[0]
+    pos = cache["pos"]
+    for name in ("k", "c_kv", "shared_k"):
+        if name in cache and pos >= cache[name].shape[2]:
+            raise ValueError(f"decode position {pos} outside the cache's "
+                             f"{cache[name].shape[2]}")
+    positions = torch.full((b, 1), pos, device=x.device)
+    kind = block_kind(cfg)
+    shared_p = params.get("shared_attn")
+    if shared_p is not None:
+        shared_p = cast_tree(shared_p, act)
+    for i, (window, slot) in enumerate(zip(layer_windows(cfg),
+                                           shared_slots(cfg))):
+        layer_p = cast_tree(tree_map(lambda a: a[i], params["blocks"]), act)
+        if kind == "attn":
+            if cfg.attention == "mla":
+                x = _mla_decode(layer_p, cfg, x, cache["c_kv"][i],
+                                cache["k_rope"][i], pos, positions)
+            else:
+                x = _gqa_decode(layer_p, cfg, x, cache["k"][i],
+                                cache["v"][i], pos, positions, window)
+            x, _ = mlp_forward(layer_p, cfg, x)
+        else:
+            step = ssm_mod.mamba_decode_step if kind == "mamba" \
+                else xlstm_mod.mlstm_decode_step
+            state = tree_map(lambda a: a[i], cache[kind])
+            xn = rms_norm(x, layer_p["ln"], cfg.norm_eps)
+            y, new = step(layer_p["mixer"], xn, state, cfg)
+            tree_map(lambda dst, src: dst.copy_(src), state, new)
+            x = x + y
+        if slot > 0:
+            x = _gqa_decode(shared_p, cfg, x, cache["shared_k"][slot - 1],
+                            cache["shared_v"][slot - 1], pos, positions, 0)
+            x, _ = mlp_forward(shared_p, cfg, x)
+    x = rms_norm(x, params["final_norm"].to(act), cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return logits_from_hidden(params, cfg, x), cache

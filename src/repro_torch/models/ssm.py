@@ -15,8 +15,10 @@ dtype before their products with `x`, and so are the carried states and
 the decay from a chunk's start.  The reference's three-operand einsum is
 two products here, in the order its contraction path takes.
 
-The decode state (`mamba_init_state`, `mamba_decode_step`) waits with
-prefill/decode.
+The decode state (`mamba_init_state`: the conv's last width - 1 inputs in
+the activation dtype and the (heads, head_dim, state) carry in float32)
+and `mamba_decode_step`, the recurrence at one token, which rounds where
+the reference's does.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (causal_conv, init_dense, not_ported,
+from repro_torch.models.common import (causal_conv, conv_step, init_dense,
                                        rms_norm, silu_stepwise, split_tree)
 
 Tensor = torch.Tensor
@@ -160,7 +162,7 @@ def ssd_recurrent_ref(x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Block-level forward (train)
+# Block-level forward (train / prefill) and decode step
 # ---------------------------------------------------------------------------
 
 def _split_proj(proj: Tensor, din: int, groups: int, state: int,
@@ -207,9 +209,50 @@ def mamba_block(params, x: Tensor, cfg, *, return_state: bool = False):
     return out
 
 
-def mamba_init_state(params, batch: int, cfg, d_model: int, dtype):
-    raise not_ported("mamba_init_state", "prefill/decode")
+def mamba_init_state(params, batch: int, cfg, d_model: int,
+                     dtype: torch.dtype):
+    """Zero decode state on the params' device: `conv` (B, width - 1,
+    conv_dim) in `dtype`, `ssm` (B, H, P, N) in float32."""
+    din = cfg.ssm_expand * d_model
+    nheads = din // cfg.ssm_head_dim
+    conv_dim = din + 2 * cfg.ssm_groups * cfg.ssm_state
+    width = params["conv_w"].shape[0]
+    dev = params["conv_w"].device
+    return {"conv": torch.zeros((batch, width - 1, conv_dim), dtype=dtype,
+                                device=dev),
+            "ssm": torch.zeros((batch, nheads, cfg.ssm_head_dim,
+                                cfg.ssm_state), dtype=torch.float32,
+                               device=dev)}
 
 
 def mamba_decode_step(params, x: Tensor, state: dict, cfg):
-    raise not_ported("mamba_decode_step", "prefill/decode")
+    """One-token recurrence.  x: (B, 1, D) -> (y (B, 1, D), new state); the
+    state given is not written."""
+    bsz, _, d = x.shape
+    din = cfg.ssm_expand * d
+    nheads = din // cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+
+    proj = x[:, 0] @ params["in_proj"]
+    z, xin, b, c, dt_raw = _split_proj(proj, din, g, n, nheads)
+    conv_in = torch.cat([xin, b, c], dim=-1)            # (B, conv_dim)
+    hist = torch.cat([state["conv"], conv_in[:, None, :]], dim=1)
+    conv_out = silu_stepwise(conv_step(hist, params["conv_w"],
+                                       params["conv_b"]))
+    xin, b, c = torch.split(conv_out, [din, g * n, g * n], dim=-1)
+
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())   # (B, H)
+    a = -torch.exp(params["a_log"].float())
+    xh = xin.reshape(bsz, nheads, cfg.ssm_head_dim)
+    bm = torch.repeat_interleave(b.reshape(bsz, g, n), nheads // g, dim=1)
+    cm = torch.repeat_interleave(c.reshape(bsz, g, n), nheads // g, dim=1)
+
+    decay = torch.exp(dt * a[None, :])                  # (B, H)
+    h = (state["ssm"] * decay[..., None, None]
+         + dt[..., None, None] * xh[..., None] * bm[:, :, None, :])
+    y = torch.einsum("bhn,bhpn->bhp", cm.float(), h).to(x.dtype)
+    y = y + xh * params["d_skip"][None, :, None]
+    y = y.reshape(bsz, din)
+    y = rms_norm(y * silu_stepwise(z), params["norm_scale"], cfg.norm_eps)
+    out = (y @ params["out_proj"])[:, None, :]
+    return out, {"conv": hist[:, 1:], "ssm": h}

@@ -21,8 +21,9 @@ The reference's three-operand einsums are two products here, in the order
 their contraction paths take; none makes an intermediate larger than its
 operands.
 
-The decode state (`mlstm_init_state`, `mlstm_decode_step`) waits with
-prefill/decode.
+The decode state (`mlstm_init_state`: the conv's last width - 1 inputs in
+the activation dtype, and (C, n, m) in float32, m from -inf) and
+`mlstm_decode_step`, which runs the recurrence on one token.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (causal_conv, init_dense, not_ported,
+from repro_torch.models.common import (causal_conv, conv_step, init_dense,
                                        rms_norm, silu_stepwise, split_tree)
 
 Tensor = torch.Tensor
@@ -60,6 +61,14 @@ def init_mlstm_params(gen: torch.Generator, d_model: int, *, heads: int,
     return split_tree(tree)
 
 
+def _k_scale(dh: int, like: Tensor) -> Tensor:
+    """sqrt(dh) as a 0-d tensor in `like`'s dtype and on its device: the
+    reference divides k by its weak-typed Python scale, which JAX rounds to
+    the activation dtype first (sqrt(512) is 22.625 in bfloat16).  A fill,
+    not a copy from the host, so a decode step stays free of syncs."""
+    return torch.full((), dh ** 0.5, dtype=like.dtype, device=like.device)
+
+
 def _qkv_gates(params, x_up: Tensor, heads: int):
     """x_up: (B, L, dv) (post-conv for q / k and the gates, raw for v)."""
     b, l, dv = x_up.shape
@@ -67,10 +76,7 @@ def _qkv_gates(params, x_up: Tensor, heads: int):
     conv = silu_stepwise(causal_conv(x_up, params["conv_w"],
                                      params["conv_b"]))
     q = (conv @ params["wq"]).reshape(b, l, heads, dh)
-    # The reference divides by its weak-typed Python scale, which JAX rounds
-    # to x's dtype first (sqrt(512) is 22.625 in bfloat16).
-    scale = torch.tensor(dh ** 0.5, dtype=x_up.dtype, device=x_up.device)
-    k = (conv @ params["wk"]).reshape(b, l, heads, dh) / scale
+    k = (conv @ params["wk"]).reshape(b, l, heads, dh) / _k_scale(dh, x_up)
     v = (x_up @ params["wv"]).reshape(b, l, heads, dh)
     gates = conv @ params["w_gates"] + params["b_gates"]
     logi = gates[..., :heads].float()                          # (B, L, H)
@@ -180,8 +186,9 @@ def mlstm_chunked(q: Tensor, k: Tensor, v: Tensor, logi: Tensor,
 
 def mlstm_recurrent_ref(q: Tensor, k: Tensor, v: Tensor, logi: Tensor,
                         logf: Tensor, state=None):
-    """Per-token recurrence (the oracle of the tests).  Returns (y in q's
-    dtype, (C, n, m) float32)."""
+    """Per-token recurrence (the oracle of the tests, and the decode step).
+    Returns (y in q's dtype, (C, n, m) float32).  v k^T is formed in the
+    inputs' dtype and then widened, as the reference forms it."""
     bsz, l, h, dh = q.shape
     if state is None:
         c = torch.zeros((bsz, h, dh, dh), dtype=torch.float32,
@@ -193,14 +200,14 @@ def mlstm_recurrent_ref(q: Tensor, k: Tensor, v: Tensor, logi: Tensor,
         c, n, m = state
     ys = []
     for t in range(l):
-        qt, kt, vt = q[:, t].float(), k[:, t].float(), v[:, t].float()
+        qt, kt, vt = q[:, t].float(), k[:, t], v[:, t]
         li, lf = logi[:, t], logf[:, t]
         m_new = torch.maximum(lf + m, li)
         fdec = torch.exp(lf + m - m_new)
         iexp = torch.exp(li - m_new)
         c = c * fdec[..., None, None] + iexp[..., None, None] * (
-            vt[..., :, None] * kt[..., None, :])
-        n = n * fdec[..., None] + iexp[..., None] * kt
+            vt[..., :, None] * kt[..., None, :]).float()
+        n = n * fdec[..., None] + iexp[..., None] * kt.float()
         num = torch.einsum("bhvd,bhd->bhv", c, qt)
         den = torch.einsum("bhd,bhd->bh", n, qt)
         denom = torch.maximum(torch.abs(den), torch.exp(-m_new))
@@ -210,7 +217,7 @@ def mlstm_recurrent_ref(q: Tensor, k: Tensor, v: Tensor, logi: Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Block-level forward (train)
+# Block-level forward (train / prefill) and decode step
 # ---------------------------------------------------------------------------
 
 def mlstm_block(params, x: Tensor, cfg, *, return_state: bool = False):
@@ -233,9 +240,45 @@ def mlstm_block(params, x: Tensor, cfg, *, return_state: bool = False):
     return out
 
 
-def mlstm_init_state(params, batch: int, cfg, d_model: int, dtype):
-    raise not_ported("mlstm_init_state", "prefill/decode")
+def mlstm_init_state(params, batch: int, cfg, d_model: int,
+                     dtype: torch.dtype):
+    """Decode state on the params' device: `conv` (B, width - 1, dv) in
+    `dtype`; `c` (B, H, dh, dh), `n` (B, H, dh) zero and `m` (B, H) -inf,
+    in float32."""
+    heads = cfg.mlstm_heads or cfg.num_heads
+    dv = int(cfg.mlstm_pf * d_model)
+    dh = dv // heads
+    width = params["conv_w"].shape[0]
+    f32 = dict(dtype=torch.float32, device=params["conv_w"].device)
+    return {"conv": torch.zeros((batch, width - 1, dv), dtype=dtype,
+                                device=f32["device"]),
+            "c": torch.zeros((batch, heads, dh, dh), **f32),
+            "n": torch.zeros((batch, heads, dh), **f32),
+            "m": torch.full((batch, heads), -math.inf, **f32)}
 
 
 def mlstm_decode_step(params, x: Tensor, state: dict, cfg):
-    raise not_ported("mlstm_decode_step", "prefill/decode")
+    """x: (B, 1, D) -> (y (B, 1, D), new state); the state given is not
+    written."""
+    heads = cfg.mlstm_heads or cfg.num_heads
+    b = x.shape[0]
+    up = x[:, 0] @ params["up_proj"]
+    dv = up.shape[-1] // 2
+    u, z = up[..., :dv], up[..., dv:]
+    dh = dv // heads
+
+    hist = torch.cat([state["conv"], u[:, None, :]], dim=1)
+    conv = silu_stepwise(conv_step(hist, params["conv_w"], params["conv_b"]))
+    q = (conv @ params["wq"]).reshape(b, 1, heads, dh)
+    k = ((conv @ params["wk"]) / _k_scale(dh, u)).reshape(b, 1, heads, dh)
+    v = (u @ params["wv"]).reshape(b, 1, heads, dh)
+    gates = conv @ params["w_gates"] + params["b_gates"]
+    logi = gates[..., :heads].float()[:, None, :]
+    logf = F.logsigmoid(gates[..., heads:].float())[:, None, :]
+
+    y, (c, n, m) = mlstm_recurrent_ref(
+        q, k, v, logi, logf, (state["c"], state["n"], state["m"]))
+    y = y.reshape(b, dv)
+    y = rms_norm(y, params["norm_scale"], cfg.norm_eps) * silu_stepwise(z)
+    out = (y @ params["down_proj"])[:, None, :]
+    return out, {"conv": hist[:, 1:], "c": c, "n": n, "m": m}

@@ -1,4 +1,4 @@
-"""Train / eval step builders (counterpart of `repro.training`)."""
+"""Train / eval / serving step builders (counterpart of `repro.training`)."""
 from repro_torch.training.steps import (TrainConfig, init_train_state,
                                         make_decode_step, make_eval_step,
                                         make_loss_fn, make_prefill_step,

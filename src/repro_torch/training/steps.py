@@ -1,4 +1,5 @@
-"""Train and eval step builders (counterpart of `repro/training/steps.py`).
+"""Train, eval and serving step builders (counterpart of
+`repro/training/steps.py`).
 
 `make_train_step` closes over (ModelConfig, OptimizerConfig) and returns
 
@@ -16,8 +17,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import init_params, lm_loss
-from repro_torch.models.common import not_ported, tree_map
+from repro_torch.models import decode_step, init_params, lm_loss, prefill
+from repro_torch.models.common import tree_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import (OptimizerConfig, OptState,
                                           apply_updates, init_opt_state)
@@ -108,11 +109,24 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
-    raise not_ported("the prefill step", "prefill/decode")
+    """prefill_step(params, tokens) -> (last logits, cache), no graph."""
+
+    @torch.no_grad()
+    def prefill_step(params, tokens):
+        return prefill(params, cfg, tokens, max_len)
+
+    return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
-    raise not_ported("the decode step", "prefill/decode")
+    """serve_step(params, cache, token) -> (logits, cache), no graph; the
+    cache is updated in place (`models.decode_step`)."""
+
+    @torch.no_grad()
+    def serve_step(params, cache, token):
+        return decode_step(params, cfg, cache, token)
+
+    return serve_step
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: OptimizerConfig,

@@ -265,3 +265,116 @@ def levy_states(xs: np.ndarray, n_max: int, space=None,
     st = jgp.refactor(st, jkern, implementation="xla")
     return (st, convert.state_from_numpy(jax_state_leaves(st), device=CPU),
             jkern, tkern)
+
+
+# ---------------------------------------------------------------------------
+# The LM side's serving path (tests/test_torch_lm_decode*.py)
+# ---------------------------------------------------------------------------
+
+# Every arch with `supports_decode` and no frontend: the reference test's
+# nine (tests/test_models.py:55) and tiny-lm.
+DECODE_ARCHS = ("tiny-lm", "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+                "deepseek-coder-33b", "minicpm3-4b", "granite-3-2b",
+                "gemma3-4b", "zamba2-1.2b", "chameleon-34b", "xlstm-1.3b")
+# Batch, prompt and decode steps of the serving tests (as the reference's).
+SERVE_B, SERVE_PROMPT, SERVE_STEPS = 2, 32, 3
+
+
+def lm_pair(arch: str, seed: int = 0, **changes):
+    """(reference config, port config, reference params, port params):
+    `arch`'s reduced config with `changes`, the reference's init carried
+    to the port by tree path."""
+    import dataclasses
+
+    from repro.configs import get_config as jget_config
+    from repro.models import init_params as jinit_params
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    jcfg = dataclasses.replace(jget_config(arch, reduced=True), **changes)
+    tcfg = dataclasses.replace(get_config(arch, reduced=True), **changes)
+    jp, _ = jinit_params(jcfg, jax.random.PRNGKey(seed))
+    return jcfg, tcfg, jp, convert.lm_params_from_numpy(
+        jax_state_leaves(jp), device=CPU)
+
+
+def serve_tokens(cfg, seed: int = 0) -> np.ndarray:
+    """(SERVE_B, SERVE_PROMPT + SERVE_STEPS) token ids, or standard normal
+    frames for a frames frontend."""
+    rng = np.random.default_rng(seed)
+    shape = (SERVE_B, SERVE_PROMPT + SERVE_STEPS)
+    if cfg.frontend == "frames":
+        return rng.standard_normal(shape + (cfg.d_model,)).astype(np.float32)
+    return rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _cache_leaves(leaves: dict) -> dict:
+    return {k: np.asarray(v, np.int32 if k == "pos" else np.float32)
+            for k, v in leaves.items()}
+
+
+def serve_reference(jcfg, jp, toks: np.ndarray, prompt: int,
+                    op_by_op: bool = False) -> list:
+    """The reference's prefill of `toks[:, :prompt]` into a cache of
+    `toks`' length, then a decode step for each further token: jitted, or
+    with `op_by_op` one primitive at a time.  Returns [(logits, cache
+    leaves)] after the prefill and after each step, float32 numpy."""
+    from repro.models import decode_step, prefill
+    max_len = toks.shape[1]
+
+    def pf(p, t):
+        return prefill(p, jcfg, t, max_len)
+
+    def df(p, c, t):
+        return decode_step(p, jcfg, c, t)
+
+    if not op_by_op:
+        pf, df = jax.jit(pf), jax.jit(df)
+    with jax.disable_jit(op_by_op):
+        logits, cache = pf(jp, jnp.asarray(toks[:, :prompt]))
+        out = [(np.asarray(logits, np.float32),
+                _cache_leaves(jax_state_leaves(cache)))]
+        for i in range(prompt, max_len):
+            logits, cache = df(jp, cache, jnp.asarray(toks[:, i:i + 1]))
+            out.append((np.asarray(logits, np.float32),
+                        _cache_leaves(jax_state_leaves(cache))))
+    return out
+
+
+def serve_port(tcfg, tp, toks: np.ndarray, prompt: int,
+               cache=None) -> list:
+    """The port's `serve_reference`: prefill and decode steps, or, given
+    `cache`, the decode steps from it (then the list starts with the first
+    step's)."""
+    from repro_torch import convert
+    from repro_torch.models import decode_step, prefill
+    out = []
+    with torch.no_grad():
+        if cache is None:
+            logits, cache = prefill(tp, tcfg, torch.from_numpy(
+                toks[:, :prompt]), toks.shape[1])
+            out.append((n(logits.float()), convert.lm_cache_to_numpy(cache)))
+        for i in range(prompt, toks.shape[1]):
+            logits, cache = decode_step(tp, tcfg, cache, torch.from_numpy(
+                toks[:, i:i + 1]))
+            out.append((n(logits.float()), convert.lm_cache_to_numpy(cache)))
+    return out
+
+
+def held_serving(got: list, want: list, tol: float) -> dict:
+    """Each entry's logits and every cache leaf of `got` against `want`'s,
+    relative to the reference tensor's largest entry; the same leaves and
+    `pos`.  Returns the largest error by leaf."""
+    worst: dict = {}
+    assert len(got) == len(want)
+    for i, ((tl, tc), (jl, jc)) in enumerate(zip(got, want)):
+        assert tl.shape == jl.shape and sorted(tc) == sorted(jc)
+        assert int(tc["pos"]) == int(jc["pos"])
+        for k, (a, b) in {"logits": (tl, jl),
+                          **{k: (tc[k], jc[k]) for k in jc
+                             if k != "pos"}}.items():
+            a, b = a.astype(np.float64), b.astype(np.float64)
+            err = float(np.max(np.abs(a - b))) / max(
+                float(np.max(np.abs(b))), 1e-30)
+            assert err <= tol, f"entry {i}, {k}: {err:.3g} > {tol}"
+            worst[k] = max(worst.get(k, 0.0), err)
+    return worst

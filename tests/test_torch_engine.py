@@ -257,7 +257,8 @@ def test_mesh_specs_resolve_to_the_unsharded_engine():
     assert mesh_mod.build("none", S, RESTARTS) is None
     assert mesh_mod.build("auto", S, RESTARTS, devices=1) is None
     for spec, devices in (("auto", 4), ("1x1", 1), ("4x2", 8)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+        with pytest.raises(NotImplementedError,
+                           match="the study x restart mesh"):
             mesh_mod.build(spec, S, RESTARTS, devices=devices)
     cfg = tpool.SchedulerConfig(n_max=8, mesh="2x1")
     with pytest.raises(NotImplementedError):

@@ -170,10 +170,3 @@ def test_bfloat16_full_attention_near_reference():
                                 for a in (q, k, v)), causal=True)
     assert got.dtype == torch.bfloat16
     _close(got.float(), np.asarray(want, np.float32), 2e-2)
-
-
-def test_decode_attention_waits():
-    q, k, v, _ = _qkv(s=8)
-    with pytest.raises(NotImplementedError, match="prefill/decode"):
-        attn.decode_attention(torch.from_numpy(q[:, -1:]),
-                              torch.from_numpy(k), torch.from_numpy(v), 7)

@@ -1,7 +1,6 @@
 """The port's model configs against the reference's: every config and its
 `reduced()`, field by field, with every derived property and the
-parameter counts; the trees the port builds for every kind; and the
-serving entries, which wait for prefill/decode."""
+parameter counts; and the trees the port builds for every kind."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -10,11 +9,9 @@ import torch
 
 from repro import configs as jconfigs
 from repro_torch import configs
-from repro_torch.models import (decode_step, forward, init_cache,
-                                init_params, prefill)
+from repro_torch.models import init_params
 from repro_torch.models.common import count_params
 from repro_torch.models.config import ModelConfig
-from repro_torch.training import make_decode_step, make_prefill_step
 
 ARCHS = sorted(jconfigs.REGISTRY)
 PROPERTIES = ("head_dim_", "vocab_padded", "is_moe", "num_experts_padded",
@@ -150,29 +147,3 @@ def test_recurrent_and_frames_built_tree_counts(arch):
         == ("embed" not in params)
     assert ("shared_attn" in params) == (cfg.shared_attn_every > 0)
     assert specs["blocks"].get("ln", ("layers", "norm")) == ("layers", "norm")
-
-
-def _serving_calls(cfg, params):
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    return {
-        "prefill": lambda: prefill(params, cfg, toks, 16),
-        "decode_step": lambda: decode_step(params, cfg, {}, toks[:, :1]),
-        "init_cache": lambda: init_cache(params, cfg, 1, 16),
-        "forward collect_cache": lambda: forward(params, cfg, toks,
-                                                 collect_cache=True),
-        "make_prefill_step": lambda: make_prefill_step(cfg, 16),
-        "make_decode_step": lambda: make_decode_step(cfg)}
-
-
-@pytest.mark.parametrize("entry", ["prefill", "decode_step", "init_cache",
-                                   "forward collect_cache",
-                                   "make_prefill_step", "make_decode_step"])
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
-def test_serving_entries_wait_for_prefill_decode(arch, entry):
-    """Every config builds; the serving entries raise NotImplementedError
-    naming ROADMAP.md's prefill/decode entry."""
-    cfg = configs.get_config(arch, reduced=True)
-    params, _ = init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md queue 1, item 2 .*prefill/decode"):
-        _serving_calls(cfg, params)[entry]()

@@ -194,11 +194,3 @@ def test_softplus_matches_reference():
     want = np.asarray(jax.nn.softplus(jnp.asarray(xs)))
     np.testing.assert_array_max_ulp(got, want, maxulp=2)
     assert got[xs == 0.0][0] == want[xs == 0.0][0] == np.float32(np.log(2))
-
-
-def test_decode_state_waits_for_prefill_decode():
-    cfg = get_config("zamba2-1.2b", reduced=True)
-    with pytest.raises(NotImplementedError, match="prefill/decode"):
-        ssm.mamba_decode_step({}, torch.zeros(1, 1, cfg.d_model), {}, cfg)
-    with pytest.raises(NotImplementedError, match="prefill/decode"):
-        ssm.mamba_init_state({}, 1, cfg, cfg.d_model, torch.float32)

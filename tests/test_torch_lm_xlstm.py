@@ -198,11 +198,3 @@ def test_mlstm_block_matches_reference(dtype):
     for k in npp:
         _close(tp[k].grad.float(), np.asarray(jgp[k], np.float32),
                tol["grad"], f"d{k}")
-
-
-def test_decode_state_waits_for_prefill_decode():
-    cfg = get_config("xlstm-1.3b", reduced=True)
-    with pytest.raises(NotImplementedError, match="prefill/decode"):
-        xlstm.mlstm_decode_step({}, torch.zeros(1, 1, cfg.d_model), {}, cfg)
-    with pytest.raises(NotImplementedError, match="prefill/decode"):
-        xlstm.mlstm_init_state({}, 1, cfg, cfg.d_model, torch.float32)
