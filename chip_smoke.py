@@ -137,6 +137,19 @@ Phases, each printing one JSON line:
                `set_sync_debug_mode("error")`), with every suggestion and,
                at the end, every leaf of every lane torch.equal.
                `advance_round` ms beside the engine phase's `advance` ms.
+ 7b. mesh    — the (study x restart) mesh (`hpo/mesh.py`): first the
+               restart shard's launch of each fused-EI form (R = 48 split
+               2 and 4 ways with `plan_rows=48`, at S = 16 and 1, on the
+               engine phases' states): held to the plain version, its rows
+               the unsharded launch's bits (digests), launches exact, and
+               its ms beside the unsharded launch's.  Then `StudyPool`s at
+               "none", "2x1", "1x2" and "2x2" on `["cuda:0"] * k`, float
+               and mixed, each from a copy of its engine phase's state,
+               through one suggest round and absorbing `advance_round`s
+               past the first lag event: every suggestion and every leaf
+               bit for bit "none"'s, launches exact (21 fused EI a cell
+               and one column gram a study shard a round), and each spec's
+               `advance_round` ms beside the card's name and power limit.
   8. profile — four more rounds of each path under torch.profiler: device
                busy share and device time by kernel; then one Cholesky
                call at n = 1024 and one on the lag refit's batch, each of
@@ -828,14 +841,7 @@ def ei_engine_times(dev) -> dict:
             r, n = 48, N_MAX
             split = device_split(lambda: launch(*batch))
             plan = acq.launch_plan(s, r, n, d, tag == "mixed")
-            if tag == "mixed":
-                b_ms, b_by = bound(s * r * (2.0 * n * n + n * (8 * d + 45)),
-                                   4 * s * (r * d + n * d + 2 * d + 2 * n
-                                            + n * n + r + r * d))
-            else:
-                b_ms, b_by = bound(s * r * (2.0 * n * n + n * (4 * d + 40)),
-                                   4 * s * (r * d + n * d + 2 * n + n * n
-                                            + r + r * d))
+            b_ms, b_by = ei_bound(s, r, n, d, tag == "mixed")
             out[f"{tag} S={s}"] = {
                 "device_ms": split["busy_ms"],
                 "event_ms": median_ms(lambda: launch(*batch)),
@@ -3653,6 +3659,227 @@ def pool_path(dev, mixed: bool, engine_line: dict):
     return counts, pair, line
 
 
+# --- the mesh phase: the (study x restart) mesh on logical devices ---------
+
+MESH_SPECS = ("none", "2x1", "1x2", "2x2")
+MESH_SPLITS = (2, 4)      # the restart shard's launch: R = 48 split 2, 4 ways
+MESH_MIN_ROUNDS = 3       # absorbing rounds at least (more to a lag event)
+
+
+def mesh_devices(spec: str) -> list[str]:
+    """A spec's logical devices, all on the one card."""
+    from repro_torch.hpo import mesh as mesh_mod
+    parsed = mesh_mod.parse_spec(spec)
+    return ["cuda:0"] * (1 if parsed is None else parsed[0] * parsed[1])
+
+
+def ei_bound(s: int, r: int, n: int, d: int, mixed: bool):
+    """The least time of one fused-EI launch on s studies of r candidates
+    against n rows of width d (`bound`)."""
+    if mixed:
+        return bound(s * r * (2.0 * n * n + n * (8 * d + 45)),
+                     4 * s * (r * d + n * d + 2 * d + 2 * n + n * n + r
+                              + r * d))
+    return bound(s * r * (2.0 * n * n + n * (4 * d + 40)),
+                 4 * s * (r * d + n * d + 2 * n + n * n + r + r * d))
+
+
+def restart_shard_checks(eng, gen) -> dict:
+    """The restart shard's launch form of the fused EI (`plan_rows=R`) on
+    an engine phase's state (the engine's operands, `stacked_engine_args`):
+    R = 48 candidates split 2 and 4 ways, at S = 16 and at S = 1 (lane 0).
+    Shard 0 is held to the plain version (`held_ei`, TOL_EI); every shard's
+    ei and gradient, concatenated in shard order, must be the unsharded
+    launch's bits (torch.equal, and their digests); launches counted
+    exactly.  Then, uncounted, the CUDA-event ms of shard 0 and of the k
+    shards in order beside the unsharded launch's, shard 0's device ms
+    (torch.profiler), its plain version's ms and its bound."""
+    from repro_torch.core.descriptor import project_units
+    from repro_torch.kernels import acq
+    mixed, d, r_full = eng.mixed, eng.dim, eng.cfg.acq.restarts
+    key = "acq_mixed" if mixed else "acq"
+    cand = torch.rand((ENGINE_STUDIES, r_full, d), generator=gen,
+                      device=eng.device)
+    if mixed:
+        cand = project_units(cand, eng.desc)
+    args = stacked_engine_args(eng, cand)
+    masks = (eng.desc.cont_mask, eng.desc.cat_mask) if mixed else ()
+
+    def launch(a, m, plan_rows=None):
+        if mixed:
+            return acq.fused_ei_grad_mixed_cuda(*a, *m, plan_rows=plan_rows)
+        return acq.fused_ei_grad_cuda(*a, plan_rows=plan_rows)
+
+    out = {}
+    for s in (ENGINE_STUDIES, 1):
+        a = list(args) if s > 1 else [v[0] for v in args]
+        m = masks if s > 1 else tuple(v[0] for v in masks)
+        cat = None if not mixed else (m[1][:, None, :] if s > 1 else m[1])
+
+        def rows(k, j):
+            r = r_full // k
+            return [a[0][..., j * r:(j + 1) * r, :].contiguous(), *a[1:]]
+
+        reset_counts()
+        full = launch(a, m)
+        want = digest(torch.cat([full[0].reshape(-1), full[1].reshape(-1)]))
+        for k in MESH_SPLITS:
+            parts = [launch(rows(k, j), m, r_full) for j in range(k)]
+            ei = torch.cat([p[0] for p in parts], dim=-1)
+            grad = torch.cat([p[1] for p in parts], dim=-2)
+            got = digest(torch.cat([ei.reshape(-1), grad.reshape(-1)]))
+            equal = bool(torch.equal(ei, full[0])
+                         and torch.equal(grad, full[1]))
+            held = held_ei(f"restart shard {key} S={s} 1/{k}",
+                           lambda x: launch(x, m, r_full),
+                           lambda x: plain_ei(x, *m), rows(k, 0), cat)
+            if not equal or got != want:
+                raise AssertionError(f"restart shard {key} S={s} split {k}: "
+                                     f"digest {got}, unsharded {want}")
+            plan = acq.launch_plan(s, r_full // k, N_MAX, d, mixed, r_full)
+            out[f"S={s} 1/{k}"] = {"digest": got, "unsharded_digest": want,
+                                   "rows_equal": equal,
+                                   "slices": plan.slices,
+                                   "tiles_per_slice": plan.tiles_per_slice,
+                                   "grid": list(plan.grid), **held}
+        counts = read_counts()
+        n_want = 1 + sum(k + 2 for k in MESH_SPLITS)
+        if counts[key] != n_want or sum(counts.values()) != n_want:
+            raise AssertionError(f"restart shard {key} S={s}: launches "
+                                 f"{counts}, expected {n_want} {key}")
+        out[f"S={s} launches"] = n_want
+        out[f"S={s} unsharded_ms"] = median_ms(lambda: launch(a, m))
+        for k in MESH_SPLITS:
+            x0 = rows(k, 0)
+            b_ms, b_by = ei_bound(s, r_full // k, N_MAX, d, mixed)
+            out[f"S={s} 1/{k}"].update({
+                "shape": f"{s} x (r = {r_full // k} of {r_full}, n = "
+                         f"{N_MAX}, d = {d})",
+                "ms": median_ms(lambda: launch(x0, m, r_full)),
+                "all_shards_ms": median_ms(lambda: [
+                    launch(rows(k, j), m, r_full) for j in range(k)]),
+                "device_ms": device_split(
+                    lambda: launch(x0, m, r_full))["busy_ms"],
+                "plain_ms": median_ms(lambda: plain_ei(x0, *m)),
+                "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
+def mesh_path(dev, engines) -> tuple[dict, dict]:
+    """Phase mesh: `StudyPool`s at mesh "none", "2x1", "1x2" and "2x2" on
+    `["cuda:0"] * k`, float and mixed, over the engine phases' 16 studies
+    (n_max = 1024, lag 32, 48 restarts x 20 steps): each pool starts from
+    a copy of its engine's state as the engine phase left it (prefilled
+    to 960 - 8 s, then served), written through `engine.state`, which
+    splits it onto the shards; then one suggest round and absorbing
+    `advance_round`s up to and past the first lag event.  Every round's
+    suggestions and every leaf of the state must be mesh "none"'s, bit for
+    bit.  Counters set to 0 before each kind's rounds and read after:
+    a round of an S x R spec launches the fused EI 21 times on each of its
+    S x R cells and one column gram on each study shard, plus a due lag
+    event's masked grams, factors and L X = I.  First, uncounted in the
+    path, the restart shard's launch form (`restart_shard_checks`).
+    Prints each spec's `advance_round` ms beside the card's name and power
+    limit.  Returns (counts, line)."""
+    from repro_torch.core import gp as gp_mod
+    from repro_torch.hpo.pool import SchedulerConfig, StudyPool
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    line = {"phase": "mesh", "nvidia_smi": nvidia_smi_line(),
+            "specs": list(MESH_SPECS), "devices": {
+                spec: mesh_devices(spec) for spec in MESH_SPECS}}
+    total, shards = None, {}
+    for name in ("engine", "engine_mixed"):
+        _, eng, studies, _, _ = engines[name]
+        mixed = eng.mixed
+        shards[name] = restart_shard_checks(eng, gen)
+        cfg = SchedulerConfig(n_max=N_MAX, lag=LAG, seed=0)
+        steps = cfg.acq.ascent_steps
+        pools = {}
+        for spec in MESH_SPECS:
+            pool = StudyPool([st.space for st in studies],
+                             dataclasses.replace(cfg, mesh=spec), device=dev,
+                             devices=mesh_devices(spec))
+            pool.engine.state = gp_mod.place(eng.state, eng.device)
+            pools[spec] = pool
+        base = pools["none"]
+        sr = max(base.engine.since_refit(s) for s in range(ENGINE_STUDIES))
+        rounds = max(MESH_MIN_ROUNDS, LAG - sr)
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = {spec: pool.advance_round([]) for spec, pool in pools.items()}
+        ms = {spec: [] for spec in MESH_SPECS}
+        dues = []
+        for r in range(rounds + 1):
+            for spec, pool in pools.items():
+                pool_units_equal(f"mesh {name} {spec} round {r}",
+                                 outs["none"], outs[spec])
+                if spec != "none":
+                    a, b = pool.engine.state, base.engine.state
+                    bad = [k for k, u, v in zip(
+                        ("x_buf", "y_buf", "l_buf", "li_buf", "alpha",
+                         "clamp_count", "sigma2", "rho", "noise2"),
+                        gp_mod._leaves(a), gp_mod._leaves(b))
+                        if not torch.equal(u, v)]
+                    if bad or not (torch.equal(a.n, b.n) and torch.equal(
+                            a.since_refit, b.since_refit)):
+                        raise AssertionError(f"mesh {name} {spec} round {r}:"
+                                             f" leaves {bad} differ")
+            if r == rounds:
+                break
+            vals = {s: float(studies[s].objective(
+                outs["none"][s][0].unit[None])[0])
+                for s in range(ENGINE_STUDIES)}
+            dues.append(lag_due(base.engine, np.ones(ENGINE_STUDIES, bool)))
+            for spec, pool in pools.items():
+                ev = [(s, outs[spec][s][0], vals[s])
+                      for s in range(ENGINE_STUDIES)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[spec] = pool.advance_round(ev)
+                torch.cuda.synchronize()
+                ms[spec].append(1e3 * (time.perf_counter() - t0))
+        counts = read_counts()
+        want = None
+        for spec, pool in pools.items():
+            m = pool.engine.mesh
+            cells = (1, 1) if m is None else (m.study_shards,
+                                              m.restart_shards)
+            one = engine_counts(mixed, cells[0] * rounds, sum(dues),
+                                cells[0] * cells[1] * (rounds + 1), steps)
+            want = one if want is None else add_counts(want, one)
+        if counts != want:
+            raise AssertionError(f"mesh {name}: launches {counts}, "
+                                 f"expected {want}")
+        if not any(dues):
+            raise AssertionError(f"mesh {name}: no lag event in {rounds} "
+                                 f"rounds")
+        total = counts if total is None else add_counts(total, counts)
+        line[name] = {
+            "rounds": rounds + 1, "lag_events_by_round": dues,
+            "launches": counts, "bit_for_bit": True,
+            "shard_lanes": {spec: [sh.state.x_buf.shape[0] for sh in
+                                   pool.engine._shards]
+                            for spec, pool in pools.items()},
+            "one_copy_per_card": all(
+                rep is sh.state for pool in pools.values()
+                for sh in pool.engine._shards for rep in sh.replicas),
+            "advance_round_ms": {spec: {
+                "median_without_lag_event": statistics.median(
+                    [t for t, due in zip(v, dues) if not due]),
+                "by_round": v} for spec, v in ms.items()},
+            "restart_shard": shards[name]}
+        lanes = line[name]["shard_lanes"]
+        if lanes != {"none": [16], "2x1": [8, 8], "1x2": [16],
+                     "2x2": [8, 8]}:
+            raise AssertionError(f"mesh {name}: shard lanes {lanes}")
+        del pools, base
+    line["seconds"] = time.perf_counter() - t_start
+    emit(line)
+    return total, line
+
+
 def profile_pool(pair) -> None:
     """Profile phase: one more `advance_round` of the pool under
     torch.profiler (busy share, device ms by kernel), then the twin
@@ -6390,6 +6617,14 @@ def main(argv: list[str] | None = None) -> int:
         engine_line = engines["engine_mixed" if mixed else "engine"][-1]
         launches_by_path[name], pools[name], pool_lines[name] = pool_path(
             dev, mixed, engine_line)
+    # The mesh phase: pools on logical devices of the one card, from the
+    # engines' states, before anything else serves those engines.
+    launches_by_path["mesh"], mesh_line = mesh_path(dev, engines)
+    for row in rows:
+        kind = {"fused_ei_grad": "engine",
+                "fused_ei_grad_mixed": "engine_mixed"}.get(row["name"])
+        if kind:
+            row["restart_shard"] = mesh_line[kind]["restart_shard"]
     stacked = engines["engine_mixed"][-1]["stacked_masks"]
     for row in rows:
         keys = {"mixed_gram": ("column", "masked"),
@@ -6495,7 +6730,8 @@ def main(argv: list[str] | None = None) -> int:
                             library_ms=row["library_ms"], shape=row["shape"],
                             **{k: row[k] for k in ("general_ms", "batched", "general",
                                                    "device_ms", "host_gap_ms",
-                                                   "stacked_masks")
+                                                   "stacked_masks",
+                                                   "restart_shard")
                                if k in row}))
     emit({"kernels": kernels})
     print(smi, flush=True)

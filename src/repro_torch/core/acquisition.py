@@ -1,6 +1,6 @@
 """Acquisition functions and their multi-start optimizer.
 
-Counterpart of `repro/core/acquisition.py` (no restart sharding yet).
+Counterpart of `repro/core/acquisition.py`.
 Expected Improvement (paper Sec. 3.2.1) and a multi-start
 projected-gradient ascent that returns the argmax (sequential BO) or the
 top-t distinct local maxima (paper Sec. 3.4), for one study or for a
@@ -30,6 +30,20 @@ round-off never flips which restart wins a numerical tie.  On a mixed
 search space (`desc`) every iterate is projected back onto the feasible
 lattice (`descriptor.project_units`) after its gradient step, the seeds and
 the top-t backfill too.
+
+Restart sharding (the mesh's restart axis, `repro_torch.hpo.mesh`): with
+`restart_states` a study shard's R seeds, drawn once at full R, are cut
+into contiguous slices, each ascended on its restart shard's device
+against the state there (the shard's own copy, or a replica on another
+card); the finals and values are concatenated in shard order before the
+tie-break and the dedup, which therefore see the unsharded restart set.
+On the card a shard's step is one fused-EI launch on its rows, planned as
+the unsharded launch (`plan_rows=R`), so each row is summed as there.  On
+the CPU the plain version's GEMMs sum a row in an order set by the call's
+row count and the row's place in it, so a shard evaluates its rows at
+their place in an R-row call (`_at_place`): the same bits as the
+unsharded step, for k times the work.  Only the fused ascent splits its
+restarts; the autodiff ascent runs them unsplit.
 """
 from __future__ import annotations
 
@@ -41,7 +55,7 @@ import torch
 
 from repro_torch.core import descriptor as desc_mod
 from repro_torch.core import gp as gp_mod
-from repro_torch.core.kernels import KernelFn
+from repro_torch.core.kernels import KernelFn, make_mixed_kernel
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -183,12 +197,13 @@ def hoist(state: gp_mod.LazyGPState, cfg: AcqConfig, counts=None
 def _make_eval_batch(state: gp_mod.LazyGPState, kernel: KernelFn,
                      cfg: AcqConfig, fused: bool,
                      log_cost_fn: Callable[[Tensor], Tensor] | None = None,
-                     counts=None):
+                     counts=None, plan_rows: int | None = None):
     """Build `eval(X (r, d)) -> (vals (r,), grads (r, d))` for the ascent.
 
     Fused: the loop invariants come from `hoist` (`counts` as there); each
     step is then one `ops.fused_ei_grad` call, in its mixed form when the
-    kernel is the mixed closure (its type masks).  A stacked state gives
+    kernel is the mixed closure (its type masks), planned for `plan_rows`
+    candidates (a restart shard's full R).  A stacked state gives
     `eval(X (S, r, d))`, one call for all S studies.  Unfused (one study):
     autodiff through the posterior, with f_best / ymean still hoisted
     (and the cost scaling of "ei_per_cost", `log_cost_fn`).
@@ -202,7 +217,7 @@ def _make_eval_batch(state: gp_mod.LazyGPState, kernel: KernelFn,
             return ops.fused_ei_grad(x, state.x_buf, amask, state.alpha, a_buf,
                                      state.params.sigma2, state.params.rho,
                                      shift, cont_mask=cont_mask,
-                                     cat_mask=cat_mask)
+                                     cat_mask=cat_mask, plan_rows=plan_rows)
 
         return eval_batch
 
@@ -227,21 +242,69 @@ def ei_value_and_grad(state: gp_mod.LazyGPState, kernel: KernelFn, x: Tensor,
     return _make_eval_batch(state, kernel, cfg or AcqConfig(), fused)(x)
 
 
+def _draw_device(lo: Tensor, generator: torch.Generator | None):
+    return lo.device if generator is None else generator.device
+
+
 def draw_seeds(lo: Tensor, hi: Tensor, restarts: int,
                generator: torch.Generator | None,
                batch: tuple[int, ...] = ()) -> Tensor:
     """Restart seeds `lo + (hi - lo) * U[0, 1)`, (*batch, R, d), on lo's
-    device."""
-    return lo + (hi - lo) * torch.rand((*batch, restarts, lo.shape[-1]),
-                                       generator=generator, dtype=lo.dtype,
-                                       device=lo.device)
+    device (drawn on the generator's)."""
+    u = torch.rand((*batch, restarts, lo.shape[-1]), generator=generator,
+                   dtype=lo.dtype, device=_draw_device(lo, generator))
+    return lo + (hi - lo) * u.to(lo.device)
 
 
 def draw_jitter(lo: Tensor, top_t: int, generator: torch.Generator | None,
                 batch: tuple[int, ...] = ()) -> Tensor:
-    """The top-t backfill's standard normals, (*batch, top_t, d)."""
+    """The top-t backfill's standard normals, (*batch, top_t, d), on lo's
+    device (drawn on the generator's)."""
     return torch.randn((*batch, top_t, lo.shape[-1]), generator=generator,
-                       dtype=lo.dtype, device=lo.device)
+                       dtype=lo.dtype,
+                       device=_draw_device(lo, generator)).to(lo.device)
+
+
+def draw_stacked(lo: Tensor, hi: Tensor, cfg: AcqConfig, kernel: KernelFn,
+                 top_t: int, generator: torch.Generator | None,
+                 n_studies: int, seeds: Tensor | None = None,
+                 jitter: Tensor | None = None) -> tuple[Tensor, Tensor | None]:
+    """The draws a stacked `optimize_acquisition` on `kernel` takes from
+    `generator` where `seeds (S, R, d)` / `jitter (S, top_t, d)` are not
+    given, drawn ahead in its order: fused, the (S, R, d) seeds then the
+    (S, top_t, d) jitter (top_t > 1); unfused, study by study.  Returns
+    (seeds, jitter), jitter None at top_t = 1 unless given."""
+    need_j = top_t > 1 and jitter is None
+    if _use_fused(cfg, kernel):
+        if seeds is None:
+            seeds = draw_seeds(lo, hi, cfg.restarts, generator, (n_studies,))
+        if need_j:
+            jitter = draw_jitter(lo, top_t, generator, (n_studies,))
+        return seeds, jitter
+    s_rows, j_rows = [], []
+    for s in range(n_studies):
+        s_rows.append(draw_seeds(lo, hi, cfg.restarts, generator)
+                      if seeds is None else seeds[s])
+        if need_j:
+            j_rows.append(draw_jitter(lo, top_t, generator))
+    return torch.stack(s_rows), torch.stack(j_rows) if need_j else jitter
+
+
+@dataclasses.dataclass(frozen=True)
+class RestartShard:
+    """One restart shard's ascent: its oracle and box on its device, and
+    its lattice projection (None: the identity)."""
+    eval_batch: Callable
+    lo: Tensor
+    hi: Tensor
+    project: Callable[[Tensor], Tensor] | None = None
+
+
+def _gather(parts: list[Tensor], dim: int, device) -> Tensor:
+    """Restart shards' outputs concatenated in shard order on `device`."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.to(device) for p in parts], dim=dim)
 
 
 def ascend_acquisition(eval_batch, lo: Tensor, hi: Tensor, cfg: AcqConfig,
@@ -251,6 +314,7 @@ def ascend_acquisition(eval_batch, lo: Tensor, hi: Tensor, cfg: AcqConfig,
                        jitter: Tensor | None = None,
                        project: Callable[[Tensor], Tensor] | None = None,
                        batch: tuple[int, ...] = (),
+                       shards: "list[RestartShard] | None" = None,
                        ) -> tuple[Tensor, Tensor]:
     """Multi-start ascent + tie-break-stable selection, model-free.
 
@@ -263,19 +327,36 @@ def ascend_acquisition(eval_batch, lo: Tensor, hi: Tensor, cfg: AcqConfig,
     normals when given, else drawn from `generator`.  `project` (optional)
     repairs rows (..., d) onto a feasible lattice: the seeds, every
     iterate after its gradient step and the backfill (mixed spaces).
+    `shards` (optional) splits the restarts: shard j ascends the
+    contiguous slice j of the seeds with its own oracle, box and
+    projection (`eval_batch` and `project` are then unused), step by step
+    beside the others, and the finals come back to lo's device in shard
+    order before the selection.
     Returns (points (*batch, top_t, d), values (*batch, top_t)).
     """
     width = hi - lo
     project = project or (lambda u: u)
+    shards = shards or [RestartShard(eval_batch, lo, hi, project)]
+    if cfg.restarts % len(shards):
+        raise ValueError(f"restart shards ({len(shards)}) must divide "
+                         f"cfg.restarts ({cfg.restarts})")
     if seeds is None:
         seeds = draw_seeds(lo, hi, cfg.restarts, generator, batch)
-    x = project(seeds.to(device=lo.device, dtype=lo.dtype))
+    r_loc = cfg.restarts // len(shards)
+    projects = [sh.project or (lambda u: u) for sh in shards]
+    xs = [proj(seeds[..., j * r_loc:(j + 1) * r_loc, :]
+               .to(device=sh.lo.device, dtype=sh.lo.dtype))
+          for j, (sh, proj) in enumerate(zip(shards, projects))]
     for _ in range(cfg.ascent_steps):
-        _, g = eval_batch(x)
-        gn = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
-        g = torch.where(gn > 0, g / torch.clamp(gn, min=1e-12), 0.0)
-        x = project(torch.clamp(x + cfg.lr * width * g, lo, hi))
-    vals, _ = eval_batch(x)
+        for j, (sh, proj) in enumerate(zip(shards, projects)):
+            _, g = sh.eval_batch(xs[j])
+            gn = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
+            g = torch.where(gn > 0, g / torch.clamp(gn, min=1e-12), 0.0)
+            xs[j] = proj(torch.clamp(xs[j] + cfg.lr * (sh.hi - sh.lo) * g,
+                                     sh.lo, sh.hi))
+    vals = _gather([sh.eval_batch(x)[0] for sh, x in zip(shards, xs)], -1,
+                   lo.device)
+    x = _gather(xs, -2, lo.device)
 
     def rows(a, i):         # rows i (*batch, k) of a (*batch, R, ...)
         if a.ndim > i.ndim:
@@ -331,7 +412,8 @@ def optimize_acquisition(state: gp_mod.LazyGPState, kernel: KernelFn,
                          jitter: Tensor | None = None,
                          desc: desc_mod.TypeDescriptor | None = None,
                          log_cost_fn: Callable[[Tensor], Tensor] | None = None,
-                         counts=None) -> tuple[Tensor, Tensor]:
+                         counts=None, restart_states=None
+                         ) -> tuple[Tensor, Tensor]:
     """Return (points (top_t, d), acquisition values (top_t,)), best first:
     top_t = 1 is sequential BO, top_t = t the paper's t best distinct
     local maxima.  Draws as `ascend_acquisition`.  `desc` (a mixed space's
@@ -352,21 +434,76 @@ def optimize_acquisition(state: gp_mod.LazyGPState, kernel: KernelFn,
     same order whatever the batch (`acq.launch_plan`) and the hoisted
     operands are computed lane by lane (`hoist`), so on the same state a
     lane's ascent starts from the single-study path's operands, bit for
-    bit."""
+    bit.
+
+    `restart_states` (optional, one per restart shard) splits the fused
+    ascent's restarts: shard j ascends its slice of the seeds against
+    `restart_states[j]`, which is `state` itself or its replica on
+    another card (`ascend_acquisition`'s `shards`); the oracle of each
+    distinct state is built once.  The autodiff ascent runs its restarts
+    unsplit."""
     fused = _use_fused(cfg, kernel)
     if state.is_batched and not fused:
         return _optimize_each(state, kernel, lo, hi, cfg, top_t,
                               generator=generator, seeds=seeds,
                               jitter=jitter, desc=desc,
                               log_cost_fn=log_cost_fn, counts=counts)
-    eval_batch = _make_eval_batch(state, kernel, cfg, fused, log_cost_fn,
-                                  counts)
-    project = ((lambda u: desc_mod.project_units(u, desc))
-               if desc is not None else None)
-    return ascend_acquisition(eval_batch, lo, hi, cfg, top_t,
-                              generator=generator, seeds=seeds, jitter=jitter,
-                              project=project,
-                              batch=state.x_buf.shape[:-2])
+    batch = state.x_buf.shape[:-2]
+    if not fused or restart_states is None or len(restart_states) == 1:
+        eval_batch = _make_eval_batch(state, kernel, cfg, fused, log_cost_fn,
+                                      counts)
+        return ascend_acquisition(eval_batch, lo, hi, cfg, top_t,
+                                  generator=generator, seeds=seeds,
+                                  jitter=jitter, project=_projector(desc),
+                                  batch=batch)
+    r_loc = cfg.restarts // len(restart_states)
+    evals: dict[int, Callable] = {}     # one oracle a distinct state
+    shards = []
+    for j, st in enumerate(restart_states):
+        dev = st.device
+        if id(st) not in evals:
+            evals[id(st)] = _make_eval_batch(
+                st, _kernel_on(kernel, dev), cfg, True, None, counts,
+                plan_rows=cfg.restarts)
+        ev = evals[id(st)]
+        if dev.type != "cuda":
+            ev = _at_place(ev, cfg.restarts, j * r_loc)
+        dsc = desc if desc is None or dev == lo.device else desc.to(dev)
+        shards.append(RestartShard(ev, lo.to(dev), hi.to(dev),
+                                   _projector(dsc)))
+    return ascend_acquisition(None, lo, hi, cfg, top_t, generator=generator,
+                              seeds=seeds, jitter=jitter,
+                              project=_projector(desc), batch=batch,
+                              shards=shards)
+
+
+def _at_place(eval_batch, rows: int, row0: int):
+    """`eval_batch` of a restart shard's r rows evaluated at rows
+    [row0, row0 + r) of an R-row call (the other rows are zeros, whose
+    outputs are dropped)."""
+    def ev(x):
+        r = x.shape[-2]
+        full = x.new_zeros((*x.shape[:-2], rows, x.shape[-1]))
+        full[..., row0:row0 + r, :] = x
+        vals, grads = eval_batch(full)
+        return vals[..., row0:row0 + r], grads[..., row0:row0 + r, :]
+    return ev
+
+
+def _projector(desc: desc_mod.TypeDescriptor | None):
+    """The lattice projection of a mixed space's descriptor (None: none)."""
+    if desc is None:
+        return None
+    return lambda u: desc_mod.project_units(u, desc)
+
+
+def _kernel_on(kernel: KernelFn, dev: torch.device) -> KernelFn:
+    """`kernel` with its type masks on `dev` (a replica's card)."""
+    if getattr(kernel, "gram_kernel", None) != "mixed" \
+            or kernel.cont_mask.device == dev:
+        return kernel
+    return make_mixed_kernel(kernel.cont_mask.to(dev),
+                             kernel.cat_mask.to(dev))
 
 
 def _optimize_each(state, kernel, lo, hi, cfg, top_t, *, generator, seeds,

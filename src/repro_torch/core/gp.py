@@ -230,6 +230,33 @@ def lanes(state: LazyGPState, sl: slice) -> LazyGPState:
                         state.n[sl], state.since_refit[sl])
 
 
+def place(state: LazyGPState, device: torch.device) -> LazyGPState:
+    """A stacked state copied onto `device`, over buffers of its own."""
+    return _with_leaves(state, [leaf.to(device, copy=True)
+                                for leaf in _leaves(state)],
+                        state.n.to(device, copy=True),
+                        state.since_refit.to(device, copy=True))
+
+
+def concat_states(states: "list[LazyGPState]",
+                  device: torch.device) -> LazyGPState:
+    """Stacked states joined along the study axis, on `device`."""
+    def cat(vs):
+        return torch.cat([v.to(device) for v in vs])
+    return _with_leaves(states[0], [cat(vs) for vs in
+                                    zip(*(_leaves(st) for st in states))],
+                        cat([st.n for st in states]),
+                        cat([st.since_refit for st in states]))
+
+
+def copy_lanes(dst: LazyGPState, src: LazyGPState, idx) -> None:
+    """Studies `idx` of stacked state `src` written into `dst`, in place
+    and bit for bit (the two may sit on different devices)."""
+    for d, v in zip((*_leaves(dst), dst.n, dst.since_refit),
+                    (*_leaves(src), src.n, src.since_refit)):
+        d[idx] = v[idx].to(d.device)
+
+
 def write_study(state: LazyGPState, study: int, sub: LazyGPState) -> None:
     """Copy single-study state `sub` into study `study` of a stacked
     state, in place and bit for bit."""

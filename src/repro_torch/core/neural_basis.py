@@ -315,9 +315,9 @@ def nb_init(d: int, cap: int, ncfg: NeuralConfig, *,
             raise ValueError(f"params shapes {[tuple(p.shape) for p in w]}, "
                              f"expected {shapes}")
     elif generator is not None:
-        def normal(*shape):
+        def normal(*shape):     # drawn on the generator's device
             return torch.randn(shape, generator=generator, dtype=f32,
-                               device=dev)
+                               device=generator.device).to(dev)
         w = [normal(d, h) / np.sqrt(d), z(h), normal(h, m) / np.sqrt(h),
              z(m), normal(m) / np.sqrt(m), z()]
     else:

@@ -3,9 +3,9 @@
   * `space.py`     — typed search spaces over the encoded unit cube and
     their `TypeDescriptor` (the mixed-space slice);
   * `engine.py`    — `StudyEngine`, the stacked lazy-GP state of S studies
-    and its batched suggest / absorb / serving round (`mesh="none"`), the
-    fantasy protocol and the neural-basis escalation tier;
-  * `mesh.py`      — the mesh spec (only the unsharded engine runs so far);
+    and its batched suggest / absorb / serving round, shard by shard on a
+    mesh, the fantasy protocol and the neural-basis escalation tier;
+  * `mesh.py`      — the (study x restart) mesh of logical devices;
   * `pool.py`      — `SchedulerConfig` and `StudyPool`, S studies with
     their ledgers, random streams, fault policy and checkpoints over one
     engine;

@@ -1,9 +1,9 @@
 """The batched GP suggest/absorb engine shared by the HPO orchestrators.
 
-Counterpart of `repro/hpo/engine.py` with `mesh="none"`: the lazy-GP tier,
-its q-fantasy protocol and the neural-basis escalation tier.  `StudyEngine`
-owns ONE stacked `LazyGPState` with a leading study axis (DESIGN.md §7) and
-advances it:
+Counterpart of `repro/hpo/engine.py`: the lazy-GP tier, its q-fantasy
+protocol, the neural-basis escalation tier and the (study x restart)
+device mesh.  `StudyEngine` owns the stacked `LazyGPState` of S studies
+with a leading study axis (DESIGN.md §7) and advances it:
 
   * `suggest_all` — the acquisition ascent of every study at once: each
     ascent step is one fused-EI launch for all S studies.
@@ -76,8 +76,29 @@ Draws: the restart seeds and the top-t jitter are drawn from the engine's
 `torch.Generator` (seeded from `cfg.seed`, on the engine's device) unless
 the caller passes them (`seeds (S, R, d)` / `jitter (S, top_t, d)`, or one
 study's slices to `suggest`), as the tests pass the reference's own draws.
+
+**Device mesh** (DESIGN.md §8, `repro_torch.hpo.mesh`): `cfg.mesh` "SxR"
+or "auto" over a list of logical devices (`devices`; default every
+visible device of the engine's type) splits the engine into study shards,
+each a stacked state of its own lanes on its home device, with the
+descriptor rows and the host mirrors of the same lanes.  Without a mesh
+there is one shard of all S lanes on the engine's device.  The batched
+calls run shard by shard, each making the unsharded engine's calls on its
+lanes (the fused-EI plan and the gram are per lane, so a lane keeps its
+bits); the routed calls go to the shard that holds the study.  The
+restart seeds are drawn once at full (S, R) from the one generator, as
+without a mesh, then sliced; a study shard with R > 1 restart shards
+ascends each restart slice on its cell (`acquisition.optimize_acquisition`
+with `restart_states`): restart shards on the home's card read the
+shard's one copy, one on another card a replica that every write of the
+shard copies into.  Logical devices on one card run in order on its
+current stream.  `state` reads as one (S, ...) state on the engine's
+device (a copy, with a mesh) and writing it splits the state onto the
+shards.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -92,18 +113,40 @@ from repro_torch.hpo import mesh as mesh_mod
 Tensor = torch.Tensor
 
 
+@dataclasses.dataclass
+class _Shard:
+    """One study shard: its lanes (global study ids), its stacked state on
+    its home device, the state each restart shard reads (`state` itself,
+    or a replica on another card), and its descriptor rows, kernel and
+    unit box."""
+    lanes: range
+    home: torch.device
+    cells: list[torch.device]
+    state: gp_mod.LazyGPState = None
+    replicas: list = None
+    desc: desc_mod.TypeDescriptor | None = None
+    kernel: object = None
+    lo: Tensor = None
+    hi: Tensor = None
+
+    @property
+    def span(self) -> slice:
+        return slice(self.lanes.start, self.lanes.stop)
+
+
 class StudyEngine:
     """Stacked lazy-GP state of S studies and the batched transitions.
 
     `cfg` is duck-typed (`SchedulerConfig` works): it needs n_max, kernel,
     lag, rho0, noise2, acq and seed; optionally mixed, mesh ("none"),
     inv_refresh, fantasy and neural.  Runs on the card unless `device` says
-    otherwise.
+    otherwise; `devices` are the mesh's logical devices (repeats allowed,
+    e.g. `["cuda:0"] * 4`), of the engine's device type.
     """
 
     def __init__(self, dim: int, cfg, n_studies: int,
                  descs: "list[desc_mod.TypeDescriptor] | None" = None, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", devices=None):
         if n_studies < 1:
             raise ValueError(f"n_studies must be >= 1, got {n_studies}")
         self.cfg = cfg
@@ -118,14 +161,26 @@ class StudyEngine:
         self.gp_cfg = gp_mod.GPConfig(
             n_max=cfg.n_max, dim=dim, kernel=cfg.kernel, lag=cfg.lag,
             noise2=cfg.noise2, rho0=cfg.rho0, device=str(self.device))
-        devices = (torch.cuda.device_count() if self.device.type == "cuda"
-                   else 1)
+        if devices is None:
+            devices = mesh_mod.default_devices(self.device.type)
+        devices = [torch.device(d) for d in devices]
+        if any(d.type != self.device.type for d in devices):
+            raise ValueError(f"mesh devices {[str(d) for d in devices]} are "
+                             f"not all of the engine's type "
+                             f"{self.device.type!r}")
         self.mesh = mesh_mod.build(getattr(cfg, "mesh", "none"), n_studies,
                                    cfg.acq.restarts, devices)
-        self.state = gp_mod.init_pool_state(self.gp_cfg, n_studies)
-        # Mixed mode: the stacked descriptor is data, and the kernel closes
-        # over its (S, d) mask tensors, so `set_desc` rewrites a row that
-        # every later launch reads.
+        if self.mesh is None:
+            self._shards = [_Shard(range(n_studies), self.device,
+                                   [self.device])]
+        else:
+            self._shards = [_Shard(lanes, self.mesh.home(i), self.mesh.row(i))
+                            for i, lanes in enumerate(self.mesh.lanes)]
+        self._shard_of = np.repeat(np.arange(len(self._shards)),
+                                   n_studies // len(self._shards))
+        # Mixed mode: the stacked descriptor is data, and each shard's
+        # kernel closes over its rows' (S/k, d) mask tensors, so `set_desc`
+        # rewrites a row that every later launch reads.
         if self.mixed:
             if descs is None:
                 descs = [desc_mod.all_continuous(dim)] * n_studies
@@ -134,13 +189,17 @@ class StudyEngine:
                     f"got {len(descs)} descriptors for {n_studies} studies")
             if any(d.dim != dim for d in descs):
                 raise ValueError(f"descriptors must have width {dim}")
-            self.desc = desc_mod.stack_descriptors(
-                [d.to(self.device) for d in descs])
-            self.kernel = make_mixed_kernel(self.desc.cont_mask,
-                                            self.desc.cat_mask)
-        else:
-            self.desc = None
-            self.kernel = KERNELS[cfg.kernel]
+        for sh in self._shards:
+            if self.mixed:
+                sh.desc = desc_mod.stack_descriptors(
+                    [descs[s].to(sh.home) for s in sh.lanes])
+                sh.kernel = make_mixed_kernel(sh.desc.cont_mask,
+                                              sh.desc.cat_mask)
+            else:
+                sh.kernel = KERNELS[cfg.kernel]
+            sh.lo = torch.zeros((dim,), device=sh.home)
+            sh.hi = torch.ones((dim,), device=sh.home)
+        self.state = gp_mod.init_pool_state(self.gp_cfg, n_studies)
         self._lo = torch.zeros((dim,), device=self.device)
         self._hi = torch.ones((dim,), device=self.device)
         self._gen = torch.Generator(device=self.device)
@@ -165,18 +224,62 @@ class StudyEngine:
     # -- state + host-side counter mirrors ----------------------------------
     @property
     def state(self) -> gp_mod.LazyGPState:
-        return self._state
+        """The stacked (S, ...) state: without a mesh the engine's own
+        (later rounds write it in place); with one, the shards' lanes
+        joined on the engine's device (a copy)."""
+        if self.mesh is None:
+            return self._shards[0].state
+        return gp_mod.concat_states([sh.state for sh in self._shards],
+                                    self.device)
 
     @state.setter
     def state(self, st: gp_mod.LazyGPState) -> None:
-        """Install a stacked state; re-syncs the host mirrors from it."""
+        """Install a stacked state (split onto the shards' devices, with a
+        mesh); re-syncs the host mirrors from it."""
         if not st.is_batched or st.n_studies != self.n_studies:
             raise ValueError(f"expected a stacked state of {self.n_studies} "
                              f"studies, got x_buf {tuple(st.x_buf.shape)}")
-        self._state = st
+        for sh in self._shards:
+            sh.state = (st if self.mesh is None
+                        else gp_mod.place(gp_mod.lanes(st, sh.span), sh.home))
+            home = mesh_mod.physical(sh.home)
+            sh.replicas = [sh.state if mesh_mod.physical(c) == home
+                           else gp_mod.place(sh.state, c) for c in sh.cells]
         self._alpha_kept = {}
         self._n_host = st.n.cpu().numpy().astype(np.int64)
         self._sr_host = st.since_refit.cpu().numpy().astype(np.int64)
+
+    @property
+    def desc(self) -> desc_mod.TypeDescriptor | None:
+        """The stacked (S, d) descriptor in mixed mode (a copy on the
+        engine's device, with a mesh), else None."""
+        if not self.mixed or self.mesh is None:
+            return self._shards[0].desc
+        return desc_mod.TypeDescriptor(*(
+            torch.cat([getattr(sh.desc, f).to(self.device)
+                       for sh in self._shards]) for f in desc_mod.FIELDS))
+
+    @property
+    def kernel(self):
+        """The kernel over all S studies: the mixed closure over the
+        stacked (S, d) masks in mixed mode (over `desc`'s copy, with a
+        mesh)."""
+        if not self.mixed or self.mesh is None:
+            return self._shards[0].kernel
+        desc = self.desc
+        return make_mixed_kernel(desc.cont_mask, desc.cat_mask)
+
+    def _at(self, study: int) -> tuple[_Shard, int]:
+        """The shard that holds `study`, and the study's lane in it."""
+        sh = self._shards[self._shard_of[study]]
+        return sh, study - sh.lanes.start
+
+    def _wrote(self, sh: _Shard, idx) -> None:
+        """Copy the shard's lanes `idx` into its replicas on other cards
+        (none where every cell shares the home's card)."""
+        for rep in sh.replicas:
+            if rep is not sh.state:
+                gp_mod.copy_lanes(rep, sh.state, idx)
 
     def n(self, study: int) -> int:
         return int(self._n_host[study])
@@ -185,21 +288,35 @@ class StudyEngine:
         return int(self._sr_host[study])
 
     def clamp_count(self, study: int) -> int:
-        return int(self._state.clamp_count[study])
+        sh, i = self._at(study)
+        return int(sh.state.clamp_count[i])
+
+    def clamp_count_tensor(self) -> Tensor:
+        """All studies' conditioning-floor counters, (S,) int32 on the
+        engine's device, in a tensor of their own (no read back)."""
+        if self.mesh is None:
+            return self._shards[0].state.clamp_count.clone()
+        return torch.cat([sh.state.clamp_count.to(self.device)
+                          for sh in self._shards])
 
     def clamp_counts(self) -> np.ndarray:
-        """All studies' conditioning-floor counters in one transfer."""
-        return self._state.clamp_count.cpu().numpy()
+        """All studies' conditioning-floor counters in one transfer a
+        shard."""
+        return np.concatenate([sh.state.clamp_count.cpu().numpy()
+                               for sh in self._shards])
 
     def sync(self) -> None:
         """Block until every queued launch has written the state."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in {mesh_mod.physical(c) for sh in self._shards
+                    for c in sh.cells}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def study_state(self, study: int) -> gp_mod.LazyGPState:
         """Study `study` as a single-study state with its own buffers (a
         snapshot: later in-place rounds do not change it)."""
-        return gp_mod.unstack_state(self._state, study, n=self.n(study),
+        sh, i = self._at(study)
+        return gp_mod.unstack_state(sh.state, i, n=self.n(study),
                                     since_refit=self.since_refit(study),
                                     copy=True)
 
@@ -207,7 +324,9 @@ class StudyEngine:
     def load_slot(self, slot: int, sub: gp_mod.LazyGPState) -> None:
         """Copy single-study state `sub` into slot `slot`, bit for bit; the
         host mirrors change for that slot only."""
-        gp_mod.write_study(self._state, slot, sub)
+        sh, i = self._at(slot)
+        gp_mod.write_study(sh.state, i, sub)
+        self._wrote(sh, i)
         self._alpha_kept.pop(slot, None)
         self._n_host[slot] = int(sub.n)
         self._sr_host[slot] = int(sub.since_refit)
@@ -223,7 +342,7 @@ class StudyEngine:
         write into the stacked descriptor, which the mixed kernel's masks
         are.  No-op outside mixed mode, where every slot is all-continuous
         by construction, and an error there for a discrete layout."""
-        if self.desc is None:
+        if not self.mixed:
             if desc.has_discrete:
                 raise ValueError(
                     "engine was built without mixed-space support; "
@@ -231,42 +350,52 @@ class StudyEngine:
             return
         if desc.dim != self.dim:
             raise ValueError(f"descriptor width {desc.dim}, engine {self.dim}")
+        sh, i = self._at(slot)
         for name in desc_mod.FIELDS:
-            getattr(self.desc, name)[slot] = getattr(desc, name)
+            getattr(sh.desc, name)[i] = getattr(desc, name)
 
     # -- suggest ------------------------------------------------------------
     def _lane(self, study: int) -> gp_mod.LazyGPState:
         """Views of one study's rows with its host counts (no copy)."""
-        return gp_mod.unstack_state(self._state, study, n=self.n(study),
+        sh, i = self._at(study)
+        return gp_mod.unstack_state(sh.state, i, n=self.n(study),
                                     since_refit=self.since_refit(study))
 
     def _kernel_for(self, lanes):
-        """The kernel of one study (an int) or of a slice of studies."""
-        if self.desc is None:
-            return self.kernel
-        return make_mixed_kernel(self.desc.cont_mask[lanes],
-                                 self.desc.cat_mask[lanes])
+        """The kernel of one study (an int) or of a slice of the studies of
+        one shard."""
+        first = lanes.start if isinstance(lanes, slice) else lanes
+        sh, i = self._at(first)
+        if sh.desc is None:
+            return sh.kernel
+        if isinstance(lanes, slice):
+            i = slice(i, i + lanes.stop - lanes.start)
+        return make_mixed_kernel(sh.desc.cont_mask[i], sh.desc.cat_mask[i])
 
-    def _tensor(self, a) -> Tensor | None:
-        """Caller-given draws as a float32 tensor on the engine's device."""
+    def _tensor(self, a, device=None) -> Tensor | None:
+        """Caller-given draws as a float32 tensor on `device` (default the
+        engine's)."""
         if a is None:
             return None
         if not isinstance(a, Tensor):
             a = torch.from_numpy(np.array(a, np.float32))
-        return a.to(self.device, torch.float32, non_blocking=True)
+        return a.to(device or self.device, torch.float32, non_blocking=True)
 
     def _desc_for(self, study: int) -> desc_mod.TypeDescriptor | None:
         """One study's row of the stacked descriptor (mixed mode)."""
-        if self.desc is None:
+        sh, i = self._at(study)
+        if sh.desc is None:
             return None
-        return desc_mod.index_descriptor(self.desc, study)
+        return desc_mod.index_descriptor(sh.desc, i)
 
     def suggest(self, study: int, top_t: int = 1, *, seeds=None,
                 jitter=None) -> tuple[Tensor, Tensor]:
         """Top-t EI local maxima for one study: ((top_t, d), (top_t,));
-        `seeds (R, d)` / `jitter (top_t, d)` when given."""
+        `seeds (R, d)` / `jitter (top_t, d)` when given.  Runs on the
+        study's home device, its restarts unsplit."""
+        sh = self._at(study)[0]
         return acq_mod.optimize_acquisition(
-            self._lane(study), self._kernel_for(study), self._lo, self._hi,
+            self._lane(study), self._kernel_for(study), sh.lo, sh.hi,
             self.cfg.acq, top_t, generator=self._gen,
             seeds=self._tensor(seeds), jitter=self._tensor(jitter),
             desc=self._desc_for(study))
@@ -274,19 +403,34 @@ class StudyEngine:
     def suggest_all(self, top_t: int = 1, *, seeds=None,
                     jitter=None) -> tuple[Tensor, Tensor]:
         """Batched suggestion for every study: ((S, top_t, d), (S, top_t));
-        `seeds (S, R, d)` / `jitter (S, top_t, d)` when given."""
-        return acq_mod.optimize_acquisition(
-            self._state, self.kernel, self._lo, self._hi, self.cfg.acq, top_t,
-            generator=self._gen, seeds=self._tensor(seeds),
-            jitter=self._tensor(jitter), desc=self.desc,
-            counts=self._n_host)
+        `seeds (S, R, d)` / `jitter (S, top_t, d)` when given, else drawn
+        at full (S, R) as the unsharded ascent draws them.  Shard by shard,
+        each on its lanes' draws, its restarts split over its cells."""
+        seeds, jitter = acq_mod.draw_stacked(
+            self._lo, self._hi, self.cfg.acq, self._shards[0].kernel, top_t,
+            self._gen, self.n_studies, self._tensor(seeds),
+            self._tensor(jitter))
+        units, vals = [], []
+        for sh in self._shards:
+            sl = sh.span
+            u, v = acq_mod.optimize_acquisition(
+                sh.state, sh.kernel, sh.lo, sh.hi, self.cfg.acq, top_t,
+                generator=self._gen, seeds=seeds[sl].to(sh.home),
+                jitter=None if jitter is None else jitter[sl].to(sh.home),
+                desc=sh.desc, counts=self._n_host[sl],
+                restart_states=sh.replicas if len(sh.cells) > 1 else None)
+            units.append(u)
+            vals.append(v)
+        if len(self._shards) == 1:
+            return units[0], vals[0]
+        return (torch.cat([u.to(self.device) for u in units]),
+                torch.cat([v.to(self.device) for v in vals]))
 
     # -- absorb -------------------------------------------------------------
-    def _upload(self, flags: np.ndarray, xs, ys
+    def _upload(self, device: torch.device, flags: np.ndarray, xs, ys
                 ) -> tuple[Tensor, Tensor, Tensor]:
-        """flags, xs and ys to the device in one copy that does not wait
-        for the card; xs already on the device (the last round's
-        suggestions) stay there."""
+        """flags, xs and ys to `device` in one copy that does not wait for
+        the card; xs already there (the last round's suggestions) stay."""
         on_device = isinstance(xs, Tensor)
         width = 2 if on_device else self.dim + 2
         packed = np.empty((flags.shape[0], width), np.float32)
@@ -294,8 +438,8 @@ class StudyEngine:
             packed[:, :self.dim] = xs
         packed[:, -2] = ys
         packed[:, -1] = flags
-        dev = torch.from_numpy(packed).to(self.device, non_blocking=True)
-        x = (xs.to(self.device, torch.float32) if on_device
+        dev = torch.from_numpy(packed).to(device, non_blocking=True)
+        x = (xs.to(device, torch.float32) if on_device
              else dev[:, :self.dim])
         return dev[:, -1] > 0, x, dev[:, -2]
 
@@ -315,14 +459,21 @@ class StudyEngine:
         return flags, flagged
 
     def _append(self, flags: np.ndarray, flagged: np.ndarray, xs, ys) -> None:
+        """The flagged studies' appends, shard by shard: one upload and one
+        `append_stacked` for each shard that holds a flagged study."""
         for s in flagged:
             self._alpha_kept.pop(int(s), None)
-        if flagged.size:
-            f, x, y = self._upload(flags, xs, ys)
-            gp_mod.append_stacked(self._state, self.kernel, x, y, f,
-                                  flagged, self._n_host)
-            self._n_host[flagged] += 1
-            self._sr_host[flagged] += 1
+        for sh in self._shards:
+            sl = sh.span
+            local = flagged[(flagged >= sl.start) & (flagged < sl.stop)] \
+                - sl.start
+            if local.size:
+                f, x, y = self._upload(sh.home, flags[sl], xs[sl], ys[sl])
+                gp_mod.append_stacked(sh.state, sh.kernel, x, y, f, local,
+                                      self._n_host[sl])
+                self._wrote(sh, local)
+        self._n_host[flagged] += 1
+        self._sr_host[flagged] += 1
 
     def absorb(self, study: int, x, y, cost: float = 1.0) -> None:
         """Routed absorb of one observation (+ the study's lag policy): the
@@ -331,12 +482,13 @@ class StudyEngine:
         gp_mod.ensure_capacity(self.n(study), self.cfg.n_max)
         self._cost_host[study, self.n(study)] = cost
         self._alpha_kept.pop(study, None)
-        lanes = slice(study, study + 1)
+        sh, i = self._at(study)
         x = x[None] if isinstance(x, Tensor) else np.asarray(x)[None]
-        f, xs, ys = self._upload(np.ones(1, bool), x, [y])
-        gp_mod.append_stacked(gp_mod.lanes(self._state, lanes),
-                              self._kernel_for(lanes), xs, ys, f, [0],
-                              [self.n(study)])
+        f, xs, ys = self._upload(sh.home, np.ones(1, bool), x, [y])
+        gp_mod.append_stacked(gp_mod.lanes(sh.state, slice(i, i + 1)),
+                              self._kernel_for(slice(study, study + 1)),
+                              xs, ys, f, [0], [self.n(study)])
+        self._wrote(sh, i)
         self._n_host[study] += 1
         self._sr_host[study] += 1
         self._refit_flagged([study])
@@ -377,14 +529,18 @@ class StudyEngine:
         """Copy the slot's alpha before its first fantasy row on top of
         real rows (once: later fantasy rows sit on fantasy rows)."""
         if study not in self._alpha_kept:
+            sh, i = self._at(study)
             self._alpha_kept[study] = (self.n(study),
-                                       self._state.alpha[study].clone())
+                                       sh.state.alpha[i].clone())
 
     def _set_n(self, study: int, count: int) -> None:
         """The slot's count on the host mirror and on the device (a fill
-        kernel: no copy from the host, no read back)."""
+        kernel: no copy from the host, no read back); the last write of
+        every fantasy call, so the slot's replicas follow here."""
+        sh, i = self._at(study)
         self._n_host[study] = count
-        self._state.n[study].fill_(count)
+        sh.state.n[i].fill_(count)
+        self._wrote(sh, i)
 
     def ask_q(self, study: int, q: int, *, seeds=None,
               jitter=None) -> tuple[Tensor, Tensor]:
@@ -401,8 +557,9 @@ class StudyEngine:
             raise ValueError(f"q must be >= 1, got {q}")
         gp_mod.ensure_capacity(self.n(study), self.cfg.n_max, q)
         self._keep_alpha(study)
+        sh = self._at(study)[0]
         xs, vals, _ = acq_mod.suggest_q(
-            self._lane(study), self._kernel_for(study), self._lo, self._hi,
+            self._lane(study), self._kernel_for(study), sh.lo, sh.hi,
             self.cfg.acq, q, liar=self.liar, generator=self._gen,
             seeds=self._tensor(seeds), jitter=self._tensor(jitter),
             desc=self._desc_for(study), in_place=True)
@@ -432,7 +589,7 @@ class StudyEngine:
         `gp.fantasize` call (the tell-time replay: after `truncate_slot`
         and the real absorb, the liar values are taken against the updated
         posterior).  Capacity is checked first."""
-        xs = self._tensor(xs)
+        xs = self._tensor(xs, self._at(study)[0].home)
         if xs.shape[0] == 0:
             return
         gp_mod.ensure_capacity(self.n(study), self.cfg.n_max, xs.shape[0])
@@ -470,7 +627,8 @@ class StudyEngine:
         host), and log(max(cost, 1e-12)) of their tell costs; the caller
         must have rolled back any fantasy rows first.  The MLP starts from
         `params` (`nb_init`) when given, else from the engine's generator.
-        The GP lane stays in the stack, frozen."""
+        The GP lane stays in the stack, frozen; the model lives on the
+        slot's home device."""
         if self._tier[slot]:
             raise RuntimeError(f"slot {slot} is already escalated")
         n0 = self.n(slot)
@@ -480,7 +638,7 @@ class StudyEngine:
         logcs = np.log(np.maximum(self._cost_host[slot, :n0], 1e-12))
         self._nb[slot] = nb_mod.nb_from_data(
             lane.x_buf[:n0], lane.y_buf[:n0], logcs, self.neural,
-            params=params, generator=self._gen, device=self.device)
+            params=params, generator=self._gen, device=self._at(slot)[0].home)
         self._tier[slot] = 1
         self._nb_n[slot], self._nb_sr[slot] = n0, 0
         self._nb_shadow.pop(slot, None)
@@ -498,8 +656,15 @@ class StudyEngine:
 
     def load_nb_slot(self, slot: int, state: nb_mod.NeuralBasisState
                      ) -> None:
-        """Install a restored or imported state (the tier tag follows); its
-        counters are read once, to set the host mirrors."""
+        """Install a restored or imported state (the tier tag follows), on
+        the slot's home device; its counters are read once, to set the host
+        mirrors."""
+        home = self._at(slot)[0].home
+        if mesh_mod.physical(state.device) != mesh_mod.physical(home):
+            state = dataclasses.replace(state, **{
+                f.name: getattr(state, f.name).to(home)
+                for f in dataclasses.fields(state)
+                if isinstance(getattr(state, f.name), Tensor)})
         self._tier[slot] = 1
         self._nb[slot] = state
         self._nb_n[slot] = int(state.n)
@@ -536,8 +701,8 @@ class StudyEngine:
         if not on_device:
             packed[:self.dim] = x
         packed[-2:] = y, np.log(max(float(cost), 1e-12))
-        obs = torch.from_numpy(packed).to(self.device, non_blocking=True)
-        x = (x.to(self.device, torch.float32) if on_device
+        obs = torch.from_numpy(packed).to(st.device, non_blocking=True)
+        x = (x.to(st.device, torch.float32) if on_device
              else obs[:self.dim])
         st = nb_mod.nb_append(st, x, obs[-2], obs[-1], self.neural)
         self._nb_advance(slot, st, 1)
@@ -583,7 +748,7 @@ class StudyEngine:
         """Append still-pending fantasy points `xs (p, d)` against the
         updated posterior (the tell-time replay, as `refantasize`), after a
         fresh snapshot."""
-        xs = self._tensor(xs)
+        xs = self._tensor(xs, self._nb[slot].device)
         self._nb_shadow[slot] = self._nb_snapshot(slot)
         st = self._nb_room(slot, xs.shape[0])
         st = nb_mod.nb_fantasize(st, xs, self.neural, self.liar)
@@ -612,8 +777,9 @@ class StudyEngine:
                 self._refactor(int(s), refit=False)
 
     def _refactor(self, study: int, *, refit: bool) -> None:
+        sh, i = self._at(study)
         st, kern = self._lane(study), self._kernel_for(study)
         params = gp_mod.refit_params(st, kern) if refit else None
-        gp_mod.write_study(self._state, study,
-                           gp_mod.refactor(st, kern, params))
+        gp_mod.write_study(sh.state, i, gp_mod.refactor(st, kern, params))
+        self._wrote(sh, i)
         self._sr_host[study] = 0

@@ -1,5 +1,5 @@
-"""Multi-tenant StudyPool: S concurrent HPO studies on one card
-(counterpart of `repro/hpo/pool.py`, `mesh="none"`).
+"""Multi-tenant StudyPool: S concurrent HPO studies on one card or a
+(study x restart) device mesh (counterpart of `repro/hpo/pool.py`).
 
 `StudyPool` multiplexes S studies over one `StudyEngine` (a stacked
 `LazyGPState`, DESIGN.md §7):
@@ -37,6 +37,13 @@ reference export seeds the slot's generator from that key.
 `TrialScheduler` is the S = 1 case: it wraps a one-study pool.  The port
 has no `implementation` knob: the tensor's device picks a kernel or its
 plain version.
+
+Device mesh: `cfg.mesh` ("none", "auto" or "SxR") and the pool's
+`devices` (logical devices, e.g. `["cuda:0"] * 4`; default every visible
+device of the pool's type) reach the engine, which refuses a spec that
+does not fit when the pool is built.  The draws above are the same with
+any mesh, so every spec serves the same bits; `restore` re-places the
+snapshot onto the mesh through the engine's `state` setter.
 """
 from __future__ import annotations
 
@@ -75,7 +82,8 @@ class SchedulerConfig:
     # §10) even when every constructor space is all-continuous, so that a
     # slot can later take a tenant with discrete dims (`set_desc`)
     mesh: str = "none"           # device mesh of the batched path (DESIGN.md
-    # §8); the port runs "none" ("auto" on one device), see `hpo/mesh.py`
+    # §8): "none", "auto" or "SxR" study x restart shards over the pool's
+    # logical devices (`hpo/mesh.py`)
     failure_penalty: float | None = None  # None: drop; else pseudo-y
     max_retries: int = 1
     ckpt_dir: str | None = None
@@ -281,12 +289,12 @@ class StudyPool:
     All studies share the GP shape (`cfg.n_max`, `space.dim`) but own
     their posteriors, ledgers and fault state; spaces may differ per study
     as long as their widths match.  Runs on the card unless `device` says
-    otherwise.
+    otherwise; `devices` are the logical devices of `cfg.mesh`.
     """
 
     def __init__(self, spaces: Sequence, cfg: SchedulerConfig,
                  names: Sequence[str] | None = None, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", devices=None):
         spaces = list(spaces)
         if not spaces:
             raise ValueError("StudyPool needs at least one study")
@@ -303,7 +311,8 @@ class StudyPool:
         descs = [sp.descriptor() for sp in spaces] \
             if cfg.mixed or any(sp.has_discrete for sp in spaces) else None
         self.engine = StudyEngine(spaces[0].dim, cfg, len(spaces),
-                                  descs=descs, device=device)
+                                  descs=descs, device=device,
+                                  devices=devices)
         self.studies = [
             StudyHandle(i, sp, names[i], gen=_new_gen(cfg.seed + i),
                         rng=np.random.default_rng(cfg.seed + i))
@@ -656,7 +665,7 @@ class StudyPool:
                                        seeds=seeds, jitter=jitter)
         # The clamp counts, copied into a fresh tensor before the replay:
         # later rounds write the state's own tensor in place.
-        clamps = self.engine.state.clamp_count.clone()
+        clamps = self.engine.clamp_count_tensor()
         nb_units = self._nb_stage(ids, nb_set, t)
         self._refantasize_pending(sid for sid, _, _ in events)
         out = _to_host({"units": units, "clamps": clamps, **nb_units})
@@ -953,7 +962,8 @@ class StudyPool:
 
     def restore(self) -> bool:
         """Load the latest committed snapshot onto the pool's device (the
-        engine's `state` setter re-syncs its host mirrors); a JAX pool's
+        engine's `state` setter re-places it onto the mesh and re-syncs
+        its host mirrors); a JAX pool's
         snapshot loads too (its `key`s are ignored, the port's generators
         kept where it has none)."""
         if not self.cfg.ckpt_dir:

@@ -44,13 +44,15 @@ __all__ = ["SchedulerConfig", "Trial", "TrialScheduler"]
 
 class TrialScheduler:
     """Drives `objective(hparams) -> float (maximize)` through the lazy GP,
-    on the card unless `device` says otherwise."""
+    on the card unless `device` says otherwise; `devices` are the logical
+    devices of `cfg.mesh` (one study: restart shards only)."""
 
     def __init__(self, space, cfg: SchedulerConfig, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", devices=None):
         self.space = space
         self.cfg = cfg
-        self.pool = StudyPool([space], cfg, names=["study0"], device=device)
+        self.pool = StudyPool([space], cfg, names=["study0"], device=device,
+                              devices=devices)
 
     # -- delegation to the shared one-study pool ----------------------------
     @property

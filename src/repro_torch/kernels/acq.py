@@ -169,25 +169,31 @@ def shared_bytes(d: int, mixed: bool) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def launch_plan(batch: int, r: int, n: int, d: int, mixed: bool) -> LaunchPlan:
+def launch_plan(batch: int, r: int, n: int, d: int, mixed: bool,
+                plan_rows: int | None = None) -> LaunchPlan:
     """The tile, grid, shared bytes and scratch of one call on `batch`
     studies of r candidates against n train rows of width d: the single
     source of these numbers for the wrapper and the C entry.  k is split
-    until one study's grid has about `TARGET_CTAS` CTAs, with at least
-    `MIN_SLICE_TILES` k-tiles a slice; the studies then lie along the
-    grid's z axis.  The split is a function of (r, n, d) alone, so every
-    output of a study is summed in the same order whatever the batch: a
-    lane of an S-study launch is bit for bit the launch on that study
-    alone."""
-    if min(batch, r, n, d) < 1:
-        raise ValueError(f"fused EI launch plan needs batch, r, n, d >= 1, "
-                         f"got {batch}, {r}, {n}, {d}")
+    until one study's grid of `plan_rows` candidates (default r) has about
+    `TARGET_CTAS` CTAs, with at least `MIN_SLICE_TILES` k-tiles a slice;
+    the studies then lie along the grid's z axis.  The split is a function
+    of (plan_rows, n, d) alone, so every output of a study is summed in the
+    same order whatever the batch: a lane of an S-study launch is bit for
+    bit the launch on that study alone.  A restart shard launches r of a
+    study's R candidates with `plan_rows=R`: the k-split is the unsharded
+    launch's, so each of its rows is summed as in that launch, and only
+    the grid's row blocks and the scratch follow the local r."""
+    if min(batch, r, n, d) < 1 or (plan_rows is not None and plan_rows < r):
+        raise ValueError(f"fused EI launch plan needs batch, r, n, d >= 1 "
+                         f"and plan_rows >= r, got {batch}, {r}, {n}, {d}, "
+                         f"{plan_rows}")
     rows, cols = ROWS, TILE_OUTPUTS // ROWS
     col_blocks, row_blocks, k_tiles = -(-n // cols), -(-r // rows), -(-n // TK)
     if row_blocks > 65535 or batch > 65535:
         raise ValueError(f"fused EI kernel: r = {r} in tiles of {rows} rows and "
                          f"{batch} studies exceed the grid")
-    slices = min(-(-TARGET_CTAS // (col_blocks * row_blocks)),
+    plan_blocks = -(-(plan_rows or r) // rows)
+    slices = min(-(-TARGET_CTAS // (col_blocks * plan_blocks)),
                  max(1, k_tiles // MIN_SLICE_TILES))
     tps = -(-k_tiles // slices)
     slices = -(-k_tiles // tps)          # no empty slice
@@ -231,11 +237,12 @@ def _scalar(v, lead: tuple, dev: torch.device) -> Tensor:
 
 def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
             alpha: Tensor, a_buf: Tensor, sigma2, rho, shift,
-            masks: tuple[Tensor, ...]) -> tuple[tuple[Tensor, Tensor], bool]:
+            masks: tuple[Tensor, ...], plan_rows: int | None = None
+            ) -> tuple[tuple[Tensor, Tensor], bool]:
     """Check the operands and launch C entry `entry` (the masks, if any,
     go right after x_buf: (d,) for the batch, or (*lead, d) one pair a
-    study, read at a step of d floats).  Returns ((ei, grad), whether it
-    launched)."""
+    study, read at a step of d floats) on `launch_plan(..., plan_rows)`.
+    Returns ((ei, grad), whether it launched)."""
     dev = x.device
     ops_ = (x, x_buf, amask, alpha, a_buf, *masks)
     for t in ops_:
@@ -263,7 +270,7 @@ def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
     grad = out[batch * r:].view(*lead, r, d)
     if batch == 0 or r == 0:
         return (ei, grad), False
-    plan = launch_plan(batch, r, n, d, bool(masks))
+    plan = launch_plan(batch, r, n, d, bool(masks), plan_rows)
     lib = _build.load(SOURCE, _SIGNATURES)
     scal = [_scalar(v, lead, dev) for v in (sigma2, rho, shift)]
     x, x_buf, amask, alpha, a_buf, *masks = (t.contiguous() for t in ops_)
@@ -284,27 +291,30 @@ def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
 
 
 def fused_ei_grad_cuda(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
-                       a_buf: Tensor, sigma2, rho, shift
-                       ) -> tuple[Tensor, Tensor]:
-    """Launch the float form; shapes as `ei_grad_torch`, float32 CUDA."""
+                       a_buf: Tensor, sigma2, rho, shift, *,
+                       plan_rows: int | None = None) -> tuple[Tensor, Tensor]:
+    """Launch the float form; shapes as `ei_grad_torch`, float32 CUDA;
+    `plan_rows` as `launch_plan`'s (a restart shard's full R)."""
     global LAUNCHES
     out, launched = _launch("repro_fused_ei_grad", x, x_buf, amask, alpha,
-                            a_buf, sigma2, rho, shift, ())
+                            a_buf, sigma2, rho, shift, (), plan_rows)
     LAUNCHES += launched
     return out
 
 
 def fused_ei_grad_mixed_cuda(x: Tensor, x_buf: Tensor, amask: Tensor,
                              alpha: Tensor, a_buf: Tensor, sigma2, rho, shift,
-                             cont_mask: Tensor, cat_mask: Tensor
+                             cont_mask: Tensor, cat_mask: Tensor, *,
+                             plan_rows: int | None = None
                              ) -> tuple[Tensor, Tensor]:
     """Launch the mixed form on the unsplit x (r, d) / x_buf (n, d) and the
     type masks, (d,) or (*lead, d); float32 CUDA.  Computes `ei_grad_torch`
-    of `split_rows(x, x_buf, cont_mask, cat_mask)`."""
+    of `split_rows(x, x_buf, cont_mask, cat_mask)`; `plan_rows` as in the
+    float form."""
     global LAUNCHES_MIXED
     out, launched = _launch("repro_fused_ei_grad_mixed", x, x_buf, amask,
                             alpha, a_buf, sigma2, rho, shift,
-                            (cont_mask, cat_mask))
+                            (cont_mask, cat_mask), plan_rows)
     LAUNCHES_MIXED += launched
     return out
 
@@ -312,20 +322,24 @@ def fused_ei_grad_mixed_cuda(x: Tensor, x_buf: Tensor, amask: Tensor,
 def fused_ei_grad(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
                   a_buf: Tensor, sigma2, rho, shift, *,
                   cont_mask: Tensor | None = None,
-                  cat_mask: Tensor | None = None) -> tuple[Tensor, Tensor]:
+                  cat_mask: Tensor | None = None,
+                  plan_rows: int | None = None) -> tuple[Tensor, Tensor]:
     """Fused EI value + gradient: a kernel for CUDA tensors, the plain
-    version for CPU tensors; the mixed form when the type masks are given."""
+    version for CPU tensors; the mixed form when the type masks are given.
+    `plan_rows` is the unsharded candidate count of a restart shard's
+    launch (`launch_plan`); the plain version does not use it."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no fused EI for device {x.device}")
     if cont_mask is None:
         if x.device.type == "cuda":
             return fused_ei_grad_cuda(x, x_buf, amask, alpha, a_buf, sigma2,
-                                      rho, shift)
+                                      rho, shift, plan_rows=plan_rows)
         return ei_grad_torch(x, x_buf, amask, alpha, a_buf, sigma2, rho, shift)
     if x.device.type == "cuda":
         return fused_ei_grad_mixed_cuda(x, x_buf, amask, alpha, a_buf, sigma2,
                                         rho, shift, cont_mask.to(x.dtype),
-                                        cat_mask.to(x.dtype))
+                                        cat_mask.to(x.dtype),
+                                        plan_rows=plan_rows)
     xc, xbc, xk, xbk = split_rows(x, x_buf, cont_mask, cat_mask)
     return ei_grad_torch(xc, xbc, amask, alpha, a_buf, sigma2, rho, shift,
                          xk=xk, xbk=xbk)

@@ -307,7 +307,8 @@ def fused_supported(kernel_fn, acq_name: str) -> bool:
 def fused_ei_grad(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
                   a_buf: Tensor, sigma2, rho, shift, *,
                   cont_mask: Tensor | None = None,
-                  cat_mask: Tensor | None = None) -> tuple[Tensor, Tensor]:
+                  cat_mask: Tensor | None = None,
+                  plan_rows: int | None = None) -> tuple[Tensor, Tensor]:
     """Fused EI value + gradient for a whole (r, d) candidate batch.
 
     Args:
@@ -318,6 +319,8 @@ def fused_ei_grad(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
       a_buf: (n_max, n_max) hoisted A = li_buf^T li_buf.
       sigma2, rho: kernel hyper-parameters; shift = ymean - f_best - xi.
       cont_mask/cat_mask: (d,) type masks of a mixed space (None = float).
+      plan_rows: a restart shard's unsharded R (`acq.launch_plan`): its r
+        rows are summed as in the launch on all R.
 
     Returns (ei (r,), grad (r, d)).  For a mixed space the rows split by
     the masks (in the kernel's loads on the card, in `acq.split_rows` on
@@ -328,4 +331,5 @@ def fused_ei_grad(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
     """
     return acq_kernels.fused_ei_grad(x, x_buf, amask.to(x.dtype), alpha,
                                      a_buf, sigma2, rho, shift,
-                                     cont_mask=cont_mask, cat_mask=cat_mask)
+                                     cont_mask=cont_mask, cat_mask=cat_mask,
+                                     plan_rows=plan_rows)

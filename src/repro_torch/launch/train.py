@@ -64,8 +64,8 @@ def run(args) -> dict:
     if tuple(int(x) for x in args.mesh_shape.split("x")) != (1, 1):
         raise NotImplementedError(
             f"mesh {args.mesh_shape!r}: the port trains on one device "
-            f"(--mesh-shape 1x1); a device mesh waits for ROADMAP.md's "
-            f"\"the study x restart mesh\"")
+            f"(--mesh-shape 1x1); a training mesh waits for the launch "
+            f"layer (ROADMAP.md, \"the launch layer\")")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         # fp32 like the reference: no TF32 in matmuls or convolutions, and

@@ -125,6 +125,44 @@ def test_k_split_is_independent_of_the_batch(r, nn, mixed):
         assert math.prod(plan.grid) == 9216
 
 
+# The engine's shape split 2 and 4 ways at S = 16 and 1; R = 8 halves;
+# r = 64 in 4 at three n.
+@pytest.mark.parametrize("r_full,k,nn,batch", [
+    (48, 2, 1024, 16), (48, 4, 1024, 16), (48, 2, 1024, 1), (48, 4, 1024, 1),
+    (8, 2, 16, 8), (64, 4, 300, 3), (64, 4, 4096, 1), (64, 4, 100, 1)])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_restart_shard_keeps_the_unsharded_split(r_full, k, nn, batch,
+                                                 mixed):
+    """A restart shard's launch of R / k rows with `plan_rows=R`: the
+    unsharded k-split (slices, tiles a slice, the grid's x), its own row
+    blocks and scratch, and every one of its rows walks the same (column
+    block, k-tiles) as that row in the unsharded launch."""
+    d = 6 if mixed else 5
+    r_loc = r_full // k
+    full = acq.launch_plan(batch, r_full, nn, d, mixed)
+    loc = acq.launch_plan(batch, r_loc, nn, d, mixed, plan_rows=r_full)
+    assert (loc.slices, loc.tiles_per_slice) == (full.slices,
+                                                 full.tiles_per_slice)
+    assert loc.grid == (full.grid[0], -(-r_loc // acq.ROWS), batch)
+    assert loc.partial_floats == math.prod(loc.grid) * acq.ROWS * (2 * d + 4)
+    assert loc.counters == loc.grid[1] * batch
+    assert acq.launch_plan(batch, r_full, nn, d, mixed,
+                           plan_rows=r_full) == full
+
+    def tiles(plan, n_rows, row0=0):
+        out = {}
+        for z, (r0, r1), cols, ks in _walk(plan, n_rows, nn):
+            for i in range(r0, r1):
+                out.setdefault((z, row0 + i), []).append((cols, ks))
+        return out
+
+    want = tiles(full, r_full)
+    for j in range(k):
+        got = tiles(loc, r_loc, j * r_loc)
+        assert got == {key: want[key] for key in got}
+        assert len(got) == batch * r_loc
+
+
 @pytest.mark.parametrize("args", [(0, 64, 1024, 5, False), (1, 0, 1024, 5, False),
                                   (1, 64, 0, 5, False), (65536, 64, 1024, 5, False),
                                   (1, 8 * 65535 + 1, 1024, 5, False),
@@ -132,6 +170,8 @@ def test_k_split_is_independent_of_the_batch(r, nn, mixed):
 def test_plan_rejects_what_the_kernel_does_not_take(args):
     with pytest.raises(ValueError):
         acq.launch_plan(*args)
+    with pytest.raises(ValueError, match="plan_rows"):
+        acq.launch_plan(1, 64, 1024, 5, False, plan_rows=32)
 
 
 @pytest.mark.parametrize("size,entry", [(trsv.MAX_N, "tri_inverse"),

@@ -248,6 +248,8 @@ def test_convert_round_trips_a_stacked_state():
 
 
 def test_mesh_specs_resolve_to_the_unsharded_engine():
+    """"none", and "auto" on one device, give no mesh (the unsharded
+    engine); every other spec that fits its device list builds one."""
     assert mesh_mod.parse_spec("none") is None
     assert mesh_mod.parse_spec("auto") == "auto"
     assert mesh_mod.parse_spec("4x2") == (4, 2)
@@ -255,14 +257,16 @@ def test_mesh_specs_resolve_to_the_unsharded_engine():
     with pytest.raises(ValueError, match="bad mesh spec"):
         mesh_mod.parse_spec("2y2")
     assert mesh_mod.build("none", S, RESTARTS) is None
-    assert mesh_mod.build("auto", S, RESTARTS, devices=1) is None
-    for spec, devices in (("auto", 4), ("1x1", 1), ("4x2", 8)):
-        with pytest.raises(NotImplementedError,
-                           match="the study x restart mesh"):
-            mesh_mod.build(spec, S, RESTARTS, devices=devices)
+    assert mesh_mod.build("auto", S, RESTARTS, devices=["cpu"]) is None
+    for spec, devices, shards in (("auto", 4, (3, 1)), ("1x1", 1, (1, 1)),
+                                  ("1x8", 8, (1, 8))):
+        m = mesh_mod.build(spec, S, RESTARTS, devices=["cpu"] * devices)
+        assert (m.study_shards, m.restart_shards) == shards
     cfg = tpool.SchedulerConfig(n_max=8, mesh="2x1")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="devices"):
         tengine.StudyEngine(DIM, cfg, 2, device="cpu")
+    eng = tengine.StudyEngine(DIM, cfg, 2, device="cpu", devices=["cpu"] * 2)
+    assert eng.mesh.study_shards == 2 and eng.state.x_buf.shape[0] == 2
 
 
 def test_engine_defaults_to_cuda(monkeypatch):
