@@ -12,6 +12,21 @@ Phases, each printing one JSON line:
                float and the mixed fused EI, trsv.cu L X = I and the
                general solve), one process per source, all started
                together.
+ 2a. acq_plans — the fused EI's tiles and plan table (`acq_plan_checks`):
+               every compiled tile of csrc/acq.cu (R = 4, 8, 16) in both
+               forms at the main paths' r = 64 (S = 1) and the engines'
+               r = 48 (S = 16), held to the plain version (`held_ei`,
+               TOL_EI), each S = 16 lane torch.equal to its one-study
+               launch; the committed `acq_plans.json`'s sha256 of acq.cu
+               that of the source and each entry's plan reproducing its
+               digests (a stale table fails the run: run `tune_acq`
+               again); each entry's own plan held to the plain version
+               on 6 seeded states beside the heuristic's; each key's
+               tabled and heuristic plans with the race's device ms.
+               Every path below runs through `AcqPlanRecorder`: a line
+               `{"phase": <path>, "part": "acq plans"}` gives its fused-EI
+               launches by plan key and study count, and those that
+               missed the table, which must be 0.
   3. kernels — each kernel against its plain PyTorch version on the card,
                on the same inputs at the main path's shapes (the factor and
                the solve also as the lag refit's batch of 18 grid
@@ -168,7 +183,9 @@ Phases, each printing one JSON line:
                time per kernel, with its busy share; both fused-EI forms
                at S = 16 and S = 1 (r = 48, n = 1024) by device time and
                events a launch, beside the plain version and the bound
-               (`ei_engine_times`); one more `advance_round` of each pool
+               (`ei_engine_times`); each table key's tabled and heuristic
+               plans by device ms at S = 1 and 16 (`acq_plan_times`); one
+               more `advance_round` of each pool
                (busy share, device time by kernel; the twin then replays
                it); then, at the start of each neural phase,
                one nb_suggest (busy share) and the device kernels of one
@@ -397,11 +414,22 @@ before printing a result.
 prints only the digests of the grams', the fused EI's (shared masks) and
 L X = I's bits, and the fused EI's times at S = 16 and 1 (r = 48), built
 from the `repro_torch` under SRC (this checkout's `src` by default): run it
-on an unpacked parent's `src` and on this one for an A/B.
+on an unpacked parent's `src` and on this one for an A/B (with
+`REPRO_ACQ_AUTOTUNE=off` this tree's fused EI takes the heuristic plan).
+
+    python3 chip_smoke.py --acq-keys KEYS.json
+
+runs the whole script, writing every path's fused-EI launches by plan
+key and study count to KEYS.json after each path, with table misses
+printed, not fatal, and the table's digests unchecked: the recording run
+whose traffic `python -m repro_torch.kernels.tune_acq --keys KEYS.json`
+races on.  Run it under `REPRO_ACQ_AUTOTUNE=off`, so that the recorded
+traffic does not depend on the table it replaces.
 """
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -840,7 +868,10 @@ def ei_engine_times(dev) -> dict:
             d = args[0].shape[-1]
             r, n = 48, N_MAX
             split = device_split(lambda: launch(*batch))
-            plan = acq.launch_plan(s, r, n, d, tag == "mixed")
+            # The plan the call takes (a parent tree without plan tables
+            # takes launch_plan's).
+            plan = getattr(acq, "call_plan", acq.launch_plan)(
+                s, r, n, d, tag == "mixed")
             b_ms, b_by = ei_bound(s, r, n, d, tag == "mixed")
             out[f"{tag} S={s}"] = {
                 "device_ms": split["busy_ms"],
@@ -1679,9 +1710,9 @@ def ei_shapes(dev) -> dict:
                  "3 x n=1024": stack([make(N_MAX, N_SEED) for _ in range(3)])}
         for tag, args in cases.items():
             lead = args[1].shape[:-2]
-            plan = acq.launch_plan(math.prod(lead), args[0].shape[-2],
-                                   args[1].shape[-2], args[0].shape[-1],
-                                   form == "mixed")
+            plan = acq.call_plan(math.prod(lead), args[0].shape[-2],
+                                 args[1].shape[-2], args[0].shape[-1],
+                                 form == "mixed")
             out[f"{form} {tag}"] = dict(held_ei(f"{form} {tag}", launch, plain,
                                                args, cat),
                                         plan=dataclasses.asdict(plan))
@@ -1778,6 +1809,200 @@ def tri_inverse_beyond_limit(dev, n: int = 6144) -> dict:
             and (rel <= TOL_TRSV_PLAIN or kernel_rel <= 2.0 * plain_rel)):
         raise AssertionError(f"tri_inverse n={n}: {line}")
     return {"phase": "kernels", "kernel": "trsv beyond the L X = I limit", **line}
+
+
+# The fused EI's shapes that the acq_plans phase holds every compiled tile
+# at: (candidates, width, form, studies): the main paths' r = 64 at S = 1,
+# the engines' r = 48 at S = 16.
+ACQ_CHECK_SHAPES = ((64, DIM, "float", 1), (64, MIXED_DIM, "mixed", 1),
+                    (48, DIM, "float", 16), (48, MIXED_DIM, "mixed", 16))
+
+
+class AcqPlanRecorder:
+    """The fused-EI launches of each path that looked their plan up, by
+    (plan_rows, n, d, form, studies) (`acq.KEY_LAUNCHES`), and how many
+    missed the plan table (`acq.MISSES`).  `run` drives a path and emits
+    its line: the misses must be 0.  With `record` (a path: `--acq-keys`,
+    the run whose traffic `tune_acq` races on) a miss is printed, not
+    fatal, and the launches are written to `record` after each path."""
+
+    def __init__(self, record: str | None):
+        self.record, self.by_path = record, {}
+
+    def run(self, name: str, fn, *args):
+        """`fn(*args)` as path `name`; returns its result."""
+        from repro_torch.kernels import acq
+        misses, launches = acq.MISSES, collections.Counter(acq.KEY_LAUNCHES)
+        out = fn(*args)
+        self.note(name, acq.MISSES - misses, acq.KEY_LAUNCHES - launches)
+        return out
+
+    def note(self, name: str, misses: int, launches) -> None:
+        """Add `misses` and `launches` (a Counter by key and studies) to
+        path `name`, emit its line, write the record and, outside a
+        recording run, fail on a miss."""
+        entry = self.by_path.setdefault(
+            name, {"launches": collections.Counter(), "misses": 0})
+        entry["launches"].update(launches)
+        entry["misses"] += misses
+        emit({"phase": name, "part": "acq plans",
+              "fused_ei_misses": entry["misses"],
+              "keys": sorted({k[:4] for k in entry["launches"]}),
+              "launches": [[*k, c] for k, c in
+                           sorted(entry["launches"].items())]})
+        if self.record:
+            every = collections.Counter()
+            for e in self.by_path.values():
+                every.update(e["launches"])
+            with open(self.record, "w") as f:
+                json.dump({"paths": {k: [[*key, c] for key, c in
+                                         sorted(e["launches"].items())]
+                                     for k, e in self.by_path.items()},
+                           "keys": sorted({k[:4] for k in every}),
+                           "launches": [[*k, c] for k, c in
+                                        sorted(every.items())]}, f, indent=1)
+        elif entry["misses"]:
+            raise AssertionError(
+                f"{name}: {entry['misses']} fused-EI launches missed the plan "
+                f"table (keys {sorted({k[:4] for k in entry['launches']})}): "
+                f"run `chip_smoke.py --acq-keys` and `tune_acq` again")
+
+    def misses(self) -> dict:
+        return {k: e["misses"] for k, e in self.by_path.items()}
+
+
+def acq_plan_checks(dev, record: bool) -> dict:
+    """Phase acq_plans, before the paths: every compiled tile of
+    `csrc/acq.cu` (R = 4, 8, 16) in both forms at `ACQ_CHECK_SHAPES` on
+    `tune_acq.key_inputs` (distinct seeded studies), held to the plain
+    version (`held_ei`, TOL_EI) at one k-slice, and at S = 16 each lane
+    torch.equal to its one-study launch at one k-slice, at the
+    heuristic's and at the shape's tabled split.  Then the committed table
+    (`acq.PLANS_PATH`): each entry's own plan and the heuristic's held
+    state by state to the plain version on `tune_acq.HELD_STATES` seeded
+    states of its key (`tune_acq.held_states`), where the tabled plan
+    must hold as many as the heuristic's (the race admits no other).  At
+    2 or more k-slices a plan leaves that rule on some of these
+    ill-conditioned states at any R, the heuristic's split included
+    (ROADMAP, queue 3): the states are printed, and a tile is held on
+    every state at one k-slice above.  Then the table's
+    sha256 of `acq.cu` that of the source, and each entry's plan
+    reproducing its digests on the card (`tune_acq.entry_digests`; a
+    recording run skips these three, as the table is about to be raced
+    again).  Prints each key's tabled and heuristic plans with the device
+    ms the race measured (this run's own come in the profile phase,
+    `acq_plan_times`)."""
+    from repro_torch.kernels import acq, tune_acq
+    t0 = time.perf_counter()
+    held, lanes = {}, {}
+    for r, d, form, s in ACQ_CHECK_SHAPES:
+        mixed = form == "mixed"
+        args = tune_acq.key_inputs(r, N_MAX, d, mixed, s)
+        one = args if s > 1 else tune_acq.lane(args, 0)
+        ops_, masks = (one[:-2], one[-2:]) if mixed else (one, [])
+        cat = None if not mixed else (masks[1][:, None, :] if s > 1
+                                      else masks[1])
+        k_tiles = -(-N_MAX // acq.TK)
+        heur = acq.heuristic_config(r, N_MAX).tiles_per_slice
+        tabled = acq._table().get((r, N_MAX, d, mixed))
+        for rows in acq.COMPILED_ROWS:
+            cfg = acq.AcqTileConfig(rows, k_tiles, True)
+            tag = f"{form} S={s} r={r} R={rows}"
+            held[tag] = held_ei(
+                tag, lambda a, c=cfg: tune_acq.launch([*a, *masks], mixed, c),
+                lambda a: plain_ei(a, *masks), ops_, cat)
+            splits = {k_tiles, heur}
+            if tabled is not None and tabled.rows == rows:
+                splits.add(tabled.tiles_per_slice)
+            for tps in (splits if s > 1 else ()):
+                cfg = acq.AcqTileConfig(rows, tps, True)
+                ei, grad = tune_acq.launch(args, mixed, cfg)
+                unequal = []
+                for i in range(s):
+                    e1, g1 = tune_acq.launch(tune_acq.lane(args, i), mixed, cfg)
+                    if not (torch.equal(ei[i], e1) and torch.equal(grad[i], g1)):
+                        unequal.append(i)
+                lanes[f"{tag} slices={-(-k_tiles // tps)}"] = unequal
+                if unequal:
+                    raise AssertionError(f"acq_plans {tag}, {tps} k-tiles a "
+                                         f"slice: lanes {unequal} differ from "
+                                         f"their S = 1 launches")
+    table = json.loads(acq.PLANS_PATH.read_text())
+    sha = tune_acq.source_sha256()
+    plans = []
+    for e in table["entries"]:
+        # (.get: a recording run may read a table of an older layout)
+        line = {k: e.get(k) for k in ("plan_rows", "n", "d", "form", "rows",
+                                      "tiles_per_slice", "slices", "ms",
+                                      "cost_ms", "launches",
+                                      "kept_heuristic")}
+        line["heuristic"] = {k: v for k, v in e["heuristic"].items()
+                             if k in ("rows", "slices", "cost_ms")
+                             or k in e["ms"]}
+        h = e["heuristic"]
+        on_tabled, on_heuristic = tune_acq.held_states(
+            (e["plan_rows"], e["n"], e["d"], e["form"]),
+            [acq.AcqTileConfig(e["rows"], e["tiles_per_slice"], True),
+             acq.AcqTileConfig(h["rows"], h["tiles_per_slice"], True)],
+            tune_acq.HELD_STATES, table["seed"])
+        line["states"] = {"tabled": on_tabled, "heuristic": on_heuristic}
+        if not record and (sum(on_tabled["held"])
+                           < sum(on_heuristic["held"])):
+            raise AssertionError(f"acq_plans: the tabled plan holds fewer "
+                                 f"seeded states than the heuristic's: {line}")
+        if not record:
+            got = tune_acq.entry_digests(e, table["studies"], table["seed"])
+            line["digest_reproduced"] = got == e["digest"]
+            if got != e["digest"]:
+                raise AssertionError(
+                    f"acq_plans: {line} gives digests {got}, the table "
+                    f"{e['digest']}: the table is stale, run tune_acq again")
+        plans.append(line)
+    if not record and table["acq_cu_sha256"] != sha:
+        raise AssertionError(f"acq_plans: the table was raced on acq.cu "
+                             f"{table['acq_cu_sha256']}, the source is {sha}: "
+                             f"run tune_acq again")
+    return {"phase": "acq_plans", "recording": record,
+            "compiled_rows": list(acq.COMPILED_ROWS), "tol": TOL_EI,
+            "held": held, "lanes_unequal": lanes,
+            "table": {k: table.get(k) for k in ("card", "device", "torch",
+                                                "cuda", "acq_cu_sha256")},
+            "source_sha256": sha, "plans": plans,
+            "seconds": time.perf_counter() - t0}
+
+
+def acq_plan_times(dev) -> dict:
+    """Profile phase: each table key's tabled and heuristic plans by device
+    ms (torch.profiler, median of REPS launches, the two in turns) at
+    S = 1 and S = the table's studies, on the key's inputs, beside the
+    times the race recorded, the plain version's CUDA-event ms and the
+    bound (`ei_bound`) at both S."""
+    from repro_torch.kernels import acq, tune_acq
+    table = json.loads(acq.PLANS_PATH.read_text())
+    out = {}
+    for e in table["entries"]:
+        key = (e["plan_rows"], e["n"], e["d"], e["form"])
+        mixed, heur, s = e["form"] == "mixed", e["heuristic"], table["studies"]
+        tabled, heuristic = tune_acq.plan_times(
+            key, [acq.AcqTileConfig(e["rows"], e["tiles_per_slice"], True),
+                  acq.AcqTileConfig(heur["rows"], heur["tiles_per_slice"],
+                                    False)],
+            (1, s), REPS, table["seed"])
+        many = tune_acq.key_inputs(*key[:3], mixed, s, table["seed"])
+        plain, bounds = {}, {}
+        for studies, args in ((1, tune_acq.lane(many, 0)), (s, many)):
+            ops_, masks = (args[:-2], args[-2:]) if mixed else (args, [])
+            plain[f"s{studies}_ms"] = median_ms(lambda: plain_ei(ops_, *masks))
+            bounds[f"s{studies}"] = ei_bound(studies, *key[:3], mixed)
+        out[" ".join(map(str, key))] = {
+            "tabled": {"rows": e["rows"], "slices": e["slices"], **tabled},
+            "heuristic": {"rows": heur["rows"], "slices": heur["slices"],
+                          **heuristic},
+            "race": {"tabled": e["ms"],
+                     "heuristic": {k: v for k, v in heur.items()
+                                   if k.endswith("_ms")}},
+            "plain": plain, "bound_ms": bounds}
+    return out
 
 
 def expected_counts(acq_cfg, gram: str, ei: str) -> dict:
@@ -2253,7 +2478,7 @@ def stacked_mask_checks(eng, gen) -> dict:
                                *args, cm, km)),
                            plain_ms=median_ms(lambda: mixed_plain(args)),
                            bound_ms=b_ms, bound_by=b_by,
-                           plan=dataclasses.asdict(acq.launch_plan(
+                           plan=dataclasses.asdict(acq.call_plan(
                                n_studies, r, n_max, d, True)))
     if not (lanes and shared):
         raise AssertionError(f"stacked masks, fused EI: {out['fused_ei']}")
@@ -2387,7 +2612,7 @@ def ei_at_seeds(eng, seeds) -> dict:
     (projected onto its lattice, as the ascent starts): one launch over all
     S lanes of the engine's state, against one launch on that lane alone
     with the same operands (the lane's rows of the stacked ones).  The two
-    must be torch.equal, with the same k-split in their `acq.launch_plan`
+    must be torch.equal, with the same k-split in their `acq.call_plan`
     (slices and k-tiles a slice): a lane of the batch is summed in the
     single launch's order.  Also held: the lane's own hoist
     (`_make_eval_batch` on the lane's views, as the single-study path
@@ -2404,10 +2629,11 @@ def ei_at_seeds(eng, seeds) -> dict:
         acq.fused_ei_grad_mixed_cuda
     v_all, g_all = launch(*args, *masks)
     r, d, mixed = x0.shape[1], eng.dim, eng.desc is not None
-    plans = {b: acq.launch_plan(b, r, st.n_max, d, mixed)
+    plans = {b: acq.call_plan(b, r, st.n_max, d, mixed)
              for b in (1, eng.n_studies)}
-    same_split = all((p.slices, p.tiles_per_slice) == (plans[1].slices,
-                                                       plans[1].tiles_per_slice)
+    same_split = all((p.rows, p.slices, p.tiles_per_slice)
+                     == (plans[1].rows, plans[1].slices,
+                         plans[1].tiles_per_slice)
                      for p in plans.values())
     lanes, unequal, own_unequal = {}, [], []
     for s in range(eng.n_studies):
@@ -2425,10 +2651,11 @@ def ei_at_seeds(eng, seeds) -> dict:
                         "own_hoist_grad_max_abs_diff": max_abs(g_all[s], go)}
     out = {"lanes_equal_to_single_launch": not unequal,
            "unequal_lanes": unequal, "same_k_split": same_split,
-           "plan_s1": {"slices": plans[1].slices,
+           "plan_s1": {"rows": plans[1].rows, "slices": plans[1].slices,
                        "tiles_per_slice": plans[1].tiles_per_slice,
                        "grid": list(plans[1].grid)},
            f"plan_s{eng.n_studies}": {
+               "rows": plans[eng.n_studies].rows,
                "slices": plans[eng.n_studies].slices,
                "tiles_per_slice": plans[eng.n_studies].tiles_per_slice,
                "grid": list(plans[eng.n_studies].grid)},
@@ -3736,9 +3963,9 @@ def restart_shard_checks(eng, gen) -> dict:
             if not equal or got != want:
                 raise AssertionError(f"restart shard {key} S={s} split {k}: "
                                      f"digest {got}, unsharded {want}")
-            plan = acq.launch_plan(s, r_full // k, N_MAX, d, mixed, r_full)
+            plan = acq.call_plan(s, r_full // k, N_MAX, d, mixed, r_full)
             out[f"S={s} 1/{k}"] = {"digest": got, "unsharded_digest": want,
-                                   "rows_equal": equal,
+                                   "rows_equal": equal, "rows": plan.rows,
                                    "slices": plan.slices,
                                    "tiles_per_slice": plan.tiles_per_slice,
                                    "grid": list(plan.grid), **held}
@@ -4898,8 +5125,9 @@ async def federation_recovery(a, objective, streams) -> dict:
 COUNTED_WORKER = '''\
 """`python -m repro_torch.hpo.shard_worker ARGS` run as `{script} -m
 repro_torch.hpo.shard_worker ARGS`, which also writes the worker's kernel
-launches to <ckpt-dir>/launches-<pid>.json when it exits (a worker that
-is SIGKILLed writes none)."""
+launches, its fused-EI launches that missed the plan table and the plan
+keys it read to <ckpt-dir>/launches-<pid>.json when it exits (a worker
+that is SIGKILLed writes none)."""
 import json
 import os
 import sys
@@ -4918,6 +5146,9 @@ finally:
               for m in KERNEL_MODULES}}
     counts["acq_mixed"] = acq.LAUNCHES_MIXED
     counts["trsv_general"] = trsv.LAUNCHES_GENERAL
+    counts["acq_misses"] = acq.MISSES
+    counts["acq_launches"] = [[*k, c] for k, c in
+                              sorted(acq.KEY_LAUNCHES.items())]
     d = argv[argv.index("--ckpt-dir") + 1]
     with open(os.path.join(d, f"launches-{{os.getpid()}}.json"), "w") as f:
         json.dump(counts, f)
@@ -4941,19 +5172,26 @@ def counted_worker() -> str:
 
 def worker_launches(c) -> dict:
     """The launch counts that C's workers wrote as they exited, by shard
-    (one entry a worker lifetime that ended in a shutdown), and their sum."""
+    (one entry a worker lifetime that ended in a shutdown), their sum, and
+    the workers' fused-EI table misses and launches by plan key and
+    studies (`acq_misses`, `acq_launches`: [plan_rows, n, d, form,
+    studies, launches] rows)."""
     import glob
     total = {k: 0 for k in read_counts()}
-    by_shard = {}
+    by_shard, misses, keys = {}, 0, collections.Counter()
     for i in range(FED_SHARDS):
         by_shard[i] = []
         for path in sorted(glob.glob(os.path.join(c.shard_dir(i),
                                                   "launches-*.json"))):
             with open(path) as f:
                 counts = json.load(f)
+            misses += counts.pop("acq_misses")
+            keys.update({tuple(k[:-1]): k[-1]
+                         for k in counts.pop("acq_launches")})
             by_shard[i].append(counts)
             total = add_counts(total, counts)
-    return {"by_shard": by_shard, "total": total}
+    return {"by_shard": by_shard, "total": total, "acq_misses": misses,
+            "acq_launches": [[*k, c] for k, c in sorted(keys.items())]}
 
 
 def timed_transport(dev, template, root):
@@ -5239,8 +5477,8 @@ def federation_path(dev, pair, gateway_line) -> tuple[dict, dict]:
     equal to A's (digests over RPC), then a SIGKILL of worker 0 and its
     revival; (4) 24 asyncio clients on A and C in turns (A, C, C, A),
     each fresh from the records: suggestions a second and tick ms by
-    shard, beside the gateway phase's.  Returns A's launches and the sum
-    of C's workers'."""
+    shard, beside the gateway phase's.  Returns A's launches, the sum of
+    C's workers' and the workers' (fused-EI table misses, plan keys)."""
     import shutil
     import tempfile
     start = time.perf_counter()
@@ -5301,6 +5539,7 @@ def federation_path(dev, pair, gateway_line) -> tuple[dict, dict]:
         line["transport"] = asyncio.run(transport_steps(
             dev, template, roots["c"], records, objective, twin, views))
         workers = line["transport"]["launches"]["total"]
+        worker_acq = [line["transport"]["launches"]]
         runs = []
         for k, kind in enumerate(("A", "C", "C", "A")):
             root = tempfile.mkdtemp(prefix=f"chip_smoke_fed{k}_")
@@ -5320,6 +5559,7 @@ def federation_path(dev, pair, gateway_line) -> tuple[dict, dict]:
                 run = asyncio.run(transport_clients(dev, template, root,
                                                     objective))
                 workers = add_counts(workers, run["launches"]["total"])
+                worker_acq.append(run["launches"])
             runs.append(dict(kind=kind, **run))
         line["clients"] = runs
         line["clients_median"] = {
@@ -5332,6 +5572,13 @@ def federation_path(dev, pair, gateway_line) -> tuple[dict, dict]:
         line["launches"] = counts
         line["launches_b"] = b_share
         line["worker_launches"] = workers
+        line["worker_acq_misses"] = sum(w["acq_misses"] for w in worker_acq)
+        worker_keys = collections.Counter()
+        for w in worker_acq:
+            worker_keys.update({tuple(k[:-1]): k[-1]
+                                for k in w["acq_launches"]})
+        line["worker_acq_launches"] = [[*k, c] for k, c in
+                                       sorted(worker_keys.items())]
     finally:
         for d in roots.values():
             shutil.rmtree(d, ignore_errors=True)
@@ -5339,7 +5586,7 @@ def federation_path(dev, pair, gateway_line) -> tuple[dict, dict]:
     emit(line)
     require_launches("A", counts)
     require_launches("C's workers", workers)
-    return counts, workers
+    return counts, workers, (line["worker_acq_misses"], worker_keys)
 
 
 def study_views_fed(fed, sids) -> dict:
@@ -5475,8 +5722,8 @@ def ei_launches(dev) -> dict:
         names = [(e["name"], e["count"]) for e in split["by_name"]]
         if len(names) != 1 or names[0][1] != 1 or "fused_ei" not in names[0][0]:
             raise AssertionError(f"{form}: device activity {split['by_name']}")
-        plan = acq.launch_plan(1, 64, N_MAX, args[0].shape[-1],
-                               form.endswith("mixed"))
+        plan = acq.call_plan(1, 64, N_MAX, args[0].shape[-1],
+                             form.endswith("mixed"))
         out[form] = {"device_ms": split["busy_ms"], "kernel": names[0][0],
                      "plan": dataclasses.asdict(plan)}
     emit({"phase": "profile", "kernel": "fused_ei_grad", "launch": out})
@@ -6551,8 +6798,11 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(root, "src")
+    record = None
     if argv[:1] == ["--digests"]:
         src = os.path.abspath(argv[1]) if len(argv) > 1 else src
+    elif argv[:1] == ["--acq-keys"] and len(argv) == 2:
+        record, argv = os.path.abspath(argv[1]), []
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -6575,6 +6825,8 @@ def main(argv: list[str] | None = None) -> int:
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "Used" in ln]
              for k, v in _build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    emit(acq_plan_checks(dev, record is not None))
+    recorder = AcqPlanRecorder(record)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -6601,10 +6853,13 @@ def main(argv: list[str] | None = None) -> int:
     for row in rows:
         if row["name"] in gram_batched:
             row["batched"] = gram_batched[row["name"]]
-    paths = {"main": main_path(dev), "mixed": mixed_path(dev)}
+    # Every path runs through the recorder: the fused-EI plan keys it reads
+    # and its launches that missed the plan table (which must be none).
+    paths = {"main": recorder.run("main", main_path, dev),
+            "mixed": recorder.run("mixed", mixed_path, dev)}
     launches_by_path = {name: p[0] for name, p in paths.items()}
-    launches_by_path["append"] = append_path(dev)
-    engines = {name: engine_path(dev, mixed)
+    launches_by_path["append"] = recorder.run("append", append_path, dev)
+    engines = {name: recorder.run(name, engine_path, dev, mixed)
                for name, mixed in (("engine", False), ("engine_mixed", True))}
     for name, (counts, *_) in engines.items():
         launches_by_path[name] = counts
@@ -6615,11 +6870,12 @@ def main(argv: list[str] | None = None) -> int:
     pools, pool_lines = {}, {}
     for name, mixed in (("pool", False), ("pool_mixed", True)):
         engine_line = engines["engine_mixed" if mixed else "engine"][-1]
-        launches_by_path[name], pools[name], pool_lines[name] = pool_path(
-            dev, mixed, engine_line)
+        launches_by_path[name], pools[name], pool_lines[name] = recorder.run(
+            name, pool_path, dev, mixed, engine_line)
     # The mesh phase: pools on logical devices of the one card, from the
     # engines' states, before anything else serves those engines.
-    launches_by_path["mesh"], mesh_line = mesh_path(dev, engines)
+    launches_by_path["mesh"], mesh_line = recorder.run("mesh", mesh_path,
+                                                       dev, engines)
     for row in rows:
         kind = {"fused_ei_grad": "engine",
                 "fused_ei_grad_mixed": "engine_mixed"}.get(row["name"])
@@ -6649,54 +6905,61 @@ def main(argv: list[str] | None = None) -> int:
     ei_device = ei_launches(dev)
     emit({"phase": "profile", "kernel": "fused_ei_grad at r=48, n=1024",
           **ei_engine_times(dev)})
+    emit({"phase": "profile", "kernel": "fused_ei_grad plans",
+          "nvidia_smi": smi, **acq_plan_times(dev)})
     # The neural phases run after every profile check and before the
     # fantasy phases, each profiling its tier first (`profile_neural`);
     # they leave one slot of each engine escalated, which the fantasy
     # phases keep unflagged.
     for name, (_, eng, studies, _, _) in engines.items():
         neural = "neural_mixed" if eng.mixed else "neural"
-        launches_by_path[neural], _ = neural_path(dev, eng, studies,
-                                                  eng.mixed)
+        launches_by_path[neural], _ = recorder.run(
+            neural, neural_path, dev, eng, studies, eng.mixed)
     # The fantasy phases run last: with them before the profile checks,
     # torch.profiler recorded no device activity in tri_inverse_launches
     # in two runs (PERF.md, PR 21).
     for name, (_, eng, studies, _, _) in engines.items():
         fantasy = "fantasy_mixed" if eng.mixed else "fantasy"
         profile_fantasy(fantasy, eng, FANTASY_SLOTS[0])
-        launches_by_path[fantasy], _ = fantasy_path(dev, eng, studies,
-                                                    eng.mixed)
+        launches_by_path[fantasy], _ = recorder.run(
+            fantasy, fantasy_path, dev, eng, studies, eng.mixed)
     for name, pair in pools.items():
-        line = {"phase": name, "part": "protocol", **pool_protocol(pair)}
+        line = {"phase": name, "part": "protocol",
+                **recorder.run(f"{name} protocol", pool_protocol, pair)}
         if name == "pool":
-            line["scheduler"] = scheduler_path(dev)
+            line["scheduler"] = recorder.run("scheduler", scheduler_path, dev)
         emit(line)
     # The gateway last: it serves q-asks, and it starts from the studies
     # the float pool's protocol left.
-    launches_by_path["gateway"], gateway_line = gateway_path(
-        dev, pools["pool"], pool_lines["pool"])
+    launches_by_path["gateway"], gateway_line = recorder.run(
+        "gateway", gateway_path, dev, pools["pool"], pool_lines["pool"])
     # The federation after it, over the same studies: two shards of the
     # gateway phase's gateway in one process, its single-pool twin, and
     # two shard worker processes on the same card.
-    (launches_by_path["federation"],
-     launches_by_path["federation_workers"]) = federation_path(
-        dev, pools["pool"], gateway_line)
+    (launches_by_path["federation"], launches_by_path["federation_workers"],
+     (worker_misses, worker_launches)) = recorder.run(
+        "federation", federation_path, dev, pools["pool"], gateway_line)
+    recorder.note("federation_workers", worker_misses, worker_launches)
     # The language-model side last: the trainer, then an NN-HPO run that
     # tunes it through run_bo.
-    launches_by_path["lm"], _ = lm_path(dev)
-    launches_by_path["nn_hpo"], _ = nn_hpo_path(dev)
+    launches_by_path["lm"], _ = recorder.run("lm", lm_path, dev)
+    launches_by_path["nn_hpo"], _ = recorder.run("nn_hpo", nn_hpo_path, dev)
     # The routed and the latent-attention blocks at full width, before the
     # step profile (a profiling session slows later host launches).
-    launches_by_path["lm_moe"], _ = wide_lm_path(dev, "lm_moe",
-                                                 "granite-moe-3b-a800m")
-    launches_by_path["lm_mla"], _ = wide_lm_path(dev, "lm_mla", "minicpm3-4b")
+    launches_by_path["lm_moe"], _ = recorder.run(
+        "lm_moe", wide_lm_path, dev, "lm_moe", "granite-moe-3b-a800m")
+    launches_by_path["lm_mla"], _ = recorder.run(
+        "lm_mla", wide_lm_path, dev, "lm_mla", "minicpm3-4b")
     # The recurrent and encoder families: the chunked scans against their
     # recurrences at full width, then hubert, zamba2 and xlstm trained.
     emit(recurrence_check(dev))
     for phase, arch, layers, seq in RECURRENT_PHASES:
-        launches_by_path[phase], _ = wide_lm_path(
-            dev, phase, arch, layers, seq, cpu_rows=RECURRENT_CPU_ROWS)
+        launches_by_path[phase], _ = recorder.run(
+            phase, lambda *a: wide_lm_path(*a, cpu_rows=RECURRENT_CPU_ROWS),
+            dev, phase, arch, layers, seq)
     # The serving path at full width, before the profiles.
-    launches_by_path["lm_serve"], _, served = lm_serve_path(dev)
+    launches_by_path["lm_serve"], _, served = recorder.run(
+        "lm_serve", lm_serve_path, dev)
     emit({"phase": "profile", "part": "lm step", **lm_step_profile(dev)})
     emit({"phase": "profile", "part": "lm_moe step",
           **lm_step_profile(dev, wide_config("granite-moe-3b-a800m"))})
@@ -6721,6 +6984,8 @@ def main(argv: list[str] | None = None) -> int:
     for row in rows:
         mod, source, replaces = SOURCES[row["name"]]
         by_path = {name: counts[mod] for name, counts in launches_by_path.items()}
+        if mod in ("acq", "acq_mixed"):
+            row["table_misses_by_path"] = recorder.misses()
         kernels.append(dict(name=row["name"], route="cuda", source=source,
                             replaces=replaces, launches=sum(by_path.values()),
                             launches_by_path=by_path,
@@ -6731,7 +6996,8 @@ def main(argv: list[str] | None = None) -> int:
                             **{k: row[k] for k in ("general_ms", "batched", "general",
                                                    "device_ms", "host_gap_ms",
                                                    "stacked_masks",
-                                                   "restart_shard")
+                                                   "restart_shard",
+                                                   "table_misses_by_path")
                                if k in row}))
     emit({"kernels": kernels})
     print(smi, flush=True)

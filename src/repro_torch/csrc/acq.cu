@@ -39,9 +39,12 @@
 // 512 CTAs: R = 8, C = 64 and 4 slices of 256 rows at r = 64, n = 1024.
 // The split depends on (r, n, d) only, never on the batch, and the last
 // CTA sums a row block's partials in (k-slice, column block) order, so a
-// study's outputs carry the same bits in any batch.  The kernel
-// is a template on R; one tile is compiled, the one a sweep of R = 4, 8,
-// 16 against 1-8 slices chose on the H100 (PERF.md, section 6).
+// study's outputs carry the same bits in any batch.  The kernel is a
+// template on R; three tiles are compiled, R = 4, 8 and 16 (C = 128, 64,
+// 32), in both forms.  Which tile and k-split a launch takes is the
+// wrapper's plan: a table raced off line on the card per (R of the
+// unsharded launch, n, d, form), or the R = 8 rule above
+// (`kernels/acq.acq_tile_config`).
 //   * A streams, nothing n-long is held: a CTA walks its k-slice in tiles
 //     of 32 rows; cp.async stages A[k-tile, its C columns], x_buf[k-tile]
 //     and amask four stages deep (16-byte copies of A where n % 4 is 0).
@@ -68,10 +71,15 @@
 //     (cdf V1 - 2 dvar V2), and sets the counter back to 0, so the
 //     scratch is ready for the next call on the stream.  No grid-wide
 //     barrier: any batch runs.
-// Shared memory is 36-40 KB a CTA whatever n is (four stages of the tile
-// and the reduction buffers), so any n that device memory holds runs.  The
-// tile (R), the k-tiles per slice and the shared bytes come from the plan;
-// the entry checks the bytes against `layout`.  Rounding differs from the
+// Shared memory is 36-40 KB a CTA at R = 8 whatever n is (four stages of
+// the tile and the reduction buffers; about 24 KB at R = 16 and 70 KB at
+// R = 4, where the A stages are 128 columns wide), so any n that device
+// memory holds runs.  The tile (R), the k-tiles per slice and the shared
+// bytes come from the plan; the entry checks the bytes against `layout`.
+// A row's sums do not depend on its place in its row block (each row's U,
+// K and partials are its own; the warps of a row group sum in warp order),
+// so a restart shard that starts mid-block sums its rows as the unsharded
+// launch does.  Rounding differs from the
 // earlier design (shorter sums: 32-term chains of U, trees across CTAs),
 // not the math.
 // erfcf / expf / sqrtf are the accurate forms (no fast math), as the
@@ -87,7 +95,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileOutputs = 512;   // R x C outputs of U per CTA
-constexpr int kRows = 8;            // R of the compiled tile (C = 64)
 constexpr int kTk = 32;             // rows of A per staged k-tile
 constexpr int kStages = 4;          // cp.async ring depth
 constexpr int kMaxDynamic = 232448 - 1024;   // opt-in limit less static smem
@@ -533,23 +540,30 @@ int launch(const Args& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The compiled tiles: R = 4, 8 and 16 candidate rows; any other R is
+// refused.
 template <bool kMixed>
 int launch_rows(const Args& a, int rows, cudaStream_t st) {
   if (a.batch == 0 || a.r == 0) return 0;
-  if (rows != kRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows != 4 && rows != 8 && rows != 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int want = static_cast<int>(
       sizeof(float) * layout(rows, kTileOutputs / rows, a.d, kMixed).total);
   if (a.n < 1 || a.d < 1 || a.tps < 1 || a.batch > 65535 ||
       (a.r + rows - 1) / rows > 65535 || a.shared != want ||
       a.shared > kMaxDynamic || (a.mask_step != 0 && a.mask_step != a.d))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<kRows, kMixed>(a, st);
+  switch (rows) {
+    case 4: return launch<4, kMixed>(a, st);
+    case 8: return launch<8, kMixed>(a, st);
+    default: return launch<16, kMixed>(a, st);
+  }
 }
 
 }  // namespace
 
-// The float form.  `rows` is the tile's candidate rows (the compiled
-// kRows; the tile has 512 / rows columns), `tps` the k-tiles a CTA walks
+// The float form.  `rows` is the tile's candidate rows (4, 8 or 16; the
+// tile has 512 / rows columns), `tps` the k-tiles a CTA walks
 // and `shared` its dynamic shared bytes, all from kernels/acq.launch_plan;
 // `part` and `counters` are the call's scratch (partials of every CTA;
 // one int per (study, row block), 0 on entry and left 0).

@@ -25,19 +25,27 @@ launch counter; the mixed kernel splits the rows as it loads them) and
 `ei_grad_torch` for CPU tensors.  Not differentiable: the gradient is an
 output.
 
-On the card a call is one launch: each CTA owns a tile of 8 candidate rows
-x 64 columns of U and a slice of k for one study (`launch_plan`), writes
-its partial row sums to scratch, and the last CTA of each row block sums
-them in a fixed order and finishes the rows.  The scratch (partials and one
-ticket counter per row block) is kept per device and stream and grows as
-needed; the kernel leaves the counters at 0, so a call allocates nothing
-but its outputs.
+On the card a call is one launch: each CTA owns a tile of R candidate rows
+x 512 / R columns of U (R = 4, 8 or 16) and a slice of k for one study
+(`launch_plan`), writes its partial row sums to scratch, and the last CTA
+of each row block sums them in a fixed order and finishes the rows.  The
+tile and the k-split are the call's `AcqTileConfig` (`acq_tile_config`):
+the plan raced off line on the card for (R of the unsharded launch, n, d,
+form) and committed in `acq_plans.json` (`tune_acq`), or the R = 8
+heuristic for a key the table lacks.  The scratch (partials and one ticket
+counter per row block) is kept per device and stream and grows as needed;
+the kernel leaves the counters at 0, so a call allocates nothing but its
+outputs.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import json
 import math
+import os
+from pathlib import Path
 
 import torch
 
@@ -54,14 +62,22 @@ _SIGNATURES = {
     "repro_fused_ei_grad_mixed": (_build.ptr,) * 14 + (_build.cint,) * 8
     + (_build.ptr,),
 }
-# csrc/acq.cu: a CTA of 128 threads owns ROWS candidate rows x 512 / ROWS
-# columns of U (the compiled tile, kRows) and walks its k-slice in tiles of
+# csrc/acq.cu: a CTA of 128 threads owns R candidate rows x 512 / R
+# columns of U (R one of COMPILED_ROWS) and walks its k-slice in tiles of
 # 32 rows, staged 4 deep.
 WARPS, TILE_OUTPUTS, TK, STAGES = 4, 512, 32, 4
-ROWS = 8
+COMPILED_ROWS = (4, 8, 16)
+ROWS = 8                   # the heuristic's R
 TARGET_CTAS = 512          # about 4 CTAs an SM on an H100's 132
 MIN_SLICE_TILES = 4
 MAX_SHARED = 232448 - 1024     # opt-in shared memory less the static part
+# The committed plan table (`python -m repro_torch.kernels.tune_acq`).
+PLANS_PATH = Path(__file__).with_name("acq_plans.json")
+MISSES = 0          # CUDA launches on the heuristic plan: the key was not
+# in the table and no race ran (counted apart from LAUNCHES)
+# CUDA launches that looked their plan up, by (plan_rows, n, d, form,
+# studies): the traffic `tune_acq` weights its race by.
+KEY_LAUNCHES: collections.Counter = collections.Counter()
 # (device index, stream) -> (partials, counters), kept across calls.
 _SCRATCH: dict[tuple[int, int], tuple[Tensor, Tensor]] = {}
 
@@ -155,57 +171,185 @@ class LaunchPlan:
     counters: int                  # scratch: one int per (study, row block)
 
 
-def shared_bytes(d: int, mixed: bool) -> int:
-    """Dynamic shared memory of one CTA: `layout` in `csrc/acq.cu` (each
-    block rounded up to 16 bytes).  Independent of n."""
+@dataclasses.dataclass(frozen=True)
+class AcqTileConfig:
+    """The tile and k-split of a fused-EI call (`launch_plan`): `rows`
+    candidate rows a CTA (one of COMPILED_ROWS; 512 / rows columns of U)
+    and `tiles_per_slice` k-tiles of 32 rows a k-slice.  `measured` tells
+    a raced plan (the committed table's, or an injected `measure_fn`'s)
+    from the heuristic."""
+    rows: int
+    tiles_per_slice: int
+    measured: bool
+
+
+# Cache key: (plan_rows, n, d, mixed).  Lifecycle = process lifetime; every
+# key a process resolves with autotuning on is kept here (raced, tabled or
+# heuristic).  Tests reset it directly.
+_ACQ_TUNE_CACHE: dict[tuple, AcqTileConfig] = {}
+_TABLE: dict[tuple, AcqTileConfig] | None = None
+
+
+def next_power_of_2(n: int) -> int:
+    """Smallest power of two >= n (>= 1)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _acq_autotune_enabled() -> bool:
+    """`REPRO_ACQ_AUTOTUNE=off|0|false` pins the heuristic config (and
+    bypasses the cache and the table entirely), read at every call."""
+    return os.environ.get("REPRO_ACQ_AUTOTUNE", "on").strip().lower() \
+        not in ("off", "0", "false")
+
+
+def heuristic_config(plan_rows: int, n: int) -> AcqTileConfig:
+    """R = 8, and k split until one study's grid of `plan_rows` candidates
+    has about `TARGET_CTAS` CTAs, with at least `MIN_SLICE_TILES` k-tiles
+    a slice."""
+    col_blocks = -(-n // (TILE_OUTPUTS // ROWS))
+    k_tiles, plan_blocks = -(-n // TK), -(-plan_rows // ROWS)
+    slices = min(-(-TARGET_CTAS // (col_blocks * plan_blocks)),
+                 max(1, k_tiles // MIN_SLICE_TILES))
+    return AcqTileConfig(rows=ROWS, tiles_per_slice=-(-k_tiles // slices),
+                         measured=False)
+
+
+def candidates(plan_rows: int, n: int, d: int, mixed: bool
+               ) -> list[AcqTileConfig]:
+    """The plans a race tries for a key, the heuristic first: every
+    compiled R whose shared memory fits, times 1 to k_tiles /
+    `MIN_SLICE_TILES` k-slices (as k-tiles a slice, each split once)."""
+    heur = heuristic_config(plan_rows, n)
+    k_tiles = -(-n // TK)
+    out = [(heur.rows, heur.tiles_per_slice)]
+    for rows in COMPILED_ROWS:
+        if shared_bytes(d, mixed, rows) > MAX_SHARED:
+            continue
+        for slices in range(1, max(1, k_tiles // MIN_SLICE_TILES) + 1):
+            if (rows, -(-k_tiles // slices)) not in out:
+                out.append((rows, -(-k_tiles // slices)))
+    return [AcqTileConfig(rows, tps, measured=True) for rows, tps in out]
+
+
+def _table() -> dict[tuple, AcqTileConfig]:
+    """The committed plans by (plan_rows, n, d, mixed), read once."""
+    global _TABLE
+    if _TABLE is None:
+        table = {}
+        for e in json.loads(PLANS_PATH.read_text())["entries"]:
+            if e["rows"] not in COMPILED_ROWS or e["tiles_per_slice"] < 1:
+                raise ValueError(f"{PLANS_PATH.name}: plan {e} is not one "
+                                 f"the kernel takes")
+            table[(e["plan_rows"], e["n"], e["d"], e["form"] == "mixed")] = \
+                AcqTileConfig(e["rows"], e["tiles_per_slice"], measured=True)
+        _TABLE = table
+    return _TABLE
+
+
+def acq_tile_config(plan_rows: int, n: int, d: int, mixed: bool, *,
+                    measure_fn=None) -> AcqTileConfig:
+    """The fused EI's tile and k-split for a `(plan_rows, n, d, mixed)` key:
+    the counterpart of `repro/kernels/ops.py:acq_tile_config`.
+
+    In order: `REPRO_ACQ_AUTOTUNE=off|0|false` gives `heuristic_config`
+    and touches no cache; a key already resolved in this process gives
+    its cached config; an injected `measure_fn(config, plan_rows, n, d,
+    mixed) -> seconds` races `candidates` once (the smallest time wins,
+    the heuristic on a tie); otherwise the committed table
+    (`acq_plans.json`, raced off line on the card by `tune_acq`) gives
+    the key's plan, and a key it lacks the heuristic.  `measure_fn` is
+    the reference's hook, kept for the tests that mirror its autotuner
+    tests: a serving or training process must not inject it, since a plan
+    drawn from one process's timings breaks the bit contracts below.
+
+    The key holds no study count: a lane of an S-study launch takes the
+    one-study plan, so its bits are the one-study launch's.  `plan_rows`
+    is the unsharded launch's R, so a restart shard reads the plan of the
+    launch it is cut from.  The reference keys on (n_pad, d, S,
+    substrate) and also picks `d_pad` and a 128-row default: those are
+    the TPU's lane width and matrix unit, with no counterpart here (the
+    kernel reads rows of d floats, and its tiles are 4-16 rows)."""
+    if not _acq_autotune_enabled():
+        return heuristic_config(plan_rows, n)
+    key = (plan_rows, n, d, bool(mixed))
+    hit = _ACQ_TUNE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    if measure_fn is not None:
+        best, best_t = None, math.inf
+        for cfg in candidates(*key):
+            t = measure_fn(cfg, *key)
+            if t < best_t:
+                best, best_t = cfg, t
+        cfg = best
+    else:
+        cfg = _table().get(key) or heuristic_config(plan_rows, n)
+    _ACQ_TUNE_CACHE[key] = cfg
+    return cfg
+
+
+def shared_bytes(d: int, mixed: bool, rows: int = ROWS) -> int:
+    """Dynamic shared memory of one CTA of the R = `rows` tile: `layout` in
+    `csrc/acq.cu` (each block rounded up to 16 bytes).  Independent of n."""
     def r4(v):
         return -(-v // 4) * 4
     p = 2 * d + 4
-    floats = (STAGES * TK * (TILE_OUTPUTS // ROWS) + STAGES * r4(TK * d)
-              + STAGES * TK + ROWS * TK + r4(ROWS * d)
-              + (r4(ROWS * d) + 2 * r4(d) if mixed else 0)
-              + WARPS * 4 * p + ROWS * p)
+    floats = (STAGES * TK * (TILE_OUTPUTS // rows) + STAGES * r4(TK * d)
+              + STAGES * TK + rows * TK + r4(rows * d)
+              + (r4(rows * d) + 2 * r4(d) if mixed else 0)
+              + WARPS * 4 * p + rows * p)
     return 4 * floats
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(batch: int, r: int, n: int, d: int, mixed: bool,
-                plan_rows: int | None = None) -> LaunchPlan:
+                plan_rows: int | None = None,
+                config: AcqTileConfig | None = None) -> LaunchPlan:
     """The tile, grid, shared bytes and scratch of one call on `batch`
     studies of r candidates against n train rows of width d: the single
-    source of these numbers for the wrapper and the C entry.  k is split
-    until one study's grid of `plan_rows` candidates (default r) has about
-    `TARGET_CTAS` CTAs, with at least `MIN_SLICE_TILES` k-tiles a slice;
-    the studies then lie along the grid's z axis.  The split is a function
-    of (plan_rows, n, d) alone, so every output of a study is summed in the
-    same order whatever the batch: a lane of an S-study launch is bit for
-    bit the launch on that study alone.  A restart shard launches r of a
-    study's R candidates with `plan_rows=R`: the k-split is the unsharded
-    launch's, so each of its rows is summed as in that launch, and only
-    the grid's row blocks and the scratch follow the local r."""
+    source of these numbers for the wrapper and the C entry.  The tile and
+    the k-tiles a slice are `config`'s (default: `heuristic_config` of
+    `plan_rows`, default r); the studies lie along the grid's z axis.  The
+    split is a function of (config, n) alone, so every output of a study
+    is summed in the same order whatever the batch: a lane of an S-study
+    launch is bit for bit the launch on that study alone.  A restart shard
+    launches r of a study's R candidates with `plan_rows=R` (and R's
+    config): the k-split is the unsharded launch's, so each of its rows is
+    summed as in that launch, and only the grid's row blocks and the
+    scratch follow the local r."""
     if min(batch, r, n, d) < 1 or (plan_rows is not None and plan_rows < r):
         raise ValueError(f"fused EI launch plan needs batch, r, n, d >= 1 "
                          f"and plan_rows >= r, got {batch}, {r}, {n}, {d}, "
                          f"{plan_rows}")
-    rows, cols = ROWS, TILE_OUTPUTS // ROWS
+    cfg = config or heuristic_config(plan_rows or r, n)
+    if cfg.rows not in COMPILED_ROWS or cfg.tiles_per_slice < 1:
+        raise ValueError(f"fused EI kernel: R = {cfg.rows} (compiled: "
+                         f"{COMPILED_ROWS}), {cfg.tiles_per_slice} k-tiles "
+                         f"a slice")
+    rows, cols = cfg.rows, TILE_OUTPUTS // cfg.rows
     col_blocks, row_blocks, k_tiles = -(-n // cols), -(-r // rows), -(-n // TK)
     if row_blocks > 65535 or batch > 65535:
         raise ValueError(f"fused EI kernel: r = {r} in tiles of {rows} rows and "
                          f"{batch} studies exceed the grid")
-    plan_blocks = -(-(plan_rows or r) // rows)
-    slices = min(-(-TARGET_CTAS // (col_blocks * plan_blocks)),
-                 max(1, k_tiles // MIN_SLICE_TILES))
-    tps = -(-k_tiles // slices)
+    tps = cfg.tiles_per_slice
     slices = -(-k_tiles // tps)          # no empty slice
-    smem = shared_bytes(d, mixed)
+    smem = shared_bytes(d, mixed, rows)
     if smem > MAX_SHARED:
         raise ValueError(f"fused EI kernel: d = {d} needs {smem} bytes of "
-                         f"shared memory, more than {MAX_SHARED}")
+                         f"shared memory at R = {rows}, more than {MAX_SHARED}")
     grid = (slices * col_blocks, row_blocks, batch)
     return LaunchPlan(rows=rows, cols=cols, tiles_per_slice=tps, slices=slices,
                       grid=grid, shared_bytes=smem,
                       partial_floats=grid[0] * row_blocks * batch * rows * (2 * d + 4),
                       counters=row_blocks * batch)
+
+
+def call_plan(batch: int, r: int, n: int, d: int, mixed: bool,
+              plan_rows: int | None = None) -> LaunchPlan:
+    """The plan a CUDA call of these shapes takes: `launch_plan` under
+    `acq_tile_config` of its key."""
+    return launch_plan(batch, r, n, d, mixed, plan_rows, acq_tile_config(
+        plan_rows or r, n, d, mixed))
 
 
 def _scratch(dev: torch.device, stream: int, plan: LaunchPlan
@@ -237,12 +381,17 @@ def _scalar(v, lead: tuple, dev: torch.device) -> Tensor:
 
 def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
             alpha: Tensor, a_buf: Tensor, sigma2, rho, shift,
-            masks: tuple[Tensor, ...], plan_rows: int | None = None
+            masks: tuple[Tensor, ...], plan_rows: int | None = None,
+            config: AcqTileConfig | None = None
             ) -> tuple[tuple[Tensor, Tensor], bool]:
     """Check the operands and launch C entry `entry` (the masks, if any,
     go right after x_buf: (d,) for the batch, or (*lead, d) one pair a
-    study, read at a step of d floats) on `launch_plan(..., plan_rows)`.
-    Returns ((ei, grad), whether it launched)."""
+    study, read at a step of d floats) on `launch_plan(..., plan_rows,
+    config)`, the config by default `acq_tile_config` of the call's key
+    (a heuristic one counts in MISSES; the key and study count in
+    KEY_LAUNCHES).  Returns ((ei, grad), whether it
+    launched)."""
+    global MISSES
     dev = x.device
     ops_ = (x, x_buf, amask, alpha, a_buf, *masks)
     for t in ops_:
@@ -270,7 +419,12 @@ def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
     grad = out[batch * r:].view(*lead, r, d)
     if batch == 0 or r == 0:
         return (ei, grad), False
-    plan = launch_plan(batch, r, n, d, bool(masks), plan_rows)
+    if config is None:
+        config = acq_tile_config(plan_rows or r, n, d, bool(masks))
+        MISSES += not config.measured
+        KEY_LAUNCHES[(plan_rows or r, n, d, "mixed" if masks else "float",
+                      batch)] += 1
+    plan = launch_plan(batch, r, n, d, bool(masks), plan_rows, config)
     lib = _build.load(SOURCE, _SIGNATURES)
     scal = [_scalar(v, lead, dev) for v in (sigma2, rho, shift)]
     x, x_buf, amask, alpha, a_buf, *masks = (t.contiguous() for t in ops_)
@@ -292,12 +446,15 @@ def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
 
 def fused_ei_grad_cuda(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
                        a_buf: Tensor, sigma2, rho, shift, *,
-                       plan_rows: int | None = None) -> tuple[Tensor, Tensor]:
+                       plan_rows: int | None = None,
+                       config: AcqTileConfig | None = None
+                       ) -> tuple[Tensor, Tensor]:
     """Launch the float form; shapes as `ei_grad_torch`, float32 CUDA;
-    `plan_rows` as `launch_plan`'s (a restart shard's full R)."""
+    `plan_rows` as `launch_plan`'s (a restart shard's full R); `config`
+    overrides the key's `acq_tile_config` (the tuner's race)."""
     global LAUNCHES
     out, launched = _launch("repro_fused_ei_grad", x, x_buf, amask, alpha,
-                            a_buf, sigma2, rho, shift, (), plan_rows)
+                            a_buf, sigma2, rho, shift, (), plan_rows, config)
     LAUNCHES += launched
     return out
 
@@ -305,16 +462,17 @@ def fused_ei_grad_cuda(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
 def fused_ei_grad_mixed_cuda(x: Tensor, x_buf: Tensor, amask: Tensor,
                              alpha: Tensor, a_buf: Tensor, sigma2, rho, shift,
                              cont_mask: Tensor, cat_mask: Tensor, *,
-                             plan_rows: int | None = None
+                             plan_rows: int | None = None,
+                             config: AcqTileConfig | None = None
                              ) -> tuple[Tensor, Tensor]:
     """Launch the mixed form on the unsplit x (r, d) / x_buf (n, d) and the
     type masks, (d,) or (*lead, d); float32 CUDA.  Computes `ei_grad_torch`
-    of `split_rows(x, x_buf, cont_mask, cat_mask)`; `plan_rows` as in the
-    float form."""
+    of `split_rows(x, x_buf, cont_mask, cat_mask)`; `plan_rows` and
+    `config` as in the float form."""
     global LAUNCHES_MIXED
     out, launched = _launch("repro_fused_ei_grad_mixed", x, x_buf, amask,
                             alpha, a_buf, sigma2, rho, shift,
-                            (cont_mask, cat_mask), plan_rows)
+                            (cont_mask, cat_mask), plan_rows, config)
     LAUNCHES_MIXED += launched
     return out
 
@@ -327,7 +485,8 @@ def fused_ei_grad(x: Tensor, x_buf: Tensor, amask: Tensor, alpha: Tensor,
     """Fused EI value + gradient: a kernel for CUDA tensors, the plain
     version for CPU tensors; the mixed form when the type masks are given.
     `plan_rows` is the unsharded candidate count of a restart shard's
-    launch (`launch_plan`); the plain version does not use it."""
+    launch (`launch_plan`); the plain version does not use it, nor the
+    tile config."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no fused EI for device {x.device}")
     if cont_mask is None:

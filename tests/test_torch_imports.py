@@ -22,6 +22,7 @@ FORBIDDEN = re.compile(
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
+            "repro_torch.kernels.tune_acq, "
             "repro_torch.convert, repro_torch.hpo.space, "
             "repro_torch.hpo.engine, repro_torch.hpo.mesh, "
             "repro_torch.hpo.pool, repro_torch.core.neural_basis, "
