@@ -395,6 +395,19 @@ the card's loss of the same sequence):
                step reads beside their time at the memory rate; one more
                step under `set_sync_debug_mode("error")`.  No hand-written
                kernel launched.
+ 21. launch    — the launch layer (`launch_path`): which collectives gloo
+               takes on CUDA tensors of two ranks on one card
+               (`gloo_probe`); (a) qwen3-moe-30b-a3b at full width, 2 of
+               48 layers, float32 activations, 3 SGD-momentum steps at
+               8 x 256 on one device; (b) the same steps on two rank
+               processes on cuda:0 (a 1x2 mesh, gloo,
+               `mesh.shared_card_collectives`, 64 experts a rank) through
+               the sharded step: the expert-parallel count above 0 on
+               each rank, losses within 1e-2 and parameters within 2e-2
+               of (a)'s; (c) `torch.distributed.run` of the launcher at
+               1x2 on qwen3's reduced config, 10 steps checkpointed at 5,
+               resumed at 1x2 (the printed losses equal) and at 1x1
+               (within 1e-2 relative).  No hand-written kernel launched.
 Then one AdamW step each of the lm phase, of lm_moe's and of lm_mamba's
 profiled (`lm_step_profile`: device kernels, span, busy, host ms, device
 ms by kind of kernel and the top 15 kernels), and one decode step each of
@@ -404,7 +417,7 @@ two C entries of `csrc/trsv.cu`, count apart; launches per path: main,
 mixed, append, engine, engine_mixed, pool, pool_mixed, neural,
 neural_mixed, fantasy, fantasy_mixed, gateway, federation,
 federation_workers, lm, nn_hpo, lm_moe, lm_mla, lm_frames, lm_mamba,
-lm_mlstm, lm_serve), the nvidia-smi line and, last,
+lm_mlstm, lm_serve, launch), the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
@@ -6169,6 +6182,12 @@ TOL_RECURRENCE = 1e-4     # max |chunked - recurrent| / max |recurrent|,
 #   reference's pair to 2e-4 elementwise.
 
 
+def launch_config():
+    """LAUNCH_ARCH at full width, WIDE_LAYERS layers, float32
+    activations."""
+    return dataclasses.replace(wide_config(LAUNCH_ARCH), dtype="float32")
+
+
 def wide_config(arch: str, layers: int = WIDE_LAYERS):
     """`arch`'s full CONFIG with its depth cut to `layers`."""
     from repro_torch.configs import get_config
@@ -6756,6 +6775,402 @@ def serve_step_profile(part: str, params, cfg, toks, prompt: int) -> dict:
             "top": split["by_name"][:10]}
 
 
+# ---------------------------------------------------------------------------
+# Phase `launch`: the launch layer (launch/{mesh,sharding}.py, the sharded
+# step, the MoE's expert-parallel path, launch/train.py --mesh-shape) on
+# ranks that share the one card over gloo.
+# ---------------------------------------------------------------------------
+
+LAUNCH_ARCH = "qwen3-moe-30b-a3b"   # full width: d_model 2048, 128 experts
+LAUNCH_STEPS = 3          # SGD-momentum steps, one device and 1x2 alike.
+#   SGD-momentum, not AdamW: AdamW's two moments, and the pure update's old
+#   and new copies of all three, took 69 GB on one device and 31 GB on
+#   each rank (PR 34 calls 10-11), which left the 1x2 ranks no room on the
+#   card beside the earlier phases' tensors.
+LAUNCH_OPT = dict(name="sgdm", lr=WIDE_LR, momentum=0.9,
+                  warmup_steps=WIDE_WARMUP, total_steps=LAUNCH_STEPS)
+LAUNCH_RANKS = 2          # a 1x2 (data 1, model 2) mesh: 64 experts a rank
+LAUNCH_SEED = 0
+TOL_LAUNCH_LOSS = 1e-2    # |loss_1x2 - loss_1| a step, tests/test_launch.py:86
+TOL_LAUNCH_PARAMS = 2e-2  # max |param_1x2 - param_1|, tests/test_launch.py:87
+#   The reference's own bounds for its sharded step against one device.
+#   Both runs take float32 activations (the config's widths, its
+#   float32 masters): in bfloat16 the mesh's other order of sums flips
+#   routing decisions, and AdamW's first updates (near sign steps) carry
+#   the flips into every later step (PR 34 call 9: 1.67e-2 at step 3).
+LAUNCH_RESUME_STEPS, LAUNCH_RESUME_CKPT = 10, 5
+TOL_LAUNCH_RESUME_1X1 = 1e-2   # |loss_1x1 - loss_1x2| / loss_1x2 a step.
+#   The reduced config runs in bfloat16 and routes each token to 2 of 8
+#   experts: the first resumed step, from one state on one batch, already
+#   flips routing decisions between the two meshes' sums (1.75e-2 in a loss
+#   of 5.67 in the CPU rehearsal).  The reference's 1e-2 loss bound for a
+#   sharded step, taken relative to the loss.
+
+GLOO_PROBE = '''
+import datetime, os, sys, torch, torch.distributed as dist
+import torch.distributed._functional_collectives as fc
+case, rank, store = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                        world_size=2, timeout=datetime.timedelta(seconds=60))
+x = torch.arange(8, dtype=torch.float32, device="cuda") + rank
+if case == "torch.distributed":
+    sys.path.insert(0, sys.argv[4])
+    from repro_torch.launch.mesh import gloo_collectives
+    print("PROBE", gloo_collectives("cuda:0"), flush=True)
+else:
+    group = dist.group.WORLD
+    y = {"all_gather_into_tensor": lambda: fc.all_gather_tensor(x, 0, group),
+         "reduce_scatter_tensor": lambda: fc.reduce_scatter_tensor(
+             x, "sum", 0, group),
+         "all_reduce": lambda: fc.all_reduce(x, "sum", group)}[case]()
+    y = fc.wait_tensor(y)
+    torch.cuda.synchronize()
+    print("PROBE", y.tolist(), flush=True)
+dist.destroy_process_group()
+'''
+
+
+def gloo_probe(src: str) -> dict:
+    """Which collectives gloo takes on CUDA tensors of two ranks on one
+    card: the three from `torch.distributed` (`mesh.gloo_collectives`),
+    and each functional one, the form DTensor calls, in its own pair of
+    processes (a refusal may take the process down): "ok", or the exit
+    code."""
+    import tempfile
+    cases = ("torch.distributed", "all_gather_into_tensor",
+             "reduce_scatter_tensor", "all_reduce")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_probe_") as root:
+        running = {case: [subprocess.Popen(
+            [sys.executable, "-c", GLOO_PROBE, case, str(r),
+             os.path.join(root, case), src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+            for case in cases}
+        for case, procs in running.items():
+            results = []
+            for p in procs:
+                try:
+                    text, _ = p.communicate(timeout=120)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    text, _ = p.communicate()
+                said = [ln[6:] for ln in text.splitlines()
+                        if ln.startswith("PROBE ")]
+                results.append(said[0] if p.returncode == 0 and said
+                               else f"exit {p.returncode}")
+            out[case] = results[0] if case == "torch.distributed" else (
+                "ok" if all(not r.startswith("exit") for r in results)
+                else results)
+    return out
+
+
+def launch_rank(rank: int, world: int, store: str, src: str, out_dir: str,
+                inbox, ready, device_type: str = "cuda") -> None:
+    """Phase `launch` (b), one rank of the 1x2 mesh on cuda:0.  From
+    `inbox`: (start, want), the one-device run's initial and final
+    parameters shared from the parent's card; `start` placed by the rules
+    (its shards copied), then `ready` told, so that the parent frees it;
+    on "go" from `inbox`, LAUNCH_STEPS SGD-momentum steps through the sharded
+    step on the same batches, then each local shard against the matching
+    shard of `want`.  Writes rank<r>.json into `out_dir`.  (`device_type` "cpu" rehearses it on
+    the CPU.)"""
+    sys.path.insert(0, src)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.data import DataConfig, synth_tokens
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import init_params, moe
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.training import make_train_step
+    on_card = device_type == "cuda"
+    if on_card:
+        train.fp32_like_the_reference()
+        torch.cuda.set_device(0)
+    dev = torch.device(device_type, 0) if on_card else torch.device("cpu")
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    if on_card:
+        mesh_mod.shared_card_collectives()
+    mesh = mesh_mod.make_mesh((1, world), ("data", "model"),
+                              device_type=device_type)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = launch_config()
+    rules = sharding.rules_for(LAUNCH_ARCH, mesh)
+    t0 = time.perf_counter()
+    _, specs = init_params(dataclasses.replace(cfg, d_model=8, d_ff=8,
+                                               vocab_size=8, num_heads=2,
+                                               num_kv_heads=2), 0,
+                           device="cpu")
+    start, want = inbox.get()
+    params = sharding.distribute(start, specs, mesh, rules)
+    del start
+    ready.put(rank)
+    if inbox.get() != "go":
+        raise RuntimeError("launch (b): no go from the parent")
+    init_s = time.perf_counter() - t0
+    opt_cfg = OptimizerConfig(**LAUNCH_OPT)
+    opt_state = init_opt_state(opt_cfg, params)
+    raw = make_train_step(cfg, opt_cfg)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=WIDE_SEQ,
+                      global_batch=WIDE_BATCH, seed=LAUNCH_SEED)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for i in range(LAUNCH_STEPS):
+        batch = {k: distribute_tensor(
+            v, mesh, sharding.placements(("data",) + (None,) * (v.ndim - 1),
+                                         mesh, v.shape), src_data_rank=None)
+            for k, v in synth_tokens(data, i, device=dev).items()}
+        sync()
+        t0 = time.perf_counter()
+        with sharding.use_rules(mesh, rules), implicit_replication():
+            params, opt_state, metrics = raw(params, opt_state, batch)
+        loss = float(metrics["loss"].full_tensor())
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+    diff = 0.0
+    for p, w in zip(tree_leaves(params), tree_leaves(want)):
+        ref = distribute_tensor(w, mesh, p.placements, src_data_rank=None)
+        diff = max(diff, float((p.to_local().float()
+                                - ref.to_local().float()).abs().max()))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "losses": losses, "init_s": init_s,
+                   "step_ms": [1e3 * s for s in step_s],
+                   "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                         if on_card else None),
+                   "ep_calls": moe.EP_CALLS, "max_param_diff": diff,
+                   "placements": {"embed": str(params["embed"].placements),
+                                  "moe/wi": str(params["blocks"]["moe"][
+                                      "wi"].placements)}}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def launcher_losses(text: str) -> dict:
+    got = {}
+    for line in text.splitlines():
+        if line.startswith("[train] step="):
+            step, loss = line.split()[1:3]
+            got[int(step.split("=")[1])] = float(loss.split("=")[1])
+    return got
+
+
+def launcher_runs(dev, src: str) -> dict:
+    """Phase `launch` (c): `torch.distributed.run --nproc-per-node 2 -m
+    repro_torch.launch.train --mesh-shape 1x2` on MOE_LAUNCH_ARCH's reduced
+    config for 10 steps checkpointed at 5, then from a copy of the step-5
+    checkpoint at 1x2 (the printed losses equal) and at 1x1 in this
+    process (within TOL_LAUNCH_RESUME_1X1)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train
+
+    def args(ckpt_dir):
+        return ["--arch", MOE_LAUNCH_ARCH, "--reduced", "--steps",
+                str(LAUNCH_RESUME_STEPS), "--seq-len", str(WIDE_SEQ),
+                "--global-batch", str(WIDE_BATCH), "--lr", str(WIDE_LR),
+                "--warmup", str(WIDE_WARMUP), "--ckpt-dir", ckpt_dir,
+                "--ckpt-every", str(LAUNCH_RESUME_CKPT), "--log-every", "1",
+                "--seed", str(WIDE_SEED), "--device", dev.type]
+
+    def distributed(ckpt_dir):
+        """The launcher's ranks, started; `finish` waits for them."""
+        env = dict(os.environ, PYTHONPATH=src)
+        return time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(LAUNCH_RANKS), "-m",
+             "repro_torch.launch.train", "--mesh-shape",
+             f"1x{LAUNCH_RANKS}", *args(ckpt_dir)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env)
+
+    def finish(started):
+        t0, proc = started
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"launch (c): the launcher failed:\n"
+                                 f"{out[-3000:]}{err[-3000:]}")
+        return launcher_losses(out), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as root:
+        whole, b, c = (os.path.join(root, k) for k in "abc")
+        losses, seconds = finish(distributed(whole))
+        step_dir = f"step_{LAUNCH_RESUME_CKPT:09d}"
+        for d in (b, c):
+            shutil.copytree(os.path.join(whole, step_dir),
+                            os.path.join(d, step_dir))
+        running = distributed(b)        # the 1x1 resume meanwhile, here
+        one = train.run(train.parse_args(args(c)))
+        resumed, resumed_s = finish(running)
+    if sorted(losses) != list(range(LAUNCH_RESUME_STEPS)) \
+            or not np.all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"launch (c): losses {losses}")
+    tail = {s: losses[s] for s in range(LAUNCH_RESUME_CKPT,
+                                        LAUNCH_RESUME_STEPS)}
+    if resumed != tail:
+        raise AssertionError(f"launch (c): the 1x2 resume printed {resumed}, "
+                             f"the uninterrupted run {tail}")
+    one_rel = max(abs(x - tail[s]) / abs(tail[s])
+                  for s, x in zip(one["steps"], one["losses"]))
+    if one["start"] != LAUNCH_RESUME_CKPT or one_rel > TOL_LAUNCH_RESUME_1X1:
+        raise AssertionError(f"launch (c): the 1x1 resume from "
+                             f"{one['start']}: {one['losses']} against "
+                             f"{tail}")
+    return {"arch": MOE_LAUNCH_ARCH, "reduced": True,
+            "mesh": f"1x{LAUNCH_RANKS}", "steps": LAUNCH_RESUME_STEPS,
+            "losses_printed": [losses[s] for s in sorted(losses)],
+            "seconds": seconds,
+            "resume_1x2": {"from": LAUNCH_RESUME_CKPT,
+                           "losses_printed": [resumed[s]
+                                              for s in sorted(resumed)],
+                           "equal_to_uninterrupted": True,
+                           "seconds": resumed_s},
+            "resume_1x1": {"from": one["start"], "losses": one["losses"],
+                           "max_rel_diff": one_rel,
+                           "tol": TOL_LAUNCH_RESUME_1X1}}
+
+
+def launch_path(dev) -> tuple[dict, dict]:
+    """Phase `launch`, after lm_serve and before the profiles: the gloo
+    probe, then (a) qwen3-moe-30b-a3b at full width and WIDE_LAYERS layers,
+    LAUNCH_STEPS SGD-momentum steps at WIDE_BATCH x WIDE_SEQ on one
+    device; (b)
+    the same steps on LAUNCH_RANKS rank processes on cuda:0 (a 1x2 mesh,
+    gloo, `mesh.shared_card_collectives`) through the sharded step, (a)'s
+    initial and final parameters shared from this card: the
+    expert-parallel count above 0 on every rank, each step's loss within
+    TOL_LAUNCH_LOSS of (a)'s, the final parameters within
+    TOL_LAUNCH_PARAMS; (c) the launcher (`launcher_runs`).  No
+    hand-written kernel launched in this process.  Returns (launches,
+    line)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_tokens
+    from repro_torch.models import init_params
+    from repro_torch.models.common import count_params
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.training import make_train_step
+    t_phase = time.perf_counter()
+    src = os.path.dirname(os.path.abspath(
+        sys.modules["repro_torch"].__file__)).rsplit(os.sep, 1)[0]
+    reset_counts()
+    probe = gloo_probe(src)
+    cfg = launch_config()
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=WIDE_SEQ,
+                      global_batch=WIDE_BATCH, seed=LAUNCH_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    start, _ = init_params(cfg, LAUNCH_SEED, device=dev)
+    init_s = time.perf_counter() - t0
+    opt_cfg = OptimizerConfig(**LAUNCH_OPT)
+    params, opt_state = start, init_opt_state(opt_cfg, start)
+    step = make_train_step(cfg, opt_cfg)
+    losses, step_s = [], []
+    for i in range(LAUNCH_STEPS):
+        batch = synth_tokens(data, i, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    one = {"losses": losses, "step_ms": [1e3 * s for s in step_s],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - base,
+           "n_params": count_params(start), "init_s": init_s}
+    # The initial and final parameters stay on the card, shared with the
+    # ranks; the initial ones until the ranks have copied their shards.
+    del opt_state, step, metrics, batch
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as root:
+        t0 = time.perf_counter()
+        inboxes, ready = [ctx.Queue() for _ in range(LAUNCH_RANKS)], \
+            ctx.Queue()
+        procs = [ctx.Process(target=launch_rank, args=(
+            r, LAUNCH_RANKS, os.path.join(root, "store"), src, root,
+            inboxes[r], ready)) for r in range(LAUNCH_RANKS)]
+        for p in procs:
+            p.start()
+        for box in inboxes:
+            box.put((start, params))
+        # Each rank has copied its shards of `start`: free it here.
+        got = sorted(ready.get(timeout=600) for _ in range(LAUNCH_RANKS))
+        if got != list(range(LAUNCH_RANKS)):
+            raise AssertionError(f"launch (b): ranks ready {got}")
+        del start
+        torch.cuda.empty_cache()
+        for box in inboxes:
+            box.put("go")
+        for p in procs:
+            p.join(timeout=900)
+        codes = [p.exitcode for p in procs]
+        if any(p.is_alive() for p in procs):
+            for p in procs:
+                p.kill()
+            raise AssertionError("launch (b): a rank did not finish")
+        if codes != [0] * LAUNCH_RANKS:
+            raise AssertionError(f"launch (b): rank exit codes {codes}")
+        ranks = []
+        for r in range(LAUNCH_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        ranks_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    sharded = ranks[0]["losses"]
+    loss_diff = max(abs(a - b) for a, b in zip(sharded, losses))
+    param_diff = max(r["max_param_diff"] for r in ranks)
+    if not all(r["ep_calls"] > 0 for r in ranks):
+        raise AssertionError(f"launch (b): expert-parallel calls "
+                             f"{[r['ep_calls'] for r in ranks]}")
+    if not all(r["losses"] == sharded for r in ranks):
+        raise AssertionError(f"launch (b): the ranks' losses differ: "
+                             f"{[r['losses'] for r in ranks]}")
+    if loss_diff > TOL_LAUNCH_LOSS or param_diff > TOL_LAUNCH_PARAMS:
+        raise AssertionError(f"launch (b): losses {sharded} against one "
+                             f"device's {losses}, parameters {param_diff}")
+    launcher = launcher_runs(dev, src)
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"launch: hand-written kernels launched: "
+                             f"{launches}")
+    line = {"phase": "launch", "nvidia_smi": nvidia_smi_line(),
+            "gloo_probe": probe,
+            "config": {"arch": LAUNCH_ARCH, "num_layers": cfg.num_layers,
+                       "reduced": {"num_layers": [
+                           cfg.num_layers, get_config(LAUNCH_ARCH).num_layers]},
+                       "d_model": cfg.d_model, "experts": cfg.num_experts,
+                       "top_k": cfg.top_k, "vocab": cfg.vocab_size,
+                       "batch": WIDE_BATCH, "seq": WIDE_SEQ,
+                       "steps": LAUNCH_STEPS, "optimizer": LAUNCH_OPT,
+                       "dtype": cfg.dtype},
+            "one_device": one,
+            "mesh_1x2": {"ranks": LAUNCH_RANKS, "backend": "gloo",
+                         "losses": sharded, "max_loss_diff": loss_diff,
+                         "tol_loss": TOL_LAUNCH_LOSS,
+                         "max_param_diff": param_diff,
+                         "tol_params": TOL_LAUNCH_PARAMS,
+                         "ep_calls": [r["ep_calls"] for r in ranks],
+                         "peak_memory_bytes": [r["peak_memory_bytes"]
+                                               for r in ranks],
+                         "step_ms": [r["step_ms"] for r in ranks],
+                         "placements": ranks[0]["placements"],
+                         "init_s": [r["init_s"] for r in ranks],
+                         "seconds": ranks_s},
+            "launcher": launcher, "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    return launches, line
+
+
 SOURCES = {
     "matern52_gram": ("matern", "src/repro_torch/csrc/matern.cu",
                       "src/repro/kernels/matern.py:29"),
@@ -6960,6 +7375,8 @@ def main(argv: list[str] | None = None) -> int:
     # The serving path at full width, before the profiles.
     launches_by_path["lm_serve"], _, served = recorder.run(
         "lm_serve", lm_serve_path, dev)
+    # The launch layer: the sharded step on two ranks of the one card.
+    launches_by_path["launch"], _ = recorder.run("launch", launch_path, dev)
     emit({"phase": "profile", "part": "lm step", **lm_step_profile(dev)})
     emit({"phase": "profile", "part": "lm_moe step",
           **lm_step_profile(dev, wide_config("granite-moe-3b-a800m"))})

@@ -48,6 +48,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.gp import resolve_device
+from repro_torch.launch.sharding import (bound, constrain, gather_local,
+                                         heads_local, replicate_except)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -232,22 +234,28 @@ def attn_block_forward(p, cfg: ModelConfig, x: Tensor, window: int,
         out, latent = _mla_forward(p["attn"], cfg, xn, positions)
         return x + out, latent
     q, k, v = _gqa_qkv(p["attn"], cfg, xn, positions)
-    if cfg.sliding_window > 0 and cfg.global_every > 0:
-        if window <= 0:
-            out = attn_mod.dispatch_attention(q, k, v, causal=cfg.causal)
-        elif x.shape[1] <= cfg.sliding_window:
-            out = attn_mod.full_attention(q, k, v, causal=cfg.causal,
-                                          window=cfg.sliding_window)
-        else:
-            out = attn_mod.banded_attention(q, k, v,
-                                            window=cfg.sliding_window)
-    elif cfg.sliding_window > 0:
-        out = attn_mod.dispatch_attention(q, k, v, causal=cfg.causal,
-                                          window=cfg.sliding_window)
-    else:
-        out = attn_mod.dispatch_attention(q, k, v, causal=cfg.causal)
+    q = constrain(q, ("batch", "seq", "heads", None))
+    k = constrain(k, ("batch", "seq", "kv_heads", None))
+    v = constrain(v, ("batch", "seq", "kv_heads", None))
+    out = heads_local(functools.partial(_gqa_attention, cfg, window), q, k, v)
     out = out.reshape(*x.shape[:2], cfg.num_heads * cfg.head_dim_)
     return x + out @ p["attn"]["wo"], (k, v)
+
+
+def _gqa_attention(cfg: ModelConfig, window: int, q: Tensor, k: Tensor,
+                   v: Tensor) -> Tensor:
+    """The GQA attention core of a layer with window `window`."""
+    if cfg.sliding_window > 0 and cfg.global_every > 0:
+        if window <= 0:
+            return attn_mod.dispatch_attention(q, k, v, causal=cfg.causal)
+        if q.shape[1] <= cfg.sliding_window:
+            return attn_mod.full_attention(q, k, v, causal=cfg.causal,
+                                           window=cfg.sliding_window)
+        return attn_mod.banded_attention(q, k, v, window=cfg.sliding_window)
+    if cfg.sliding_window > 0:
+        return attn_mod.dispatch_attention(q, k, v, causal=cfg.causal,
+                                           window=cfg.sliding_window)
+    return attn_mod.dispatch_attention(q, k, v, causal=cfg.causal)
 
 
 def _mla_forward(p, cfg: ModelConfig, xn: Tensor, positions: Tensor):
@@ -271,7 +279,9 @@ def _mla_forward(p, cfg: ModelConfig, xn: Tensor, positions: Tensor):
     v = (c_kv @ p["wuv"]).reshape(b, s, h, vdim)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, rdim)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
-    out = attn_mod.dispatch_attention(q_full, k, v, causal=cfg.causal)
+    out = heads_local(functools.partial(attn_mod.dispatch_attention,
+                                        causal=cfg.causal),
+                      q_full, k, v, kv_axis="heads")
     out = out.reshape(b, s, h * vdim) @ p["wo"]
     return out, (c_kv, k_rope[:, :, 0, :])
 
@@ -286,6 +296,7 @@ def mlp_forward(p, cfg: ModelConfig, x: Tensor):
                                    dispatch=cfg.moe_dispatch)
         return x + out, aux
     h = F.silu(xn @ p["mlp"]["wg"]) * (xn @ p["mlp"]["wi"])
+    h = constrain(h, ("batch", "seq", "mlp"))
     return (x + h @ p["mlp"]["wo"],
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -325,6 +336,7 @@ def _block(cfg: ModelConfig, kind: str, window: int, shared_slot: int,
     skv = None
     if shared_slot > 0:
         x, skv = _shared_block(cfg, positions, x, shared_p)
+    x = constrain(x, ("batch", "seq", "embed"))
     return x, aux, ((state, skv) if collect else None)
 
 
@@ -345,8 +357,9 @@ def forward(params, cfg: ModelConfig, tokens: Tensor,
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(act)
     else:
-        x = params["embed"].to(act)[tokens.long()]
+        x = gather_local(params["embed"].to(act), tokens.long())
     b, s = x.shape[:2]
+    x = constrain(x, ("batch", "seq", "embed"))
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kind = block_kind(cfg)
@@ -358,8 +371,8 @@ def forward(params, cfg: ModelConfig, tokens: Tensor,
     for i, (window, slot) in enumerate(zip(layer_windows(cfg),
                                            shared_slots(cfg))):
         layer_p = tree_map(lambda _, u: u[i], params["blocks"], unbound)
-        body = functools.partial(_block, cfg, kind, window, slot,
-                                 collect_cache, positions)
+        body = bound(functools.partial(_block, cfg, kind, window, slot,
+                                       collect_cache, positions))
         if cfg.remat and torch.is_grad_enabled():
             x, aux, part = checkpoint(body, x, layer_p, shared_p,
                                       use_reentrant=False)
@@ -388,7 +401,7 @@ def logits_from_hidden(params, cfg: ModelConfig, x: Tensor) -> Tensor:
         head = params["embed"].to(act).T
     else:
         head = params["lm_head"].to(act)
-    return x @ head
+    return constrain(x @ head, ("batch", "seq", "vocab"))
 
 
 def lm_loss(params, cfg: ModelConfig, batch) -> tuple[Tensor, dict]:
@@ -404,7 +417,11 @@ def lm_loss(params, cfg: ModelConfig, batch) -> tuple[Tensor, dict]:
                                 device=logits.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    # DTensor's gather from a vocab-sharded dim fails in its masked
+    # partial reduce: the gold logits are read from the rows replicated
+    # over vocab (sharding.py lists the site).
+    gold = torch.gather(replicate_except(logits, ("batch", "seq")), -1,
+                        targets[..., None])[..., 0]
     nll = logz - gold
     if mask is None:
         mask = torch.ones_like(nll)
@@ -430,8 +447,10 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int):
     act = cfg.activation_dtype
     kind = block_kind(cfg)
     nl = cfg.num_layers
-    dev = params["final_norm"].device
-    zeros = functools.partial(torch.zeros, dtype=act, device=dev)
+    # Allocated like a parameter leaf: on its device, and as its kind of
+    # tensor (a DTensor under a mesh, a fake tensor in the dry run).
+    like = params["final_norm"]
+    zeros = functools.partial(like.new_zeros, dtype=act)
     kv, dh = cfg.num_kv_heads, cfg.head_dim_
     cache: dict = {"pos": 0}
     if kind == "attn":
@@ -447,8 +466,8 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int):
         mixer0 = tree_map(lambda a: a[0], params["blocks"]["mixer"])
         one = init(mixer0, batch, cfg, cfg.d_model, act)
         cache[kind] = tree_map(
-            lambda z: torch.zeros((nl,) + tuple(z.shape), dtype=z.dtype,
-                                  device=dev), one)
+            lambda z: like.new_zeros((nl,) + tuple(z.shape), dtype=z.dtype),
+            one)
     napps = num_shared_apps(cfg)
     if napps > 0:
         cache["shared_k"] = zeros((napps, batch, max_len, kv, dh))

@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN: top-k token-choice routing, capacity-bounded
-(counterpart of `repro/models/moe.py`, its single-device path).
+(counterpart of `repro/models/moe.py`).
 
   * routing and dispatch are per sequence row: capacity, positions and the
     aux statistics of one row never see another row's tokens, as under the
@@ -11,11 +11,19 @@
     residual path, counted in `dropped`).
   * capacity C = ceil(S * top_k / E * capacity_factor), lane-aligned.
   * the load-balance auxiliary loss (Switch eq. 4) is returned alongside.
-
-The reference's expert-parallel path (`_moe_shard_map`) needs a device mesh
-and the LM side's sharding rules (`launch/{mesh,sharding}.py`), which the
-port does not have yet: `moe_ffn` always takes the single-device path.
 The expert products are plain batched matrix products.
+
+Under a sharding context (`launch/sharding.use_rules`) with DTensor
+activations, `moe_ffn` takes one of the reference's two sharded paths:
+  * expert-parallel (`_moe_expert_parallel`, the reference's
+    `_moe_shard_map`) when the mesh's "model" axis is larger than 1 and
+    divides the padded expert count: on local tensors, every model rank
+    routes all tokens of its data shard, scatters only the slots of its
+    own e_pad / model experts, runs their products locally and sums the
+    combine's partial outputs over the model group;
+  * otherwise the constrained path (granite-moe's 40 experts: the capacity
+    dim carries the sharding), routing and combine on each data shard's
+    rows and the expert products on DTensors.
 """
 from __future__ import annotations
 
@@ -181,31 +189,210 @@ def _route_row(x: Tensor, router: Tensor, top_k: int, capacity: int,
     return slots, gate_vals.to(x.dtype), aux, dropped
 
 
-def moe_ffn(params, x: Tensor, *, top_k: int, capacity_factor: float,
-            dispatch: str = "sort") -> tuple[Tensor, Tensor]:
-    """x: (B, S, D) -> (out (B, S, D), aux load-balance loss (), float32)."""
-    b, s, d = x.shape
-    e = params["router"].shape[1]
-    capacity = _capacity(s, top_k, e, capacity_factor)
+EP_CALLS = 0   # expert-parallel calls (`_moe_expert_parallel`) made
 
-    slots, gates, aux, dropped = _route_row(x, params["router"], top_k,
-                                            capacity, dispatch)
-    buf = torch.zeros((b, e * capacity + 1, d), dtype=x.dtype,
-                      device=x.device)
+
+def _dispatch(x: Tensor, router: Tensor, top_k: int, capacity: int,
+              dispatch: str, e: int, offset: int = 0, span: int | None = None):
+    """Route each row of x (B, S, d) and scatter its kept (token, choice)s
+    into a (B, span, d) buffer: slots [offset, offset + span) of the E * C
+    slot space (all of it by default), every other slot and every dropped
+    (token, choice) to the sentinel row `span`.  Returns (buf, slots in
+    the buffer (B, S, k), gates, aux (B,), dropped (B,))."""
+    b, s, d = x.shape
+    span = e * capacity if span is None else span
+    slots, gates, aux, dropped = _route_row(x, router, top_k, capacity,
+                                            dispatch)
+    if offset or span != e * capacity:
+        # A dropped choice's slot is E * C, which lies inside the last
+        # rank's span when the tables are padded past E experts: it must
+        # go to the sentinel too, not to a padded expert's first row.
+        mine = (slots >= offset) & (slots < min(offset + span, e * capacity))
+        slots = torch.where(mine, slots - offset, span)
+    buf = torch.zeros((b, span + 1, d), dtype=x.dtype, device=x.device)
     # Each kept (token, choice) owns a unique slot: one write of all S * k.
     buf = scatter_rows(buf, slots.reshape(b, -1),
                        x[:, :, None].expand(b, s, top_k, d).reshape(b, -1, d))
-    buf = buf[:, :-1].reshape(b, e, capacity, d)
+    return buf[:, :-1], slots, gates, aux, dropped
 
-    hidden = torch.einsum("becd,edf->becf", buf, params["wi"][:e])
-    gate_h = torch.einsum("becd,edf->becf", buf, params["wg"][:e])
-    hidden = silu_stepwise(gate_h) * hidden
-    expert_out = torch.einsum("becf,efd->becd", hidden, params["wo"][:e])
 
-    flat = torch.cat([expert_out.reshape(b, e * capacity, d),
+def _experts(buf: Tensor, wi: Tensor, wg: Tensor, wo: Tensor,
+             constrain=lambda t, axes: t) -> Tensor:
+    """SwiGLU of every expert on its (B, E, C, d) slice of the buffer."""
+    hidden = torch.einsum("becd,edf->becf", buf, wi)
+    gate_h = torch.einsum("becd,edf->becf", buf, wg)
+    hidden = constrain(silu_stepwise(gate_h) * hidden,
+                       ("batch", "expert", "capacity", "mlp"))
+    return constrain(torch.einsum("becf,efd->becd", hidden, wo),
+                     ("batch", "expert", "capacity", None))
+
+
+def _combine(expert_out: Tensor, slots: Tensor, gates: Tensor,
+             dtype: torch.dtype | None = None) -> Tensor:
+    """Each token's gate-weighted sum of its choices' expert outputs (the
+    products in the activation dtype, the sum in `dtype` if given); a
+    slot past the buffer (the sentinel) reads zero."""
+    b, s, k = slots.shape
+    d = expert_out.shape[-1]
+    flat = torch.cat([expert_out.reshape(b, -1, d),
                       torch.zeros((b, 1, d), dtype=expert_out.dtype,
-                                  device=x.device)], dim=1)
-    picked = gather_rows(flat, slots.reshape(b, -1)).reshape(b, s, top_k, d)
-    out = (picked * gates[..., None]).sum(2)
+                                  device=expert_out.device)], dim=1)
+    picked = gather_rows(flat, slots.reshape(b, -1)).reshape(b, s, k, d)
+    return (picked * gates[..., None]).sum(2, dtype=dtype)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The sum over a process group of each rank's partial.  The output is
+    a replicated DTensor whose gradient reaches every rank whole
+    (`DTensor.from_local`'s backward), and that is each partial's gradient
+    too: the backward is the identity.  (`torch.distributed.nn`'s
+    all-reduce sums the gradient again in its backward, which would count
+    it once for each rank of the group.)"""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _moe_expert_parallel(params, x: Tensor, *, top_k: int, capacity: int,
+                         dispatch: str, ctx) -> tuple[Tensor, Tensor]:
+    """The reference's `_moe_shard_map` on DTensor: x (B, S, D), a DTensor
+    whose batch goes over the data axes, on a mesh whose "model" axis
+    divides the padded expert count.  Each model rank works on local
+    tensors: the router whole, its e_pad / model experts' weights gathered
+    over their FSDP axes, all tokens of its data shard routed, only its
+    own slots scattered (the others to the sentinel), its experts'
+    products, the combine from its local buffer; the partial outputs are
+    summed over the model group.  The local tensors' gradients are
+    declared as the placements they are: partial over the model group
+    (and over the data axes for the weights, which see one data shard's
+    rows each)."""
+    global EP_CALLS
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.launch import sharding
+    mesh, rules = ctx.mesh, ctx.rules
+    names = sharding.axis_names(mesh)
+    mi = names.index("model")
+    b, s, d = x.shape
+    e = params["router"].shape[1]
+    e_pad = params["wi"].shape[0]
+    n_model = sharding.axis_size(mesh, "model")
+    e_local = e_pad // n_model
+    px = sharding.placements(sharding.logical_to_spec(("batch", None, None),
+                                                      rules), mesh, x.shape)
+    rows = [i for i, p in enumerate(px) if p == Shard(0)]
+    batch_axes = sharding.logical_to_spec(("batch",), rules)[0]
+    if sharding.divisible_spec((batch_axes,), mesh, (b,)) != (batch_axes,):
+        raise ValueError(f"expert-parallel MoE: batch {b} does not divide "
+                         f"over the data axes {batch_axes}")
+
+    def partial_over(*dims):
+        return lambda i, p: Partial() if i in dims else p
+
+    def local(t, place, grad):
+        """t's local tensor at `place`, its gradient declared `grad`."""
+        return t.redistribute(mesh, place).to_local(grad_placements=[
+            grad(i, p) for i, p in enumerate(place)])
+
+    xl = local(x, px, partial_over(mi))
+    rep = [Replicate()] * len(names)
+    router = local(params["router"], rep, partial_over(mi, *rows))
+    pw = [Shard(0) if i == mi else Replicate() for i in range(len(names))]
+    wi, wg, wo = (local(params[k], pw, partial_over(*rows))
+                  for k in ("wi", "wg", "wo"))
+    span = e_local * capacity
+    offset = mesh.get_local_rank("model") * span
+    buf, slots, gates, aux, _ = _dispatch(xl, router, top_k, capacity,
+                                          dispatch, e, offset, span)
+    b_loc = xl.shape[0]
+    expert_out = _experts(buf.reshape(b_loc, e_local, capacity, d),
+                          wi, wg, wo)
+    # The partial sums stay in float32 through the group's sum and round
+    # once, as the one-device combine's sum does (the reference sums them
+    # in the activation dtype: two roundings, which flip routing decisions
+    # of the next layer in bfloat16).
+    partial = _combine(expert_out, slots, gates, torch.float32)
+    out = _SumOverGroup.apply(partial, mesh.get_group("model"))
+    EP_CALLS += 1
+    out = DTensor.from_local(out.to(x.dtype), mesh, px, run_check=False)
+    # One mean a (data shard, model rank), as the reference's out_specs
+    # P(batch, "model") lay them out; their mean is the aux loss.
+    pa = [Shard(1) if i == mi else (Shard(0) if i in rows else Replicate())
+          for i in range(len(names))]
+    aux = DTensor.from_local(aux.mean().reshape(1, 1), mesh, pa,
+                             run_check=False)
+    return out, aux.mean().float()
+
+
+def _moe_constrained(params, x: Tensor, *, top_k: int, capacity: int,
+                     dispatch: str, ctx) -> tuple[Tensor, Tensor]:
+    """The reference's constrained path on DTensor (no expert-parallel
+    mesh; granite-moe's 40 experts: the capacity dim carries the
+    sharding).  DTensor has no sharding rule for routing's sort and
+    scatter_add_, nor for the dispatch scatter and the combine gather, so
+    those run on each rank's rows of x, replicated over every axis but
+    the batch's (the reference also gathers the sequence first); the
+    expert products run on DTensors under the buffer's constraints."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.launch import sharding
+    mesh = ctx.mesh
+    e = params["router"].shape[1]
+    d = x.shape[-1]
+    x = sharding.constrain(x, ("batch", None, None))
+    px = list(x.placements)
+    rows = [i for i, p in enumerate(px) if p == Shard(0)]
+    xl = x.to_local(grad_placements=px)
+    router = sharding.replicated(params["router"]).to_local(grad_placements=[
+        Partial() if i in rows else Replicate() for i in range(len(px))])
+    buf, slots, gates, aux, dropped = _dispatch(xl, router, top_k, capacity,
+                                                dispatch, e)
+    b_loc = xl.shape[0]
+    buf = DTensor.from_local(buf.reshape(b_loc, e, capacity, d), mesh, px,
+                             run_check=False)
+    buf = sharding.constrain(buf, ("batch", "expert", "capacity", None))
+    expert_out = _experts(buf, params["wi"][:e], params["wg"][:e],
+                          params["wo"][:e], sharding.constrain)
+    expert_out = expert_out.redistribute(mesh, px).to_local(
+        grad_placements=px)
+    out = DTensor.from_local(_combine(expert_out, slots, gates).to(x.dtype),
+                             mesh, px, run_check=False)
+    stats = [DTensor.from_local(t, mesh, px, run_check=False)
+             for t in (aux, dropped)]
+    return out, (stats[0].mean() + 0.0 * stats[1].mean()).float()
+
+
+def moe_ffn(params, x: Tensor, *, top_k: int, capacity_factor: float,
+            dispatch: str = "sort") -> tuple[Tensor, Tensor]:
+    """x: (B, S, D) -> (out (B, S, D), aux load-balance loss (), float32)."""
+    from repro_torch.launch import sharding
+    b, s, d = x.shape
+    e = params["router"].shape[1]
+    e_pad = params["wi"].shape[0]
+    capacity = _capacity(s, top_k, e, capacity_factor)
+
+    ctx = sharding.current()
+    if ctx is not None and sharding.is_dtensor(x):
+        names = sharding.axis_names(ctx.mesh)
+        n_model = sharding.axis_size(ctx.mesh, "model") \
+            if "model" in names else 1
+        if n_model > 1 and e_pad % n_model == 0:
+            return _moe_expert_parallel(params, x, top_k=top_k,
+                                        capacity=capacity, dispatch=dispatch,
+                                        ctx=ctx)
+        return _moe_constrained(params, x, top_k=top_k, capacity=capacity,
+                                dispatch=dispatch, ctx=ctx)
+
+    buf, slots, gates, aux, dropped = _dispatch(x, params["router"], top_k,
+                                                capacity, dispatch, e)
+    expert_out = _experts(buf.reshape(b, e, capacity, d), params["wi"][:e],
+                          params["wg"][:e], params["wo"][:e])
+    out = _combine(expert_out, slots, gates)
     aux_loss = aux.mean() + 0.0 * dropped.mean()
     return out.to(x.dtype), aux_loss.float()

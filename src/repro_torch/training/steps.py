@@ -9,6 +9,12 @@ a pure function of its arguments: the gradient is taken with respect to
 detached copies of the parameter leaves, and the update returns new
 tensors.  Microbatching (gradient accumulation) loops over slices of the
 batch and sums the gradients in float32, as the reference's scan does.
+
+The same step runs sharded on DTensor parameters and batches under a rule
+context (`launch/sharding.use_rules`, with DTensor's implicit replication
+of the plain tensors the model makes): `value_and_grad` returns each
+gradient placed as its parameter is (DTensor's backward leaves partial
+sums), and the optimizer's updates are elementwise on like placements.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.launch.sharding import is_dtensor
 from repro_torch.models import decode_step, init_params, lm_loss, prefill
 from repro_torch.models.common import tree_map
 from repro_torch.models.config import ModelConfig
@@ -56,7 +63,15 @@ def value_and_grad(loss_fn: Callable, params, batch,
         loss, metrics = loss_fn(tree_map(watch, params), batch)
         grads = iter(torch.autograd.grad(loss, watched))
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
-            tree_map(lambda _: next(grads), params))
+            tree_map(lambda p: _placed_as(p, next(grads)), params))
+
+
+def _placed_as(p, g):
+    """g redistributed to p's placements where p is a DTensor (a partial
+    sum reduces to p's shards); g itself otherwise."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
@@ -78,8 +93,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     m = train_cfg.microbatches
 
     def accum_step(params, opt_state: OptState, batch):
-        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device), params)
+        gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
         some = next(iter(batch.values()))
         lsum = torch.zeros((), dtype=torch.float32, device=some.device)
         mb = some.shape[0] // m

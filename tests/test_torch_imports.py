@@ -38,6 +38,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.data, repro_torch.data.pipeline, "
             "repro_torch.training, repro_torch.training.steps, "
             "repro_torch.launch, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.launch.specs, repro_torch.launch.dryrun, "
             "repro_torch.configs\n"
             "for arch in repro_torch.configs.REGISTRY:\n"
             "    repro_torch.configs.get_config(arch, reduced=True)\n"
@@ -86,6 +88,11 @@ def test_entry_points_default_to_cuda():
                pipeline.DataIterator.__init__):
         assert fn.__kwdefaults__["device"] == "cuda"
     assert train.parse_args(["--arch", "tiny-lm"]).device == "cuda"
+    from repro_torch.launch import dryrun, mesh
+    assert mesh.make_mesh.__kwdefaults__["device_type"] == "cuda"
+    assert mesh.make_production_mesh.__kwdefaults__["device_type"] == "cuda"
+    assert mesh.single_device_mesh.__kwdefaults__["device_type"] == "cuda"
+    assert dryrun.run_cell.__kwdefaults__["device_type"] == "cuda"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

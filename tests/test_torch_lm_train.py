@@ -327,7 +327,10 @@ def test_train_sigterm_checkpoints_and_exits_3(tmp_path, monkeypatch):
 
 
 def test_train_cli_one_device_only():
-    with pytest.raises(NotImplementedError, match="one device"):
+    """Without a process group of its size, a mesh other than 1x1 is
+    refused before anything runs (the sharded launcher's own tests:
+    tests/test_torch_launch_resume.py)."""
+    with pytest.raises(ValueError, match="WORLD_SIZE is 1"):
         train.run(_args(None, 1, "--mesh-shape", "2x1"))
 
 
