@@ -208,9 +208,12 @@ Phases, each printing one JSON line:
                absorb refits).  Held: the frozen GP lane torch.equal to
                its copy from before the promotion; the card's state (chol,
                w_y, w_c, s2, the posterior at 64 probes) within twice the
-               CPU float32 replay's error against a CPU float64 replay of
+               worst error of four CPU float32 replays (each GEMM summed
+               in 1, 2, 4 and 8 chunks) against a CPU float64 replay of
                the same absorbs, or within the head's float32
-               perturbation bound (`held_f64_rule`); nb_ask_q(8) +
+               perturbation bound (`held_f64_rule`), and the same replay
+               on the card with every GEMM operand rounded to TF32 outside
+               that rule (the negative control); nb_ask_q(8) +
                nb_rollback, nb_grow at n == cap and the JSON round trip
                bit for bit.  Host-clock times (median of 3): nb_suggest at
                n = 1024 and 4096 beside the GP's routed suggest at 1024,
@@ -408,6 +411,19 @@ the card's loss of the same sequence):
                1x2 on qwen3's reduced config, 10 steps checkpointed at 5,
                resumed at 1x2 (the printed losses equal) and at 1x1
                (within 1e-2 relative).  No hand-written kernel launched.
+ 22. examples  — the port's examples (`examples_path`, EXAMPLE_RUNS), each
+               `main(argv)` in process on the card at the JAX example's
+               documented sizes: quickstart (lazy, naive, lag 32),
+               hpo_service with the categorical tenant and its resume,
+               parallel_hpo with faults and its resume, serve (12 studies
+               on 4 slots, q 4, a resume), serve_cluster with shard 0
+               killed and revived, train_e2e (100m preset 50 steps,
+               resumed to 60; granite-3-2b reduced 20 steps).  Each run
+               starts from PyTorch's default precision settings and must
+               leave the reference's (the example set them), and is held
+               to its contract (`example_contract`); the six TPU kernels'
+               counterparts must launch across the in-process runs.  One
+               line a run with its seconds and totals.
 Then one AdamW step each of the lm phase, of lm_moe's and of lm_mamba's
 profiled (`lm_step_profile`: device kernels, span, busy, host ms, device
 ms by kind of kernel and the top 15 kernels), and one decode step each of
@@ -417,7 +433,7 @@ two C entries of `csrc/trsv.cu`, count apart; launches per path: main,
 mixed, append, engine, engine_mixed, pool, pool_mixed, neural,
 neural_mixed, fantasy, fantasy_mixed, gateway, federation,
 federation_workers, lm, nn_hpo, lm_moe, lm_mla, lm_frames, lm_mamba,
-lm_mlstm, lm_serve, launch), the nvidia-smi line and, last,
+lm_mlstm, lm_serve, launch, examples), the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
 without CUDA, or without the repository beside it, the script fails
 before printing a result.
@@ -458,6 +474,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # Peak rates for the least times: H100 SXM fp32 outside the tensor cores and
 # HBM3 bandwidth, NVIDIA's data sheet, at the full 700 W limit.
@@ -498,6 +515,15 @@ TOL_POSTERIOR = dict(rtol=1e-4, atol=1e-5)  # mean and variance, O(1) values
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def precision_flags() -> dict:
+    """The three settings `gp.reference_precision` sets, as they stand."""
+    return {
+        "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "matmul.allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}
 
 
 def reset_counts() -> None:
@@ -3376,48 +3402,133 @@ NEURAL_KEEP = 32          # rows a GP slot flagged in the neural rounds keeps
 U32 = 2.0 ** -24
 
 
-def neural_replay(start, absorbs, ncfg, dtype):
-    """The escalated slot replayed on the CPU in `dtype` from the same
+NEURAL_ORDERS = (1, 2, 4, 8)   # chunks of each GEMM's contraction in the
+# CPU float32 replays that `held_f64_rule` takes the worst of
+
+
+class ContractionOrder(TorchDispatchMode):
+    """Every `mm` / `mv` of the ops run under it summed in `chunks`
+    contiguous pieces of its contraction, the partial products added in
+    order: a float32 evaluation as exact as the plain one, with its own
+    round-off.  Autograd's backward GEMMs pass through it too."""
+
+    def __init__(self, chunks: int):
+        super().__init__()
+        self.chunks = chunks
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        aten = torch.ops.aten
+        if func in (aten.mm.default, aten.mv.default) and self.chunks > 1:
+            a, b = args
+            k = a.shape[1]
+            if k >= self.chunks:
+                out = None
+                for idx in torch.arange(k).chunk(self.chunks):
+                    lo, hi = int(idx[0]), int(idx[-1]) + 1
+                    part = func(a[:, lo:hi], b[lo:hi])
+                    out = part if out is None else out + part
+                return out
+        return func(*args, **(kwargs or {}))
+
+
+class Tf32Operands(TorchDispatchMode):
+    """The negative control of `held_f64_rule`: every float32 operand of
+    an `mm` / `mv` rounded to TF32's 10 mantissa bits (to nearest, ties to
+    even) before the product, as a TF32 tensor-core GEMM reads it."""
+
+    @staticmethod
+    def round_tf32(t: torch.Tensor) -> torch.Tensor:
+        if t.dtype != torch.float32:
+            return t
+        bits = t.contiguous().view(torch.int32)
+        lsb = (bits >> 13) & 1
+        return ((bits + 0xFFF + lsb) & ~0x1FFF).view(torch.float32)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        aten = torch.ops.aten
+        if func in (aten.mm.default, aten.mv.default):
+            args = tuple(self.round_tf32(a) for a in args)
+        return func(*args, **(kwargs or {}))
+
+
+def neural_replay(start, absorbs, ncfg, dtype, device="cpu", mode=None):
+    """The escalated slot replayed in `dtype` on `device` from the same
     inputs: the promotion (its ledger and params, one refit) and every
     absorb as `nb_absorb` runs it (growth when full, `nb_append`, a refit
-    when `refit_every` appends have gathered)."""
+    when `refit_every` appends have gathered); under the dispatch `mode`
+    when one is given (`ContractionOrder`, `Tf32Operands`)."""
     from repro_torch.core import neural_basis as nb
-    xs, ys, logcs, params = start
+    xs, ys, logcs, params = (
+        a.to(device) if isinstance(a, torch.Tensor)
+        else {k: v.to(device) for k, v in a.items()} for a in start)
     n0, d = xs.shape
     cap = nb.nb_capacity(n0, ncfg)
-    st = nb.nb_init(d, cap, ncfg, params=params, device="cpu")
+    st = nb.nb_init(d, cap, ncfg, params=params, device=device)
     st = nb._replace(st, x_buf=torch.cat([xs, xs.new_zeros(cap - n0, d)]),
                      y_buf=torch.cat([ys, ys.new_zeros(cap - n0)]),
                      c_buf=torch.cat([logcs, logcs.new_zeros(cap - n0)]),
-                     n=torch.tensor(n0, dtype=torch.int32))
+                     n=torch.tensor(n0, dtype=torch.int32, device=device))
     st = nb._replace(st, **{k: getattr(st, k).to(dtype) for k in nb.FIELDS
                             if k not in nb.COUNTERS})
-    st = nb.nb_refit(st, ncfg)
-    for x, y, logc in absorbs:
-        if int(st.n) == st.cap:
-            st = nb.nb_grow(st)
-        st = nb.nb_append(st, x.to(dtype), y, logc, ncfg)
-        if int(st.since_refit) >= ncfg.refit_every:
-            st = nb.nb_refit(st, ncfg)
+    with mode if mode is not None else contextlib.nullcontext():
+        st = nb.nb_refit(st, ncfg)
+        for x, y, logc in absorbs:
+            if int(st.n) == st.cap:
+                st = nb.nb_grow(st)
+            st = nb.nb_append(st, x.to(device, dtype), y, logc, ncfg)
+            if int(st.since_refit) >= ncfg.refit_every:
+                st = nb.nb_refit(st, ncfg)
     return st
 
 
-def held_f64_rule(card, cpu32, exact, kappa) -> dict:
-    """The card's float32 value against the CPU float64 replay: within
-    twice the CPU float32 replay's error there (the repo's 2x rule), or,
-    for a value that carries the head's conditioning, within the float32
+def cpu32_replays(start, absorbs, ncfg) -> list:
+    """The CPU float32 replays `held_f64_rule` reads: one for each
+    contraction order of NEURAL_ORDERS (1 is the plain replay)."""
+    return [neural_replay(start, absorbs, ncfg, torch.float32,
+                          mode=ContractionOrder(c)) for c in NEURAL_ORDERS]
+
+
+def held_f64_rule(card, cpu32s, exact, kappa) -> dict:
+    """A float32 value (the card's) against the CPU float64 replay: within
+    twice the worst error there of the CPU float32 replays `cpu32s`, which
+    differ only in the order their GEMMs sum (`ContractionOrder`), or, for
+    a value that carries the head's conditioning, within the float32
     perturbation bound 2 kappa(A) 2^-24 max|exact| (A = ptp + noise2 I of
-    the float64 run).  An ulp of float32 in ptp moves the head's factor and
-    weights by about kappa 2^-24 of their size, each run by its own
-    draw of round-off, so two such errors can differ by more than 2x."""
-    card, cpu32 = card.double().cpu(), cpu32.double()
+    the float64 run: an ulp of float32 in ptp moves the head's factor and
+    weights by about kappa 2^-24 of their size).  The refit's 400 Adam
+    steps amplify round-off: CPU replays of one trajectory that differ
+    only in summation order land 3.7 to 40 times apart from float64, so
+    one replay's error is one draw, and the rule takes the worst of
+    several (PERF.md, PR 35)."""
+    card = card.double().cpu()
     err = float((card - exact).abs().max())
-    cpu_err = float((cpu32 - exact).abs().max())
+    errs = [float((c.double() - exact).abs().max()) for c in cpu32s]
     room = 2.0 * kappa * U32 * float(exact.abs().max())
-    by = ("2x" if err <= 2.0 * cpu_err else
+    by = ("2x" if err <= 2.0 * max(errs) else
           "kappa bound" if err <= room else None)
-    return {"card_err": err, "cpu32_err": cpu_err, "bound": room,
+    return {"card_err": err, "cpu32_errs": errs, "bound": room,
             "held_by": by}
+
+
+def held_neural_state(card, cpu32s, exact, probes, ncfg) -> dict:
+    """`held_f64_rule` on chol, w_y, w_c, s2 and the posterior's mean and
+    variance at `probes` (on the card's device), kappa of the float64
+    run's head."""
+    from repro_torch.core import neural_basis as nb
+    a64 = exact.ptp + ncfg.noise2 * torch.eye(exact.ptp.shape[0],
+                                              dtype=torch.float64)
+    kappa = float(torch.linalg.cond(a64))
+    held = {k: held_f64_rule(getattr(card, k), [getattr(c, k) for c in
+                                                cpu32s], getattr(exact, k),
+                             kappa)
+            for k in ("chol", "w_y", "w_c", "s2")}
+    post = [nb.nb_posterior(c, probes.cpu()) for c in cpu32s]
+    for i, (tag, a, c) in enumerate(zip(
+            ("mean", "var"), nb.nb_posterior(card, probes.to(card.device)),
+            nb.nb_posterior(exact, probes.cpu().double()))):
+        held[f"posterior_{tag}"] = held_f64_rule(a, [p[i] for p in post], c,
+                                                 kappa)
+    return {"kappa": kappa, "held": held}
 
 
 def profile_neural(name, eng, slot: int) -> dict:
@@ -3466,7 +3577,9 @@ def neural_path(dev, eng, studies, mixed: bool):
     refits.  Held after the rounds: the frozen GP lane torch.equal to its
     copy from before the promotion; the card's state within the float64
     rule (`held_f64_rule`) of the same absorbs replayed on the CPU (chol,
-    w_y, w_c, s2, the posterior at 64 probe points); nb_ask_q(8) then
+    w_y, w_c, s2, the posterior at 64 probe points), and the card's replay
+    with TF32-rounded GEMM operands (`Tf32Operands`) outside it, on a line
+    of its own; nb_ask_q(8) then
     nb_rollback every leaf torch.equal to the snapshot; nb_refantasize at
     p = 7 (rolled back too); nb_grow at n == cap bitwise and zero-padded;
     nb_to_json / nb_from_json bitwise; and no hand kernel launched by any
@@ -3582,23 +3695,16 @@ def neural_path(dev, eng, studies, mixed: bool):
     # 4. The card's state against the CPU replays.
     card = eng.nb_state(slot)
     exact = neural_replay(start, absorbs, ncfg, torch.float64)
-    cpu32 = neural_replay(start, absorbs, ncfg, torch.float32)
+    cpu32s = cpu32_replays(start, absorbs, ncfg)
+    cpu32 = cpu32s[0]
     for k in ("x_buf", "y_buf", "c_buf", "n", "since_refit"):
         if not torch.equal(getattr(card, k).cpu(), getattr(cpu32, k)):
             raise AssertionError(f"{name}: ledger {k} differs from the replay")
     probes = torch.rand((NEURAL_PROBES, d), generator=gen, device=dev)
     if mixed:
         probes = project_units(probes, eng._desc_for(slot))
-    a64 = exact.ptp + ncfg.noise2 * torch.eye(exact.ptp.shape[0],
-                                              dtype=torch.float64)
-    kappa = float(torch.linalg.cond(a64))
-    held = {k: held_f64_rule(getattr(card, k), getattr(cpu32, k),
-                             getattr(exact, k), kappa)
-            for k in ("chol", "w_y", "w_c", "s2")}
-    for tag, a, b, c in zip(("mean", "var"), nb.nb_posterior(card, probes),
-                            nb.nb_posterior(cpu32, probes.cpu()),
-                            nb.nb_posterior(exact, probes.cpu().double())):
-        held[f"posterior_{tag}"] = held_f64_rule(a, b, c, kappa)
+    rule = held_neural_state(card, cpu32s, exact, probes, ncfg)
+    kappa, held = rule["kappa"], rule["held"]
     params_ratio = {k: float((getattr(card, k).double().cpu()
                               - getattr(exact, k)).abs().max())
                     / max(float((getattr(cpu32, k).double()
@@ -3606,6 +3712,24 @@ def neural_path(dev, eng, studies, mixed: bool):
                     for k in nb.PARAMS}
     if not all(h["held_by"] for h in held.values()):
         raise AssertionError(f"{name}: state against float64: {held}")
+    # The negative control: the same replay on the card with every GEMM
+    # operand rounded to TF32 must leave the rule, wherever the rule can
+    # reject anything: where the head's kappa bound lies below the values'
+    # own size (the float engine's kappa is about 1e5; the mixed engine's
+    # one-hot features give about 7e7, and a bound 8x the values).
+    perturbed = neural_replay(start, absorbs, ncfg, torch.float32,
+                              device=dev, mode=Tf32Operands())
+    control = held_neural_state(perturbed, cpu32s, exact, probes, ncfg)
+    control = {k: h["card_err"] for k, h in control["held"].items()
+               if not h["held_by"]}
+    decisive = 2.0 * kappa * U32 < 1.0
+    emit({"phase": name, "part": "f64 rule negative control",
+          "perturbation": "GEMM operands rounded to TF32",
+          "kappa_head": kappa, "required": decisive,
+          "failed_rule": control})
+    if decisive and not control:
+        raise AssertionError(f"{name}: the TF32-perturbed replay holds the "
+                             f"float64 rule")
 
     # 5. nb_ask_q(8), then nb_rollback: every leaf as it was.
     snap = {k: getattr(card, k).clone() for k in nb.FIELDS}
@@ -6040,49 +6164,31 @@ def lm_step_profile(dev, cfg=None, seq: int | None = None) -> dict:
 def nn_objective(dev):
     """bench_nn_hpo's objective (benchmarks/bench_nn_hpo.py:21-80) on the
     port at tiny-lm's full width: each trial trains from the same seeded
-    init for 25 SGD-momentum steps at the trial's lr / weight decay /
-    momentum, which enter as 0-d tensors so every trial runs one code path,
-    and returns the eval accuracy on a held-out step."""
+    init for NN_STEPS SGD-momentum steps at the trial's lr / weight decay /
+    momentum, which enter as 0-d tensors so every trial runs one code path
+    (`examples.nn_objective.train_trial`), and returns the eval accuracy
+    on a held-out step."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.examples.nn_objective import KNOBS, train_trial
     from repro_torch.hpo.space import RESNET_SPACE
-    from repro_torch.models import init_params, lm_loss
-    from repro_torch.models.common import tree_map
-    from repro_torch.optim import clip_by_global_norm
-    from repro_torch.training import make_eval_step, value_and_grad
+    from repro_torch.models import init_params
     cfg = get_config(LM_ARCH)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=NN_SEQ,
                       global_batch=NN_BATCH, seed=7)
     params0, _ = init_params(cfg, 1, device=dev)
-    eval_step = make_eval_step(cfg)
     eval_batch = next(DataIterator(dcfg, start_step=NN_EVAL_STEP, device=dev))
     it = DataIterator(dcfg, device=dev)
     batches = [next(it) for _ in range(NN_STEPS)]
-
-    def loss_fn(p, batch):
-        return lm_loss(p, cfg, batch)
-
-    def sgdm_step(params, mu, batch, lr, wd, mom):
-        (loss, _), grads = value_and_grad(loss_fn, params, batch)
-        with torch.no_grad():
-            grads, _ = clip_by_global_norm(
-                tree_map(lambda g: g.float(), grads), 1.0)
-            mu = tree_map(lambda a, g: mom * a + g, mu, grads)
-            params = tree_map(
-                lambda p, a: (p.float() - lr * (a + wd * p.float())
-                              ).to(p.dtype), params, mu)
-        return params, mu, loss
 
     def objective(units: np.ndarray) -> np.ndarray:
         outs = []
         for u in np.atleast_2d(units):
             hp = RESNET_SPACE.to_hparams(u)
             knobs = [torch.tensor(hp[k], dtype=torch.float32, device=dev)
-                     for k in ("lr", "weight_decay", "momentum")]
-            params, mu = params0, tree_map(torch.zeros_like, params0)
-            for batch in batches:
-                params, mu, _ = sgdm_step(params, mu, batch, *knobs)
-            outs.append(float(eval_step(params, eval_batch)["accuracy"]))
+                     for k in KNOBS]
+            outs.append(train_trial(cfg, params0, batches, eval_batch,
+                                    knobs)["accuracy"])
         return np.asarray(outs)
 
     return objective
@@ -6882,6 +6988,7 @@ def launch_rank(rank: int, world: int, store: str, src: str, out_dir: str,
     from torch.distributed.tensor import distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.data import DataConfig, synth_tokens
+    from repro_torch.core.gp import resolve_device
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import sharding, train
     from repro_torch.models import init_params, moe
@@ -6890,7 +6997,7 @@ def launch_rank(rank: int, world: int, store: str, src: str, out_dir: str,
     from repro_torch.training import make_train_step
     on_card = device_type == "cuda"
     if on_card:
-        train.fp32_like_the_reference()
+        resolve_device(device_type)     # fp32 like the reference
         torch.cuda.set_device(0)
     dev = torch.device(device_type, 0) if on_card else torch.device("cpu")
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
@@ -7171,6 +7278,207 @@ def launch_path(dev) -> tuple[dict, dict]:
     return launches, line
 
 
+# --- the examples phase: the port's entry points as a user starts them ----
+
+TORCH_DEFAULT_PRECISION = {   # PyTorch's defaults of `precision_flags`
+    "matmul.allow_tf32": False, "cudnn.allow_tf32": True,
+    "matmul.allow_bf16_reduced_precision_reduction": True}
+REFERENCE_PRECISION = {k: False for k in TORCH_DEFAULT_PRECISION}
+# (example, run, options) in order; {a} .. {e} are checkpoint directories
+# of the phase (a second run on one resumes the first)
+EXAMPLE_RUNS = (
+    ("quickstart", "lazy", []),
+    ("quickstart", "naive", ["--mode", "naive"]),
+    ("quickstart", "lag32", ["--lag", "32"]),
+    ("hpo_service", "first", ["--categorical-tenant", "--ckpt-dir", "{a}"]),
+    ("hpo_service", "resumed", ["--categorical-tenant", "--ckpt-dir", "{a}"]),
+    ("parallel_hpo", "first", ["--faults", "--ckpt-dir", "{b}"]),
+    ("parallel_hpo", "resumed", ["--faults", "--ckpt-dir", "{b}"]),
+    ("serve", "first", ["--ckpt-dir", "{c}"]),
+    ("serve", "q4", ["--q", "4"]),
+    ("serve", "resumed", ["--ckpt-dir", "{c}"]),
+    ("serve_cluster", "kill", ["--kill"]),
+    ("train_e2e", "100m", ["--preset", "100m", "--steps", "50",
+                           "--ckpt-dir", "{d}"]),
+    ("train_e2e", "100m resumed", ["--preset", "100m", "--steps", "60",
+                                   "--ckpt-dir", "{d}"]),
+    ("train_e2e", "granite-3-2b", ["--arch", "granite-3-2b", "--reduced",
+                                   "--steps", "20", "--ckpt-dir", "{e}"]),
+)
+# The examples' defaults the contracts read (their argparse defaults).
+EX_QUICK_RUNS = 120 + 5           # --iterations + --seeds
+EX_TENANTS, EX_TENANT_BUDGET = 8, 12           # hpo_service
+EX_HPO_BUDGET = 16                             # parallel_hpo
+EX_SERVE_STUDIES, EX_SERVE_BUDGET = 12, 8      # serve
+EX_CLUSTER_STUDIES, EX_CLUSTER_BUDGET = 8, 6   # serve_cluster
+
+
+def example_contract(name: str, run: str, got: dict, runs: dict,
+                     device_type: str = "cuda") -> None:
+    """One example run's totals against the example's own contract at
+    its options (`runs`: the earlier runs of the phase by (name, run)),
+    its state on a device of `device_type`."""
+    def need(ok, what):
+        if not ok:
+            raise AssertionError(f"examples: {name} {run}: {what}")
+
+    if name == "quickstart":
+        traj = list(got["best_after"].values())
+        need(got["evals"] == EX_QUICK_RUNS, f"evals {got['evals']}")
+        need(traj == sorted(traj) and got["best"] == traj[-1] <= 0.0
+             and math.isfinite(got["best"]), f"best {traj}")
+        need(got["device"].startswith(device_type), got["device"])
+    elif name == "hpo_service":
+        full = EX_TENANTS * EX_TENANT_BUDGET
+        ns = {k: t["n"] for k, t in got["tenants"].items()}
+        need(set(ns.values()) == {EX_TENANT_BUDGET}, f"tenants {ns}")
+        need(got["absorbed"] == full and got["failures"] == 0,
+             f"absorbed {got['absorbed']}, failures {got['failures']}")
+        need(got["device"].startswith(device_type), got["device"])
+        need(got["tenants"][f"tenant{EX_TENANTS - 1}"]["choice"] is not None,
+             "no named choice for the categorical tenant")
+        if run == "first":
+            need(got["suggested"] == full and got["resumed"] is None,
+                 f"served {got['suggested']}")
+        else:
+            need(got["suggested"] == 0 and got["resumed"] == ns,
+                 f"served {got['suggested']}, resumed {got['resumed']}")
+    elif name == "parallel_hpo":
+        need(got["device"].startswith(device_type), got["device"])
+        need(0.0 <= got["best"] <= 1.0, f"best accuracy {got['best']}")
+        if run == "first":
+            need(got["absorbed"] == EX_HPO_BUDGET and got["resumed"] is None
+                 and got["failed"] == got["injected"] > 0,
+                 f"absorbed {got['absorbed']}, failed {got['failed']} of "
+                 f"{got['injected']} injected")
+        else:
+            first = runs[(name, "first")]
+            need(got["resumed"] == first["absorbed"]
+                 and got["absorbed"] == 2 * EX_HPO_BUDGET
+                 and got["failed"] == first["injected"] + got["injected"],
+                 f"resumed {got['resumed']}, absorbed {got['absorbed']}, "
+                 f"failed {got['failed']}")
+    elif name == "serve":
+        done = 2 if run == "resumed" else 1
+        full = EX_SERVE_STUDIES * EX_SERVE_BUDGET
+        ns = {k: t["n"] for k, t in got["tenants"].items()}
+        need(got["served"] == got["told"] == full
+             and got["absorbed"] == done * full, f"served {got['served']}, "
+             f"told {got['told']}, absorbed {got['absorbed']}")
+        need(set(ns.values()) == {done * EX_SERVE_BUDGET}, f"tenants {ns}")
+        need(got["evictions"] > 0, "no eviction with 12 studies on 4 slots")
+        need(got["device"].startswith(device_type), got["device"])
+        if run == "q4":
+            need(got["fantasy_active"] == 0
+                 and set(got["q_width_hist"]) == {"4"},
+                 f"fantasies {got['fantasy_active']}, "
+                 f"q widths {got['q_width_hist']}")
+        if run == "resumed":
+            need(got["resumed"] == {k: EX_SERVE_BUDGET for k in ns},
+                 f"resumed {got['resumed']}")
+    elif name == "serve_cluster":
+        budget = EX_CLUSTER_BUDGET
+        need(got["kill"] is not None and got["kill"]["revived"],
+             f"kill {got['kill']}")
+        need(len(got["tenants"]) == EX_CLUSTER_STUDIES
+             and got["served"] == EX_CLUSTER_STUDIES * budget,
+             f"served {got['served']}")
+        for k, t in got["tenants"].items():
+            # only the killed shard's uncommitted round may be lost
+            lo = budget - 1 if t["shard"] == 0 else budget
+            need(lo <= t["n"] <= budget, f"{k}: n {t['n']} on {t['shard']}")
+    elif name == "train_e2e":
+        losses = got["losses"]
+        need(all(math.isfinite(x) for x in losses)
+             and got["final_loss"] == losses[-1], f"losses {losses}")
+        if run == "100m resumed":
+            first = runs[(name, "100m")]
+            need(got["start"] == 50 and got["steps"][0] == 50,
+                 f"resumed at {got['start']}, steps {got['steps']}")
+            need(got["final_loss"] < first["losses"][0],
+                 f"final {got['final_loss']} against {first['losses'][0]}")
+        else:
+            need(got["start"] == 0 and got["final_loss"] < losses[0],
+                 f"start {got['start']}, losses {losses}")
+
+
+def examples_path(dev) -> tuple[dict, dict]:
+    """Phase examples: each example of `repro_torch.examples` called
+    in process as `main(argv + ["--device", "cuda"])` (`dev`) at the sizes its
+    JAX counterpart documents (EXAMPLE_RUNS), each resume on the
+    checkpoint directory of the run before it.  Before each run the three
+    precision settings go back to PyTorch's defaults; after it they must
+    be the reference's, set by the example itself (`gp.resolve_device`).
+    Held: each run's totals against its contract (`example_contract`),
+    the run's tensors on the card (its peak memory), and, by the launch
+    counters of the in-process runs, each of the six kernels of the TPU
+    table launched at least once across the phase (serve_cluster's run in
+    its worker processes, which this process cannot count).  One line a
+    run (seconds, totals, launches, the card), then the phase's line.
+    Returns (launches, line)."""
+    import importlib
+    import tempfile
+    from repro_torch.kernels import acq
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    totals = {k: 0 for k in read_counts()}
+    runs, by_example = {}, {}
+    misses = acq.MISSES
+    with tempfile.TemporaryDirectory() as root:
+        dirs = {k: os.path.join(root, k) for k in "abcde"}
+        for name, run, options in EXAMPLE_RUNS:
+            argv = [o.format(**dirs) for o in options] + ["--device",
+                                                           dev.type]
+            module = importlib.import_module(f"repro_torch.examples.{name}")
+            for key, value in TORCH_DEFAULT_PRECISION.items():
+                attr = (torch.backends.cudnn if key.startswith("cudnn")
+                        else torch.backends.cuda.matmul)
+                setattr(attr, key.split(".", 1)[1], value)
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            got = module.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() - base
+            if precision_flags() != REFERENCE_PRECISION:
+                raise AssertionError(f"examples: {name} {run} left the "
+                                     f"precision at {precision_flags()}")
+            if name != "serve_cluster" and peak <= 0:
+                raise AssertionError(f"examples: {name} {run} allocated "
+                                     f"nothing on the card")
+            example_contract(name, run, got, runs, dev.type)
+            runs[(name, run)] = got
+            for k, v in counts.items():
+                totals[k] += v
+            mine = by_example.setdefault(name, {k: 0 for k in counts})
+            for k, v in counts.items():
+                mine[k] += v
+            emit({"phase": "examples", "example": name, "run": run,
+                  "argv": argv, "seconds": seconds,
+                  "peak_memory_bytes": peak, "launches": counts,
+                  "totals": got, "nvidia_smi": smi})
+    # The six TPU kernels: the general solve is trsv.cu's too.
+    six = {"matern": totals["matern"], "chol": totals["chol"],
+           "trsv": totals["trsv"] + totals["trsv_general"],
+           "acq": totals["acq"], "acq_mixed": totals["acq_mixed"],
+           "mixed": totals["mixed"]}
+    missing = sorted(k for k, v in six.items() if not v)
+    if missing:
+        raise AssertionError(f"examples: no launch of {missing} across the "
+                             f"phase: {by_example}")
+    line = {"phase": "examples", "part": "summary", "launches": totals,
+            "launches_by_example": by_example,
+            "fused_ei_table_misses": acq.MISSES - misses,
+            "precision": precision_flags(), "nvidia_smi": smi,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    return totals, line
+
+
 SOURCES = {
     "matern52_gram": ("matern", "src/repro_torch/csrc/matern.cu",
                       "src/repro/kernels/matern.py:29"),
@@ -7224,17 +7532,15 @@ def main(argv: list[str] | None = None) -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels import _build
 
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.core.gp import resolve_device
+    dev = resolve_device("cuda")    # fp32 like the reference
     if argv:
         return digests_only(dev, src)
     smi = nvidia_smi_line()
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "precision": precision_flags()})
 
     seconds = _build.build()
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "Used" in ln]
@@ -7377,6 +7683,9 @@ def main(argv: list[str] | None = None) -> int:
         "lm_serve", lm_serve_path, dev)
     # The launch layer: the sharded step on two ranks of the one card.
     launches_by_path["launch"], _ = recorder.run("launch", launch_path, dev)
+    # The examples as a user starts them (their plan keys are not in the
+    # table: the heuristic serves them), before the profiles.
+    launches_by_path["examples"], _ = examples_path(dev)
     emit({"phase": "profile", "part": "lm step", **lm_step_profile(dev)})
     emit({"phase": "profile", "part": "lm_moe step",
           **lm_step_profile(dev, wide_config("granite-moe-3b-a800m"))})

