@@ -21,8 +21,10 @@ Phases, each printing one JSON line:
                that of the source and each entry's plan reproducing its
                digests (a stale table fails the run: run `tune_acq`
                again); each entry's own plan held to the plain version
-               on 6 seeded states beside the heuristic's; each key's
-               tabled and heuristic plans with the race's device ms.
+               on 6 seeded states beside the heuristic's; the race's held
+               count of every candidate beside the one-slice candidate of
+               its R, which no k-split may fall below; each key's tabled
+               and heuristic plans with the race's device ms.
                Every path below runs through `AcqPlanRecorder`: a line
                `{"phase": <path>, "part": "acq plans"}` gives its fused-EI
                launches by plan key and study count, and those that
@@ -280,8 +282,8 @@ Phases, each printing one JSON line:
                fresh gateway: registry and lanes equal, one more tick
                equal.  (5) 24 asyncio clients (6 asks; q = 4 for clients
                4 and 12; client 0 on until promoted past n_max, then 4
-               more) on a pipelined and a serial gateway, in turns
-               (D, E, E, D): suggestions in the unit cube, every tell
+               more) on a pipelined, then on a serial gateway (D, E:
+               one run of each): suggestions in the unit cube, every tell
                absorbed; suggestions a second,
                ticks, coalesce width, p50 / p95 tick ms, evictions and
                restores, and the eviction, restore and checkpoint ms.
@@ -307,8 +309,9 @@ Phases, each printing one JSON line:
                n_obs / best_value A's, each resident study's digest over
                RPC A's), then a SIGKILL of worker 0 and its revival under
                the same law; each worker's spawn-to-endpoint seconds and
-               slowest ping.  (4) The 24 asyncio clients on A and C in
-               turns (A, C, C, A), each fresh from the records:
+               slowest ping.  (4) The 24 asyncio clients on A, then on
+               C, each fresh from the records (one run of each: the
+               phase's depth cut to keep the script in its time):
                suggestions a second, p50 / p95 tick ms by shard, beside
                the gateway phase's.  `federation` counts A's own
                launches (B's taken out, after the trace's launches are
@@ -422,8 +425,12 @@ the card's loss of the same sequence):
                starts from PyTorch's default precision settings and must
                leave the reference's (the example set them), and is held
                to its contract (`example_contract`); the six TPU kernels'
-               counterparts must launch across the in-process runs.  One
-               line a run with its seconds and totals.
+               counterparts must launch across the in-process runs, and
+               none of their fused-EI launches may miss the plan table
+               (the phase runs through `AcqPlanRecorder`, as the paths
+               do).  serve_cluster's line carries its workers' start
+               stages (`worker_starts`).  One line a run with its seconds
+               and totals.
 Then one AdamW step each of the lm phase, of lm_moe's and of lm_mamba's
 profiled (`lm_step_profile`: device kernels, span, busy, host ms, device
 ms by kind of kernel and the top 15 kernels), and one decode step each of
@@ -513,7 +520,14 @@ TOL_POSTERIOR = dict(rtol=1e-4, atol=1e-5)  # mean and variance, O(1) values
 # within the tolerance above, and each must equal its own single launch.
 
 
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries `at_s`, the script's seconds
+    so far when it was printed (where the run's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -627,7 +641,10 @@ def device_split(fn) -> dict:
         if spans:
             break
     if not spans:
-        raise AssertionError("torch.profiler recorded no device activity in 3 sessions")
+        names = sorted({e.name for e in prof.events()})
+        raise AssertionError(f"torch.profiler recorded no device activity in "
+                             f"3 sessions ({len(prof.events())} host events: "
+                             f"{names[:8]})")
     by_name, busy, reach = {}, 0.0, spans[0][0]
     for start, end, name in spans:
         count, us = by_name.get(name, (0, 0.0))
@@ -1872,19 +1889,23 @@ class AcqPlanRecorder:
         """`fn(*args)` as path `name`; returns its result."""
         from repro_torch.kernels import acq
         misses, launches = acq.MISSES, collections.Counter(acq.KEY_LAUNCHES)
+        t0 = time.perf_counter()
         out = fn(*args)
-        self.note(name, acq.MISSES - misses, acq.KEY_LAUNCHES - launches)
+        self.note(name, acq.MISSES - misses, acq.KEY_LAUNCHES - launches,
+                  time.perf_counter() - t0)
         return out
 
-    def note(self, name: str, misses: int, launches) -> None:
+    def note(self, name: str, misses: int, launches,
+             seconds: float | None = None) -> None:
         """Add `misses` and `launches` (a Counter by key and studies) to
-        path `name`, emit its line, write the record and, outside a
-        recording run, fail on a miss."""
+        path `name`, emit its line (with the path's wall `seconds` when
+        given), write the record and, outside a recording run, fail on a
+        miss."""
         entry = self.by_path.setdefault(
             name, {"launches": collections.Counter(), "misses": 0})
         entry["launches"].update(launches)
         entry["misses"] += misses
-        emit({"phase": name, "part": "acq plans",
+        emit({"phase": name, "part": "acq plans", "seconds": seconds,
               "fused_ei_misses": entry["misses"],
               "keys": sorted({k[:4] for k in entry["launches"]}),
               "launches": [[*k, c] for k, c in
@@ -1920,17 +1941,17 @@ def acq_plan_checks(dev, record: bool) -> dict:
     (`acq.PLANS_PATH`): each entry's own plan and the heuristic's held
     state by state to the plain version on `tune_acq.HELD_STATES` seeded
     states of its key (`tune_acq.held_states`), where the tabled plan
-    must hold as many as the heuristic's (the race admits no other).  At
-    2 or more k-slices a plan leaves that rule on some of these
-    ill-conditioned states at any R, the heuristic's split included
-    (ROADMAP, queue 3): the states are printed, and a tile is held on
-    every state at one k-slice above.  Then the table's
-    sha256 of `acq.cu` that of the source, and each entry's plan
-    reproducing its digests on the card (`tune_acq.entry_digests`; a
-    recording run skips these three, as the table is about to be raced
-    again).  Prints each key's tabled and heuristic plans with the device
-    ms the race measured (this run's own come in the profile phase,
-    `acq_plan_times`)."""
+    must hold as many as the heuristic's (the race admits no other); the
+    states are printed, and a tile is held on every state at one k-slice
+    above.  The race's held count of every candidate stands beside the
+    one-slice candidate of its R (`held_by_candidate`: [held, one
+    slice]): the kernel sums U over the k-slices before any column sum,
+    so no k-split may hold fewer.  Then the table's sha256 of `acq.cu`
+    that of the source, and each entry's plan reproducing its digests on
+    the card (`tune_acq.entry_digests`; a recording run skips these four,
+    as the table is about to be raced again).  Prints each key's tabled
+    and heuristic plans with the device ms the race measured (this run's
+    own come in the profile phase, `acq_plan_times`)."""
     from repro_torch.kernels import acq, tune_acq
     t0 = time.perf_counter()
     held, lanes = {}, {}
@@ -1973,8 +1994,7 @@ def acq_plan_checks(dev, record: bool) -> dict:
         # (.get: a recording run may read a table of an older layout)
         line = {k: e.get(k) for k in ("plan_rows", "n", "d", "form", "rows",
                                       "tiles_per_slice", "slices", "ms",
-                                      "cost_ms", "launches",
-                                      "kept_heuristic")}
+                                      "cost_ms", "launches")}
         line["heuristic"] = {k: v for k, v in e["heuristic"].items()
                              if k in ("rows", "slices", "cost_ms")
                              or k in e["ms"]}
@@ -1989,6 +2009,21 @@ def acq_plan_checks(dev, record: bool) -> dict:
                            < sum(on_heuristic["held"])):
             raise AssertionError(f"acq_plans: the tabled plan holds fewer "
                                  f"seeded states than the heuristic's: {line}")
+        # The race's held counts: each candidate beside the one-slice
+        # candidate of its R, which a k-split must not fall below.
+        one = {c["rows"]: c["held"] for c in e["candidates"]
+               if c["slices"] == 1}
+        line["held_by_candidate"] = {
+            f"R{c['rows']} x {c['slices']}": [c["held"], one[c["rows"]]]
+            for c in e["candidates"]}
+        short = {k: v for k, v in line["held_by_candidate"].items()
+                 if v[0] < v[1]}
+        if not record and short:
+            raise AssertionError(f"acq_plans: at {line['plan_rows']} "
+                                 f"{line['n']} {line['d']} {line['form']} a "
+                                 f"k-split holds fewer seeded states than "
+                                 f"one slice of its R ([held, one slice]): "
+                                 f"{short}")
         if not record:
             got = tune_acq.entry_digests(e, table["studies"], table["seed"])
             line["digest_reproduced"] = got == e["digest"]
@@ -3483,9 +3518,12 @@ def neural_replay(start, absorbs, ncfg, dtype, device="cpu", mode=None):
 
 def cpu32_replays(start, absorbs, ncfg) -> list:
     """The CPU float32 replays `held_f64_rule` reads: one for each
-    contraction order of NEURAL_ORDERS (1 is the plain replay)."""
+    contraction order of NEURAL_ORDERS (1 is the plain replay, which
+    runs outside the dispatch mode: the same products, without the
+    mode's Python call on every op)."""
     return [neural_replay(start, absorbs, ncfg, torch.float32,
-                          mode=ContractionOrder(c)) for c in NEURAL_ORDERS]
+                          mode=ContractionOrder(c) if c > 1 else None)
+            for c in NEURAL_ORDERS]
 
 
 def held_f64_rule(card, cpu32s, exact, kappa) -> dict:
@@ -4852,8 +4890,8 @@ def gateway_path(dev, pair, pool_line) -> dict:
     restored on demand, then its leaves and next suggestion against B,
     where it stayed; (4) A's `checkpoint()` restored by a fresh gateway,
     registry and lanes equal, one more tick equal; (5) 24 asyncio clients
-    on D (pipelined) and E (serial), run D, E, E, D, client 0 promoted
-    past n_max each time."""
+    on D (pipelined), then on E (serial), one run of each, client 0
+    promoted past n_max each time."""
     import shutil
     import tempfile
     start = time.perf_counter()
@@ -4936,10 +4974,11 @@ def gateway_path(dev, pair, pool_line) -> dict:
                 "checkpoint_restore_ms": ckpt_restore_ms}
     line.update(asyncio.run(steps_2_to_4()))
     del a, b
-    # D, E, E, D: each gateway fresh from the records in a store of its
-    # own, the two modes in turns on one card
+    # D, then E: each gateway fresh from the records in a store of its
+    # own, one run of each mode on one card (the phase's depth cut to keep
+    # the script in its time)
     runs = []
-    for k, pipeline in enumerate((True, False, False, True)):
+    for k, pipeline in enumerate((True, False)):
         d = tempfile.mkdtemp(prefix=f"chip_smoke_gw{k}_")
         dirs[f"client{k}"] = d
         gateway_records(pair.a, studies, [d])
@@ -5612,7 +5651,7 @@ def federation_path(dev, pair, gateway_line) -> tuple[dict, dict]:
     (2) A's checkpoint (ms, bytes), an uncommitted round, kill_shard(0)
     and revive_shard(0): the recovery law; (3) C: the trace over RPC,
     equal to A's (digests over RPC), then a SIGKILL of worker 0 and its
-    revival; (4) 24 asyncio clients on A and C in turns (A, C, C, A),
+    revival; (4) 24 asyncio clients on A, then on C (one run of each),
     each fresh from the records: suggestions a second and tick ms by
     shard, beside the gateway phase's.  Returns A's launches, the sum of
     C's workers' and the workers' (fused-EI table misses, plan keys)."""
@@ -5678,7 +5717,7 @@ def federation_path(dev, pair, gateway_line) -> tuple[dict, dict]:
         workers = line["transport"]["launches"]["total"]
         worker_acq = [line["transport"]["launches"]]
         runs = []
-        for k, kind in enumerate(("A", "C", "C", "A")):
+        for k, kind in enumerate(("A", "C")):
             root = tempfile.mkdtemp(prefix=f"chip_smoke_fed{k}_")
             roots[f"client{k}"] = root
             federation_root(pair.a, studies, root)
@@ -7514,11 +7553,28 @@ def digests_only(dev, src: str) -> int:
     return 0
 
 
+def child_bytecode_cache() -> str:
+    """Let the Python processes this run starts (shard workers, rank and
+    launcher processes) share compiled bytecode under `build/pycache` of
+    the checkout, and write there what this process imports from now on.
+    A host that sets PYTHONDONTWRITEBYTECODE and ships no bytecode makes
+    every such process compile torch anew: 8.4-12.1 s a process on the
+    H100 hosts measured, most of a shard worker's start.  The first child
+    to import a module writes its bytecode; the later ones read it."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = path
+    sys.dont_write_bytecode, sys.pycache_prefix = False, path
+    return path
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    pycache = child_bytecode_cache()
     root = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(root, "src")
     record = None
@@ -7537,7 +7593,7 @@ def main(argv: list[str] | None = None) -> int:
     if argv:
         return digests_only(dev, src)
     smi = nvidia_smi_line()
-    emit({"phase": "device", "nvidia_smi": smi,
+    emit({"phase": "device", "nvidia_smi": smi, "pycache_prefix": pycache,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "precision": precision_flags()})
@@ -7683,9 +7739,9 @@ def main(argv: list[str] | None = None) -> int:
         "lm_serve", lm_serve_path, dev)
     # The launch layer: the sharded step on two ranks of the one card.
     launches_by_path["launch"], _ = recorder.run("launch", launch_path, dev)
-    # The examples as a user starts them (their plan keys are not in the
-    # table: the heuristic serves them), before the profiles.
-    launches_by_path["examples"], _ = examples_path(dev)
+    # The examples as a user starts them, before the profiles.
+    launches_by_path["examples"], _ = recorder.run("examples", examples_path,
+                                                   dev)
     emit({"phase": "profile", "part": "lm step", **lm_step_profile(dev)})
     emit({"phase": "profile", "part": "lm_moe step",
           **lm_step_profile(dev, wide_config("granite-moe-3b-a800m"))})

@@ -123,10 +123,23 @@ def _replace(state: NeuralBasisState, **kw) -> NeuralBasisState:
 
 
 # -- features + posterior -----------------------------------------------------
+def _tanh(x: Tensor) -> Tensor:
+    """tanh of a float32 tensor evaluated in float64 and rounded, so that
+    it is within 0.5 ulp on every device; its gradient is taken in float64
+    too and rounded.  The card's `torch.tanh` (CUDA's tanhf) is 1.8 ulp
+    off, where the CPU's is 0.56, and over a refit's 400 steps the card's
+    head then drifted further from float64 than the CPU float32 replays
+    (PERF.md).  One path on every device; a float64 tensor takes
+    `torch.tanh`."""
+    if x.dtype == torch.float32:
+        return torch.tanh(x.double()).float()
+    return torch.tanh(x)
+
+
 def _features(state: NeuralBasisState, x: Tensor) -> Tensor:
     """phi(x): (..., m+1), two tanh layers and a constant bias feature."""
-    h = torch.tanh(x @ state.w1 + state.b1)
-    f = torch.tanh(h @ state.w2 + state.b2)
+    h = _tanh(x @ state.w1 + state.b1)
+    f = _tanh(h @ state.w2 + state.b2)
     return torch.cat([f, torch.ones_like(f[..., :1])], dim=-1)
 
 
@@ -243,8 +256,8 @@ def _refit_grad(x_buf: Tensor, mask: Tensor, targets: Tensor, nf: Tensor,
     with torch.enable_grad():
         ps = [p.detach().requires_grad_(True) for p in params]
         w1, b1, w2, b2, w3, b3 = ps
-        h = torch.tanh(x_buf @ w1 + b1)
-        f = torch.tanh(h @ w2 + b2)
+        h = _tanh(x_buf @ w1 + b1)
+        f = _tanh(h @ w2 + b2)
         pred = f @ w3 + b3
         err = torch.where(mask, pred - targets, 0.0)
         loss = torch.sum(err * err) / nf

@@ -37,13 +37,13 @@
 // of k, for one study: grid (k-slices x n / C, r / R, batch).  The plan
 // (`kernels/acq.launch_plan`) splits k until one study's grid has about
 // 512 CTAs: R = 8, C = 64 and 4 slices of 256 rows at r = 64, n = 1024.
-// The split depends on (r, n, d) only, never on the batch, and the last
-// CTA sums a row block's partials in (k-slice, column block) order, so a
-// study's outputs carry the same bits in any batch.  The kernel is a
-// template on R; three tiles are compiled, R = 4, 8 and 16 (C = 128, 64,
-// 32), in both forms.  Which tile and k-split a launch takes is the
-// wrapper's plan: a table raced off line on the card per (R of the
-// unsharded launch, n, d, form), or the R = 8 rule above
+// The split depends on (r, n, d) only, never on the batch, and every sum
+// runs in a fixed order (slices in slice order, then column blocks in
+// `tree_sum` order), so a study's outputs carry the same bits in any
+// batch.  The kernel is a template on R; three tiles are compiled, R = 4,
+// 8 and 16 (C = 128, 64, 32), in both forms.  Which tile and k-split a
+// launch takes is the wrapper's plan: a table raced off line on the card
+// per (R of the unsharded launch, n, d, form), or the R = 8 rule above
 // (`kernels/acq.acq_tile_config`).
 //   * A streams, nothing n-long is held: a CTA walks its k-slice in tiles
 //     of 32 rows; cp.async stages A[k-tile, its C columns], x_buf[k-tile]
@@ -53,34 +53,48 @@
 //     and one lane per k, and each thread adds the tile's 32 terms of its
 //     U entries (FMAs, k ascending) to its registers.  Two barriers a
 //     k-tile; no load waits on an unstaged L2 read.
+//   * U is whole before any column sum.  A slice's partial U is a sum of
+//     large terms that cancel (on an ill-conditioned state its entries run
+//     to 40x those of U), so a column sum taken of it carries that size's
+//     round-off into q, S2 and V2.  With more than one k-slice each CTA
+//     writes its R x C tile of partial U to scratch (study, row block,
+//     column block, slice), fences, and takes a ticket on the integer
+//     counter of its (study, row block, column block).  The slice that
+//     arrives last adds the tiles in slice order (the same bits on every
+//     run), sets that counter back to 0 and goes on alone; the others
+//     leave.  A one-slice plan keeps U in registers and skips this step.
+//     Scratch rather than a thread-block cluster summing in distributed
+//     shared memory: a cluster holds at most 8 CTAs (portable), where the
+//     plans reach 32 slices at n = 4096, and the round trip (about 19 MB
+//     at S = 16, r = 48, n = 1024, 6 slices, beside the 64 MB of A the
+//     launch streams) stays in L2.
 //   * Local sums: everything before dvar is linear in U, and the gradient
 //     is linear in the per-entry weight w = cdf a1 - 2 dvar a2, with
 //     a1 = alpha amask s amask and a2 = U s amask.  So over its C columns
-//     the CTA forms, per row, q = sum U K, S2 = sum a2 and V2 = sum a2
-//     x_buf (its slice's part of U) and, in slice 0 only, S1 = sum a1,
-//     V1 = sum a1 x_buf and gamma = sum K alpha (mixed: x_buf's continuous
-//     block): 2 d + 4 floats, by warp shuffles in a fixed order, then
-//     across the row group's warps in warp order.  U never leaves
-//     registers.  K and s of the CTA's own columns are recomputed there.
-//   * Two-level sum without float atomics: each CTA writes its partials to
+//     the column block's one remaining CTA forms, per row, q = sum U K,
+//     S1 = sum a1, S2 = sum a2, gamma = sum K alpha, V1 = sum a1 x_buf and
+//     V2 = sum a2 x_buf (mixed: x_buf's continuous block): 2 d + 4 floats,
+//     by warp shuffles in a fixed order, then across the row group's warps
+//     in warp order.  K and s of the CTA's own columns are recomputed
+//     there.
+//   * Two-level sum without float atomics: that CTA writes its partials to
 //     scratch, fences, and takes a ticket on the integer counter of its
 //     (study, row block).  The CTA that arrives last sums the partials of
-//     every (slice, column block) in a fixed tree order (`tree_sum`, so
-//     the result is the same on every run), then computes var, sigma, Z,
-//     EI, cdf and dvar, writes ei and grad = (cdf S1 - 2 dvar S2) x -
-//     (cdf V1 - 2 dvar V2), and sets the counter back to 0, so the
-//     scratch is ready for the next call on the stream.  No grid-wide
-//     barrier: any batch runs.
+//     every column block in a fixed tree order (`tree_sum`), then computes
+//     var, sigma, Z, EI, cdf and dvar, writes ei and grad = (cdf S1 - 2
+//     dvar S2) x - (cdf V1 - 2 dvar V2), and sets the counter back to 0,
+//     so the scratch is ready for the next call on the stream.  No
+//     grid-wide barrier: any batch runs.
 // Shared memory is 36-40 KB a CTA at R = 8 whatever n is (four stages of
 // the tile and the reduction buffers; about 24 KB at R = 16 and 70 KB at
 // R = 4, where the A stages are 128 columns wide), so any n that device
-// memory holds runs.  The tile (R), the k-tiles per slice and the shared
-// bytes come from the plan; the entry checks the bytes against `layout`.
-// A row's sums do not depend on its place in its row block (each row's U,
-// K and partials are its own; the warps of a row group sum in warp order),
-// so a restart shard that starts mid-block sums its rows as the unsharded
-// launch does.  Rounding differs from the
-// earlier design (shorter sums: 32-term chains of U, trees across CTAs),
+// memory holds runs.  The tile (R), the k-tiles per slice, the shared
+// bytes and the scratch sizes come from the plan; the entry checks the
+// bytes against `layout`.  A row's sums do not depend on its place in its
+// row block (each row's U, K and partials are its own; the warps of a row
+// group sum in warp order), so a restart shard that starts mid-block sums
+// its rows as the unsharded launch does.  Rounding differs from the
+// earlier designs (shorter sums: 32-term chains of U, trees across CTAs),
 // not the math.
 // erfcf / expf / sqrtf are the accurate forms (no fast math), as the
 // parity with the reference needs; Phi is 0.5 erfc(-Z / sqrt2), which
@@ -259,8 +273,9 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
                      const float* __restrict__ rho_p,
                      const float* __restrict__ shift_p,
                      float* __restrict__ ei_out, float* __restrict__ grad_out,
-                     float* __restrict__ part, int* __restrict__ counters,
-                     int r, int n, int d, int tps, int vec, int mask_step) {
+                     float* __restrict__ part, float* __restrict__ utile,
+                     int* __restrict__ counters, int r, int n, int d, int tps,
+                     int vec, int mask_step) {
   constexpr int C = kTileOutputs / R;
   constexpr int kGroupWarps = C / 32;      // warps sharing a row group
   static_assert(C % 32 == 0 && (R / 4) * C == kThreads, "tile");
@@ -285,7 +300,7 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
   const int ncb = (n + C - 1) / C, nk = (n + kTk - 1) / kTk;
   const int cb = blockIdx.x % ncb, ksl = blockIdx.x / ncb;
   const int rb = blockIdx.y, b = blockIdx.z;
-  const int nrb = gridDim.y, nparts = gridDim.x;
+  const int nrb = gridDim.y, nsl = gridDim.x / ncb;
   x += (size_t)b * r * d;
   xb += (size_t)b * n * d;
   amask += (size_t)b * n;
@@ -410,13 +425,39 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
     for (int q = 0; q < 4; ++q) acc[q] += u[q];
   }
 
-  // Local sums over this CTA's columns.  Column j's K and s are recomputed
-  // from x_buf[j] (the same arithmetic as the streamed K).  The terms that
-  // do not depend on U (S1, V1, gamma) come from k-slice 0 only.
+  // With more than one k-slice: the column block's slices meet in
+  // scratch and the last to arrive sums U in slice order.
+  if (nsl > 1) {
+    float* ut = utile + (((size_t)b * nrb + rb) * ncb + cb) * nsl * R * C;
+    float* mine = ut + (size_t)ksl * R * C + 4 * rg * C + col;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mine[q * C] = acc[q];
+    __threadfence();
+    __syncthreads();
+    int* ticket = counters + (size_t)gridDim.z * nrb
+                  + ((size_t)b * nrb + rb) * ncb + cb;
+    if (tid == 0) last_s = atomicAdd(ticket, 1) == nsl - 1;
+    __syncthreads();
+    if (!last_s) return;
+    __threadfence();
+    const float* u0 = ut + 4 * rg * C + col;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float s = __ldcg(u0 + q * C);
+      for (int sl = 1; sl < nsl; ++sl)
+        s += __ldcg(u0 + (size_t)sl * R * C + q * C);
+      acc[q] = s;
+    }
+    if (tid == 0) *ticket = 0;
+  }
+
+  // Local sums over this CTA's columns from the whole U.  Column j's K
+  // and s are recomputed from x_buf[j] (the same arithmetic as the
+  // streamed K).
   const int j = j0 + col;
-  const bool jv = j < n, first = ksl == 0;
+  const bool jv = j < n;
   const float amj = jv ? amask[j] : 0.f;
-  const float alj = jv && first ? alpha[j] : 0.f;
+  const float alj = jv ? alpha[j] : 0.f;
   const float* xbj = xb + (size_t)(jv ? j : 0) * d;
   const float sfac = -sigma2 * (5.f / (3.f * rho * rho));
   float yy, ll;
@@ -464,9 +505,9 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
     }
   }
   __syncthreads();
-  // Partials in (study, row block, k-slice, column block) order.
-  float* prow = part + (size_t)(b * nrb + rb) * nparts * R * P;
-  float* pcta = prow + (size_t)blockIdx.x * R * P;
+  // Partials in (study, row block, column block) order.
+  float* prow = part + (size_t)(b * nrb + rb) * ncb * R * P;
+  float* pcta = prow + (size_t)cb * R * P;
   for (int e = tid; e < R * P; e += kThreads) {
     const int i = e / P, p = e % P;
     const float* w0 = ws + ((i / 4) * kGroupWarps * 4 + i % 4) * P + p;
@@ -479,12 +520,12 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
   __threadfence();
   __syncthreads();
   int* counter = counters + b * nrb + rb;
-  if (tid == 0) last_s = atomicAdd(counter, 1) == nparts - 1;
+  if (tid == 0) last_s = atomicAdd(counter, 1) == ncb - 1;
   __syncthreads();
   if (!last_s) return;
   __threadfence();
   for (int e = tid; e < R * P; e += kThreads)
-    tot[e] = tree_sum(prow + e, nparts, (size_t)R * P);
+    tot[e] = tree_sum(prow + e, ncb, (size_t)R * P);
   __syncthreads();
   if (tid < R && i0 + tid < r) {
     const float* tr = tot + tid * P;
@@ -508,7 +549,7 @@ fused_ei_grad_kernel(const float* __restrict__ x, const float* __restrict__ xb,
 struct Args {
   const float *x, *xb, *amask, *alpha, *abuf, *cont_mask, *cat_mask;
   const float *sigma2, *rho, *shift;
-  float *ei, *grad, *part;
+  float *ei, *grad, *part, *utile;
   int* counters;
   int batch, r, n, d, tps, shared, mask_step;
 };
@@ -535,8 +576,8 @@ int launch(const Args& a, cudaStream_t st) {
   const int vec = a.n % 4 == 0 && reinterpret_cast<uintptr_t>(a.abuf) % 16 == 0;
   fused_ei_grad_kernel<R, kMixed><<<grid, kThreads, a.shared, st>>>(
       a.x, a.xb, a.amask, a.alpha, a.abuf, a.cont_mask, a.cat_mask, a.sigma2,
-      a.rho, a.shift, a.ei, a.grad, a.part, a.counters, a.r, a.n, a.d, a.tps,
-      vec, a.mask_step);
+      a.rho, a.shift, a.ei, a.grad, a.part, a.utile, a.counters, a.r, a.n,
+      a.d, a.tps, vec, a.mask_step);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -565,17 +606,20 @@ int launch_rows(const Args& a, int rows, cudaStream_t st) {
 // The float form.  `rows` is the tile's candidate rows (4, 8 or 16; the
 // tile has 512 / rows columns), `tps` the k-tiles a CTA walks
 // and `shared` its dynamic shared bytes, all from kernels/acq.launch_plan;
-// `part` and `counters` are the call's scratch (partials of every CTA;
-// one int per (study, row block), 0 on entry and left 0).
+// `part`, `utile` and `counters` are the call's scratch (the column sums
+// of every (study, row block, column block); the partial U tile of every
+// CTA when k is split, else unused; one int per (study, row block), then,
+// when k is split, one per (study, row block, column block), 0 on entry
+// and left 0).
 REPRO_EXPORT int repro_fused_ei_grad(
     const float* x, const float* xb, const float* amask, const float* alpha,
     const float* abuf, const float* sigma2, const float* rho,
-    const float* shift, float* ei, float* grad, float* part, int* counters,
-    int batch, int r, int n, int d, int rows, int tps, int shared,
-    void* stream) {
+    const float* shift, float* ei, float* grad, float* part, float* utile,
+    int* counters, int batch, int r, int n, int d, int rows, int tps,
+    int shared, void* stream) {
   const Args a{x, xb, amask, alpha, abuf, nullptr, nullptr, sigma2, rho,
-               shift, ei, grad, part, counters, batch, r, n, d, tps, shared,
-               0};
+               shift, ei, grad, part, utile, counters, batch, r, n, d, tps,
+               shared, 0};
   return launch_rows<false>(a, rows, static_cast<cudaStream_t>(stream));
 }
 
@@ -586,11 +630,11 @@ REPRO_EXPORT int repro_fused_ei_grad_mixed(
     const float* x, const float* xb, const float* cont_mask,
     const float* cat_mask, const float* amask, const float* alpha,
     const float* abuf, const float* sigma2, const float* rho,
-    const float* shift, float* ei, float* grad, float* part, int* counters,
-    int batch, int r, int n, int d, int rows, int tps, int shared,
-    int mask_step, void* stream) {
+    const float* shift, float* ei, float* grad, float* part, float* utile,
+    int* counters, int batch, int r, int n, int d, int rows, int tps,
+    int shared, int mask_step, void* stream) {
   const Args a{x, xb, amask, alpha, abuf, cont_mask, cat_mask, sigma2, rho,
-               shift, ei, grad, part, counters, batch, r, n, d, tps, shared,
-               mask_step};
+               shift, ei, grad, part, utile, counters, batch, r, n, d, tps,
+               shared, mask_step};
   return launch_rows<true>(a, rows, static_cast<cudaStream_t>(stream));
 }

@@ -40,9 +40,14 @@ from repro_torch.hpo.transport import (ShardConnectionError, TransportConfig,
                                        TransportFederation)
 
 
-# Retries of 0.2 s a client waits for its shard's revive: a worker on the
-# card takes about 10 s to start (CUDA's start-up, the kernels' load),
-# past the 50 of the JAX example.
+# Retries of 0.2 s a client waits for its shard's revive, past the 50 of
+# the JAX example.  On H100 hosts a worker took 10-12 s to start where
+# every process compiles torch anew (no bytecode written), 5-6 s with the
+# bytecode cached: nearly all of it the interpreter's start and imports,
+# torch's (the port's modules, the gateway and its restore take a
+# fraction of a second: `worker_starts`).  With 50, a `--kill` run
+# without the cache ran out of retries; with it, two passed on 145 and
+# 155 retries across the killed shard's four clients, near their 200.
 MAX_RETRIES = 300
 
 
@@ -152,7 +157,8 @@ async def serve(args, root: str) -> dict:
     return {"served": served, "retries": retries, "seconds": elapsed,
             "resumed": bool(restored), "ticks": summary["ticks"],
             "evictions": summary["evictions"], "worst_p95_tick_ms": worst_p95,
-            "kill": kill, "tenants": tenants}
+            "kill": kill, "tenants": tenants,
+            "worker_starts": tf.worker_starts}
 
 
 def main(argv: list[str] | None = None) -> dict:

@@ -94,6 +94,9 @@ __all__ = ["TransportConfig", "TransportFederation", "ShardServer",
 _MAX_FRAME = 64 << 20  # 64 MiB: larger is a protocol bug, not a payload
 ENDPOINT_FILE = "endpoint.json"
 SPEC_FILE = "spec.json"
+# Set by the front end to time.time() just before it spawns a worker, so
+# that the worker can time its interpreter start and imports.
+SPAWNED_AT_ENV = "REPRO_WORKER_SPAWNED_AT"
 
 
 class TransportError(RuntimeError):
@@ -519,20 +522,42 @@ class ShardServer:
 # -- worker entry point ------------------------------------------------------
 async def _worker_main(ckpt_dir: str, spec_path: str, host: str,
                        port: int) -> None:
+    # Seconds of each stage of the start: the interpreter and imports
+    # (from the front end's spawn, when it says when), the CUDA context on
+    # a card, the gateway, its restore, the bind.
+    spawned = os.environ.get(SPAWNED_AT_ENV)
+    stages = {"imports": time.time() - float(spawned) if spawned else None}
+    t = time.perf_counter()
+
+    def stage(name):
+        nonlocal t
+        now = time.perf_counter()
+        stages[name], t = now - t, now
+
     with open(spec_path) as f:
         spec = json.load(f)
+    dev = torch.device(spec.get("device", "cuda"))
+    if dev.type == "cuda" and torch.cuda.is_available():
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+        stage("cuda")
     gw = gateway_from_spec(spec, ckpt_dir)
+    stage("gateway")
     restored = gw.restore()
+    stage("restore")
     server = ShardServer(gw, host, port)
     bound_host, bound_port = await server.start()
+    stage("bind")
     # publish the endpoint LAST — its existence means "restored and
     # accepting"; atomic so the front end never reads a partial file
     _write_json_atomic(os.path.join(ckpt_dir, ENDPOINT_FILE),
                        {"host": bound_host, "port": bound_port,
-                        "pid": os.getpid(), "restored": restored})
+                        "pid": os.getpid(), "restored": restored,
+                        "start_seconds": stages})
     print(f"[shard-worker pid={os.getpid()}] serving "
           f"{bound_host}:{bound_port} store={ckpt_dir} "
-          f"restored={restored}", file=sys.stderr, flush=True)
+          f"restored={restored} start_seconds={json.dumps(stages)}",
+          file=sys.stderr, flush=True)
     await server.serve_until_shutdown()
 
 
@@ -702,6 +727,10 @@ class TransportFederation(FederationBase):
         self.clients: list[ShardClient | None] = [None] * self.fed.n_shards
         self.procs: list[subprocess.Popen | None] = [None] * self.fed.n_shards
         self._misses = [0] * self.fed.n_shards
+        # Each spawned worker's start: seconds to its endpoint, and its own
+        # stages (`_worker_main`), in spawn order (the shard alone while
+        # the worker comes up).
+        self.worker_starts: list[dict] = []
         self._health_task: asyncio.Task | None = None
         self._started = False
 
@@ -713,8 +742,16 @@ class TransportFederation(FederationBase):
         restored shards against the registry.  Returns True when a
         federation epoch was restored."""
         restored = self._load_epoch()
-        for i in range(self.fed.n_shards):
-            await self._start_shard(i)
+        # The workers start side by side: a worker's start is nearly all
+        # its interpreter's imports, which one worker need not wait out
+        # for another's.  Every start runs to its end before the first
+        # failure, in shard order, is raised.
+        outs = await asyncio.gather(
+            *(self._start_shard(i) for i in range(self.fed.n_shards)),
+            return_exceptions=True)
+        for out in outs:
+            if isinstance(out, BaseException):
+                raise out
         if restored:
             for i in range(self.fed.n_shards):
                 await self._reconcile_shard_rpc(i)
@@ -748,6 +785,10 @@ class TransportFederation(FederationBase):
         pkg_root = os.path.dirname(os.path.dirname(repro_torch.__file__))
         env = dict(os.environ)
         env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+        env[SPAWNED_AT_ENV] = repr(time.time())
+        t0 = time.perf_counter()
+        start = {"shard": i}
+        self.worker_starts.append(start)
         proc = subprocess.Popen(
             [self.transport.python, "-m", "repro_torch.hpo.shard_worker",
              "--ckpt-dir", d], env=env)
@@ -767,6 +808,8 @@ class TransportFederation(FederationBase):
             await asyncio.sleep(0.05)
         with open(ep_path) as f:
             info = json.load(f)
+        start.update(endpoint_s=time.perf_counter() - t0,
+                     **(info.get("start_seconds") or {}))
         return await ShardClient.connect(info["host"], info["port"])
 
     async def aclose(self) -> None:

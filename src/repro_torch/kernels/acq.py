@@ -27,15 +27,18 @@ output.
 
 On the card a call is one launch: each CTA owns a tile of R candidate rows
 x 512 / R columns of U (R = 4, 8 or 16) and a slice of k for one study
-(`launch_plan`), writes its partial row sums to scratch, and the last CTA
-of each row block sums them in a fixed order and finishes the rows.  The
+(`launch_plan`).  With k split, the slices of a column block meet in
+scratch and the last to arrive adds their partial U in slice order, so
+that every column sum is taken of the whole U, as the reference's one dot
+gives it; that CTA writes the block's row sums to scratch, and the last
+CTA of each row block sums them in a fixed order and finishes the rows.  The
 tile and the k-split are the call's `AcqTileConfig` (`acq_tile_config`):
 the plan raced off line on the card for (R of the unsharded launch, n, d,
 form) and committed in `acq_plans.json` (`tune_acq`), or the R = 8
-heuristic for a key the table lacks.  The scratch (partials and one ticket
-counter per row block) is kept per device and stream and grows as needed;
-the kernel leaves the counters at 0, so a call allocates nothing but its
-outputs.
+heuristic for a key the table lacks.  The scratch (row sums, partial U
+tiles and the ticket counters) is kept per device and stream and grows as
+needed; the kernel leaves the counters at 0, so a call allocates nothing
+but its outputs.
 """
 from __future__ import annotations
 
@@ -57,9 +60,9 @@ SOURCE = "acq"
 LAUNCHES = 0        # float-form launches since the caller last set it to 0
 LAUNCHES_MIXED = 0  # mixed-form launches, counted apart
 _SIGNATURES = {
-    "repro_fused_ei_grad": (_build.ptr,) * 12 + (_build.cint,) * 7
+    "repro_fused_ei_grad": (_build.ptr,) * 13 + (_build.cint,) * 7
     + (_build.ptr,),
-    "repro_fused_ei_grad_mixed": (_build.ptr,) * 14 + (_build.cint,) * 8
+    "repro_fused_ei_grad_mixed": (_build.ptr,) * 15 + (_build.cint,) * 8
     + (_build.ptr,),
 }
 # csrc/acq.cu: a CTA of 128 threads owns R candidate rows x 512 / R
@@ -78,8 +81,8 @@ MISSES = 0          # CUDA launches on the heuristic plan: the key was not
 # CUDA launches that looked their plan up, by (plan_rows, n, d, form,
 # studies): the traffic `tune_acq` weights its race by.
 KEY_LAUNCHES: collections.Counter = collections.Counter()
-# (device index, stream) -> (partials, counters), kept across calls.
-_SCRATCH: dict[tuple[int, int], tuple[Tensor, Tensor]] = {}
+# (device index, stream) -> (partials, U tiles, counters), kept across calls.
+_SCRATCH: dict[tuple[int, int], tuple[Tensor, Tensor, Tensor]] = {}
 
 # Variance clamp shared with `gp.posterior`: the fused gradient mirrors
 # autodiff of this exact floor.
@@ -167,8 +170,11 @@ class LaunchPlan:
     slices: int                    # k-slices per column block
     grid: tuple[int, int, int]     # (slices x column blocks, row blocks, studies)
     shared_bytes: int              # dynamic shared memory of one CTA
-    partial_floats: int            # scratch: every CTA's (R, 2 d + 4) sums
-    counters: int                  # scratch: one int per (study, row block)
+    partial_floats: int            # scratch: (R, 2 d + 4) sums a column block
+    u_floats: int                  # scratch: every CTA's R x C partial U, if
+    # k is split (else 0)
+    counters: int                  # scratch: one int per (study, row block),
+    # and one per (study, row block, column block) if k is split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,7 +322,10 @@ def launch_plan(batch: int, r: int, n: int, d: int, mixed: bool,
     launches r of a study's R candidates with `plan_rows=R` (and R's
     config): the k-split is the unsharded launch's, so each of its rows is
     summed as in that launch, and only the grid's row blocks and the
-    scratch follow the local r."""
+    scratch follow the local r.  This is the single source of the scratch
+    sizes: the row sums of each (study, row block, column block), and,
+    when k is split, each CTA's partial U tile and a ticket counter per
+    (study, row block, column block) after those of the row blocks."""
     if min(batch, r, n, d) < 1 or (plan_rows is not None and plan_rows < r):
         raise ValueError(f"fused EI launch plan needs batch, r, n, d >= 1 "
                          f"and plan_rows >= r, got {batch}, {r}, {n}, {d}, "
@@ -338,10 +347,13 @@ def launch_plan(batch: int, r: int, n: int, d: int, mixed: bool,
         raise ValueError(f"fused EI kernel: d = {d} needs {smem} bytes of "
                          f"shared memory at R = {rows}, more than {MAX_SHARED}")
     grid = (slices * col_blocks, row_blocks, batch)
+    blocks = col_blocks * row_blocks * batch
+    split = slices > 1
     return LaunchPlan(rows=rows, cols=cols, tiles_per_slice=tps, slices=slices,
                       grid=grid, shared_bytes=smem,
-                      partial_floats=grid[0] * row_blocks * batch * rows * (2 * d + 4),
-                      counters=row_blocks * batch)
+                      partial_floats=blocks * rows * (2 * d + 4),
+                      u_floats=split * slices * blocks * TILE_OUTPUTS,
+                      counters=row_blocks * batch + split * blocks)
 
 
 def call_plan(batch: int, r: int, n: int, d: int, mixed: bool,
@@ -353,18 +365,22 @@ def call_plan(batch: int, r: int, n: int, d: int, mixed: bool,
 
 
 def _scratch(dev: torch.device, stream: int, plan: LaunchPlan
-             ) -> tuple[Tensor, Tensor]:
-    """This device and stream's scratch (partials, counters), grown to the
-    plan's size.  The counters are zeroed when they are allocated and the
-    kernel leaves them 0, so calls in stream order share them."""
+             ) -> tuple[Tensor, Tensor, Tensor]:
+    """This device and stream's scratch (row sums, U tiles, counters),
+    grown to the plan's size.  The counters are zeroed when they are
+    allocated and the kernel leaves them 0, so calls in stream order share
+    them."""
     key = (dev.index, stream)
-    part, counters = _SCRATCH.get(key, (None, None))
+    part, utile, counters = _SCRATCH.get(key, (None, None, None))
     if part is None or part.numel() < plan.partial_floats:
         part = torch.empty(plan.partial_floats, dtype=torch.float32, device=dev)
+    if utile is None or utile.numel() < max(plan.u_floats, 1):
+        utile = torch.empty(max(plan.u_floats, 1), dtype=torch.float32,
+                            device=dev)
     if counters is None or counters.numel() < plan.counters:
         counters = torch.zeros(plan.counters, dtype=torch.int32, device=dev)
-    _SCRATCH[key] = (part, counters)
-    return part, counters
+    _SCRATCH[key] = (part, utile, counters)
+    return part, utile, counters
 
 
 def _scalar(v, lead: tuple, dev: torch.device) -> Tensor:
@@ -432,13 +448,13 @@ def _launch(entry: str, x: Tensor, x_buf: Tensor, amask: Tensor,
     # The current stream's handle, without building a Python Stream object
     # (the public `torch.cuda.current_stream(dev)` costs several us a call).
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    part, counters = _scratch(dev, stream, plan)
+    part, utile, counters = _scratch(dev, stream, plan)
     status = getattr(lib, entry)(
         x.data_ptr(), x_buf.data_ptr(), *(m.data_ptr() for m in masks),
         amask.data_ptr(), alpha.data_ptr(), a_buf.data_ptr(),
         *(s.data_ptr() for s in scal), ei.data_ptr(), grad.data_ptr(),
-        part.data_ptr(), counters.data_ptr(), batch, r, n, d, plan.rows,
-        plan.tiles_per_slice, plan.shared_bytes,
+        part.data_ptr(), utile.data_ptr(), counters.data_ptr(), batch, r, n,
+        d, plan.rows, plan.tiles_per_slice, plan.shared_bytes,
         *((mask_step,) if masks else ()), stream)
     _build.check(lib, status, entry)
     return (ei, grad), True

@@ -18,12 +18,12 @@ seeded states (`held_states`); only a candidate that holds as many as
 the heuristic's plan may win.  The winner has the least device time over
 the recorded launches (each study count's time times its launches; the
 heuristic wins a tie): one plan serves every study count of a key, and a
-key launched only at S = 1 is raced at S = 1 alone.  A key of `KEEP_HEURISTIC` is raced and
-recorded, but keeps the heuristic.  The table (default `acq.PLANS_PATH`,
-`acq_plans.json`) records the card (nvidia-smi's name and power limit),
-the torch and CUDA versions, the sha256 of `csrc/acq.cu`, and per key its
-launches, every candidate's times, the winner, the heuristic and the
-digests of the winner's outputs on those inputs (`entry_digests`, which
+key launched only at S = 1 is raced at S = 1 alone.  The table (default
+`acq.PLANS_PATH`, `acq_plans.json`) records the card (nvidia-smi's name
+and power limit), the torch and CUDA versions, the sha256 of
+`csrc/acq.cu`, and per key its launches, every candidate's times and
+held states, the winner, the heuristic and the digests of the winner's
+outputs on those inputs (`entry_digests`, which
 `chip_smoke.py` reproduces: a digest that differs means the table is
 stale after a kernel edit, and this script is run again).
 """
@@ -48,12 +48,6 @@ REPS = 20         # launches of each candidate a session, in turns
 SEED = 0
 HELD_STATES = 6   # seeded states each candidate is held to the plain version on
 TOL_EI = dict(rtol=1e-4, atol=1e-5)    # the fused EI's tolerance
-# Keys that keep the heuristic plan whatever the race finds.  The float
-# engine key: on the trajectory the race's best plan (R 8 at 2 k-slices)
-# gives it, the float neural phase's float64 check of `chip_smoke.py`
-# fails, with the check's 2x taken of the worst of four CPU summation
-# orders (ROADMAP, queue 3, "the neural tier's float64 check").
-KEEP_HEURISTIC = frozenset({(48, 1024, 5, "float")})
 
 
 def source_sha256() -> str:
@@ -177,12 +171,11 @@ def held_states(key: tuple, configs, states: int = HELD_STATES,
     """Each config's fused EI on `states` seeded states of the key (one
     launch, a state a lane), held state by state to the plain version:
     ei and gradient each within TOL_EI of it, or no further from a
-    float64 evaluation than twice the plain version's own error.  A
-    k-split carries each slice's partial U, on these ill-conditioned
-    states far larger than U, through the column sums, so at 2 or more
-    slices a plan leaves that rule on some states, whatever its R.  Per
-    config: "held" (the states held) and, by state, the gradient's
-    float64 error over the plain version's."""
+    float64 evaluation than twice the plain version's own error.  The
+    kernel sums U over its k-slices before any column sum, so a k-split
+    holds as many states as one slice of its R (`chip_smoke.py` checks
+    the table's counts).  Per config: "held" (the states held) and, by
+    state, the gradient's float64 error over the plain version's."""
     plan_rows, n, d, form = key
     mixed = form == "mixed"
     args = key_inputs(plan_rows, n, d, mixed, states, seed)
@@ -265,9 +258,8 @@ def tune_key(key: tuple, launches: dict[int, int], studies: int = STUDIES,
              "cost_ms": cost_ms(t, launches)} for c, t in zip(cands, times)]
     for row, h in zip(rows, held_states(key, cands, HELD_STATES, seed)):
         row["held"] = sum(h["held"])
-    keep = key in KEEP_HEURISTIC
     admitted = [r for r in rows if r["held"] >= rows[0]["held"]]
-    win = rows[0] if keep else min(admitted, key=lambda r: r["cost_ms"])
+    win = min(admitted, key=lambda r: r["cost_ms"])
     entry = {"plan_rows": plan_rows, "n": n, "d": d, "form": form,
              "rows": win["rows"], "tiles_per_slice": win["tiles_per_slice"],
              "slices": win["slices"],
@@ -275,7 +267,7 @@ def tune_key(key: tuple, launches: dict[int, int], studies: int = STUDIES,
                     if k.startswith("s") and k.endswith("_ms")},
              "cost_ms": win["cost_ms"],
              "launches": {str(s): c for s, c in sorted(launches.items())},
-             "kept_heuristic": keep, "heuristic": rows[0],
+             "heuristic": rows[0],
              "candidates": rows}
     entry["digest"] = entry_digests(entry, studies, seed)
     return entry

@@ -4,11 +4,12 @@ summation, and the route of L X = I by size (`kernels/trsv.inverse_entry`).
 The kernel runs only on the card (`chip_smoke.py`).  Here the plan is
 walked as `csrc/acq.cu` walks it: CTA x of the grid takes column block
 x % col_blocks and k-slice x // col_blocks of row block y of study z.  The
-kernel's two-level sum is emulated in plain torch on the plan's tiles:
-each CTA's partial row sums (q = sum U K, S1 / S2 = sum a1 / a2, gamma and
-V1 / V2 = a1 / a2 x_buf, with w = cdf a1 - 2 dvar a2) over its columns and
-k-slice, summed across CTAs in the kernel's tree order, then combined into
-EI and its gradient, and held to the JAX package's `ei_grad_jnp`.
+kernel's sum is emulated in plain torch on the plan's tiles: each column
+block's U summed over its k-slices in slice order, its row sums (q = sum U
+K, S1 / S2 = sum a1 / a2, gamma and V1 / V2 = a1 / a2 x_buf, with w = cdf
+a1 - 2 dvar a2) over its columns, summed across column blocks in the
+kernel's tree order, then combined into EI and its gradient, and held to
+the JAX package's `ei_grad_jnp`.
 """
 import functools
 import math
@@ -52,7 +53,8 @@ def _walk(plan, n_rows, n_cols):
 def test_plan_covers_every_entry_of_u_once(r, nn, batch):
     """Every (row, column) of U of every study is owned by exactly one CTA
     per k-slice, every k-tile by exactly one slice of each (row, column)
-    block, no slice is empty, and the scratch holds every CTA's partials."""
+    block, no slice is empty, and the scratch holds the row sums of every
+    column block and, when k is split, every CTA's partial U tile."""
     plan = acq.launch_plan(batch, r, nn, 5, False)
     owned = np.zeros((plan.slices, batch, r, nn), np.int32)
     tiles = {}
@@ -66,8 +68,11 @@ def test_plan_covers_every_entry_of_u_once(r, nn, batch):
         assert sorted(ranges)[0][0] == 0 and sorted(ranges)[-1][1] == k_tiles
         assert sum(k1 - k0 for k0, k1 in ranges) == k_tiles
     ctas = plan.grid[0] * plan.grid[1] * plan.grid[2]
-    assert plan.partial_floats == ctas * plan.rows * (2 * 5 + 4)
-    assert plan.counters == plan.grid[1] * batch
+    blocks = ctas // plan.slices
+    split = plan.slices > 1
+    assert plan.partial_floats == blocks * plan.rows * (2 * 5 + 4)
+    assert plan.u_floats == split * ctas * plan.rows * plan.cols
+    assert plan.counters == plan.grid[1] * batch + split * blocks
 
 
 @pytest.mark.parametrize("d", [1, 5, 6, 20])
@@ -118,6 +123,7 @@ def test_k_split_is_independent_of_the_batch(r, nn, mixed):
                                                        one.tiles_per_slice)
         assert plan.grid == (*one.grid[:2], batch)
         assert plan.partial_floats == batch * one.partial_floats
+        assert plan.u_floats == batch * one.u_floats
         assert plan.counters == batch * one.counters
     if (r, nn) == (48, 1024):
         plan = acq.launch_plan(16, r, nn, d, mixed)
@@ -144,8 +150,11 @@ def test_restart_shard_keeps_the_unsharded_split(r_full, k, nn, batch,
     assert (loc.slices, loc.tiles_per_slice) == (full.slices,
                                                  full.tiles_per_slice)
     assert loc.grid == (full.grid[0], -(-r_loc // acq.ROWS), batch)
-    assert loc.partial_floats == math.prod(loc.grid) * acq.ROWS * (2 * d + 4)
-    assert loc.counters == loc.grid[1] * batch
+    blocks = math.prod(loc.grid) // loc.slices
+    split = loc.slices > 1
+    assert loc.partial_floats == blocks * acq.ROWS * (2 * d + 4)
+    assert loc.u_floats == split * math.prod(loc.grid) * acq.TILE_OUTPUTS
+    assert loc.counters == loc.grid[1] * batch + split * blocks
     assert acq.launch_plan(batch, r_full, nn, d, mixed,
                            plan_rows=r_full) == full
 
@@ -223,15 +232,18 @@ def _tiled_ei_grad(x, x_buf, amask, alpha, a_buf, sigma2, rho, shift, plan,
         k = k * cat
     km = k * amask
     s_am = (-sigma2 * (5.0 / (3.0 * rho * rho))) * (1.0 + z_all) * ez * cat * amask
-    parts = {}
+    us = {}
     for _, (r0, r1), (c0, c1), (k0, k1) in _walk(plan, r, nn):
-        rs, cs = slice(r0, r1), slice(c0, c1)
         ks = slice(k0 * acq.TK, min(nn, k1 * acq.TK))
-        u = km[rs, ks] @ a_buf[ks, cs]                    # this slice's U
+        u = km[r0:r1, ks] @ a_buf[ks, c0:c1]              # this slice's U
+        prev = us.get((r0, c0))                           # slices in order
+        us[(r0, c0)] = u if prev is None else prev + u
+    parts = {}
+    for (r0, c0), u in us.items():
+        rs, cs = slice(r0, r0 + u.shape[0]), slice(c0, c0 + u.shape[1])
         a2 = u * s_am[rs, cs]
-        first = k0 == 0
-        a1 = (alpha * amask)[cs] * s_am[rs, cs] if first else torch.zeros_like(a2)
-        g = km[rs, cs] @ alpha[cs] if first else torch.zeros(r1 - r0)
+        a1 = (alpha * amask)[cs] * s_am[rs, cs]
+        g = km[rs, cs] @ alpha[cs]
         part = torch.cat([(u * km[rs, cs]).sum(-1, keepdim=True),
                           a1.sum(-1, keepdim=True), a2.sum(-1, keepdim=True),
                           g[:, None], a1 @ x_buf[cs], a2 @ x_buf[cs]], dim=-1)

@@ -251,8 +251,7 @@ def test_table_winner_is_no_worse_than_the_heuristic(e):
     """The heuristic was raced, and the winner has the least device time
     over the key's recorded launches (each study count's time times its
     launches) of the candidates that hold as many seeded states as the
-    heuristic, so it is no worse on that time and that count; a key of
-    `tune_acq.KEEP_HEURISTIC` keeps the heuristic."""
+    heuristic, so it is no worse on that time and that count."""
     key = _key(e)
     launches = {int(s): c for s, c in e["launches"].items()}
     assert launches and all(c > 0 for c in launches.values())
@@ -272,17 +271,52 @@ def test_table_winner_is_no_worse_than_the_heuristic(e):
             for c in e["candidates"]}
     assert all(0 <= h <= TABLE["held_states"] for h in held.values())
     floor = held[(heur.rows, heur.tiles_per_slice)]
-    keep = (e["plan_rows"], e["n"], e["d"], e["form"]) in \
-        tune_acq.KEEP_HEURISTIC
-    assert e["kept_heuristic"] == keep
-    if keep:
-        assert (e["rows"], e["tiles_per_slice"]) == (heur.rows,
-                                                     heur.tiles_per_slice)
-    else:
-        assert held[(e["rows"], e["tiles_per_slice"])] >= floor
-        assert win == min(v for k, v in cost.items() if held[k] >= floor)
-        assert win <= cost[(heur.rows, heur.tiles_per_slice)]
+    assert held[(e["rows"], e["tiles_per_slice"])] >= floor
+    assert win == min(v for k, v in cost.items() if held[k] >= floor)
+    assert win <= cost[(heur.rows, heur.tiles_per_slice)]
     assert win == pytest.approx(e["cost_ms"])
+
+
+@pytest.mark.parametrize("e", ENTRIES, ids=IDS)
+def test_table_k_split_holds_as_many_as_one_slice(e):
+    """The kernel sums U over its k-slices before any column sum, so at
+    every key each candidate holds at least as many seeded states as the
+    one-slice candidate of its R, the winner included."""
+    one = {c["rows"]: c["held"] for c in e["candidates"]
+           if c["slices"] == 1}
+    assert set(one) == {c["rows"] for c in e["candidates"]}
+    for c in e["candidates"]:
+        assert c["held"] >= one[c["rows"]], c
+
+
+# Every key the paths of chip_smoke.py launch, its examples phase's
+# in-process runs included (serve, hpo_service's mixed tenant,
+# parallel_hpo, quickstart), as the race recorded them.
+TABLE_KEYS = [(16, 16, 3, "float"), (48, 20, 3, "mixed"),
+              (48, 64, 3, "float"), (48, 1024, 5, "float"),
+              (48, 1024, 6, "mixed"), (64, 24, 3, "float"),
+              (64, 133, 5, "float"), (64, 1024, 5, "float"),
+              (64, 1024, 6, "mixed")]
+
+
+@pytest.mark.parametrize("key", TABLE_KEYS, ids=["-".join(map(str, k))
+                                                 for k in TABLE_KEYS])
+def test_table_key_takes_its_raced_plan(key):
+    """The key is tabled, a call reads its raced plan (not the heuristic:
+    no table miss), and that plan holds as many seeded states as the
+    one-slice candidate of its R."""
+    assert sorted(tuple(k) for k in TABLE_KEYS) == sorted(
+        (e["plan_rows"], e["n"], e["d"], e["form"]) for e in ENTRIES)
+    e = next(e for e in ENTRIES
+             if (e["plan_rows"], e["n"], e["d"], e["form"]) == key)
+    cfg = acq.acq_tile_config(*_key(e))
+    assert cfg == acq.AcqTileConfig(e["rows"], e["tiles_per_slice"], True)
+    win = next(c for c in e["candidates"] if (c["rows"], c["tiles_per_slice"])
+               == (e["rows"], e["tiles_per_slice"]))
+    one = next(c for c in e["candidates"]
+               if c["rows"] == e["rows"] and c["slices"] == 1)
+    assert win["held"] >= one["held"]
+    assert win["held"] >= e["heuristic"]["held"]
 
 
 def test_table_covers_every_recorded_key():
@@ -322,7 +356,7 @@ def _fake_held(fewer):
 def test_race_weights_the_recorded_launches(monkeypatch, launches, want):
     """`tune_acq.tune_key` picks the least device time over the recorded
     launches by study count, times every recorded S, and keeps the
-    heuristic on a tie and for `KEEP_HEURISTIC`."""
+    heuristic on a tie."""
     from repro_torch.kernels import tune_acq as ta
 
     def ms(rows, tps, s):
@@ -340,7 +374,6 @@ def test_race_weights_the_recorded_launches(monkeypatch, launches, want):
     assert e["launches"] == {str(s): c for s, c in sorted(launches.items())}
     assert e["cost_ms"] == pytest.approx(sum(c * ms(*want, s)
                                              for s, c in launches.items()))
-    assert not e["kept_heuristic"]
     # A tie goes to the heuristic (the first candidate).
     monkeypatch.setattr(ta, "plan_times", _fake_times(lambda *a: 1.0))
     heur = acq.heuristic_config(48, 1024)
@@ -355,15 +388,7 @@ def test_race_weights_the_recorded_launches(monkeypatch, launches, want):
     other = {(4, 8): (16, 32), (16, 32): (4, 8)}[want]
     assert (e["rows"], e["tiles_per_slice"]) == other
     assert e["heuristic"]["held"] == 6 and e["candidates"][0]["held"] == 6
-    monkeypatch.setattr(ta, "held_states", _fake_held({}))
-    # A kept key is raced and recorded, and keeps the heuristic.
-    monkeypatch.setattr(ta, "plan_times", _fake_times(ms))
-    monkeypatch.setattr(ta, "KEEP_HEURISTIC",
-                        frozenset({(48, 1024, 5, "mixed")}))
-    e = ta.tune_key((48, 1024, 5, "mixed"), launches)
-    assert e["kept_heuristic"] and e["heuristic"] == e["candidates"][0]
-    assert (e["rows"], e["tiles_per_slice"]) == (heur.rows,
-                                                 heur.tiles_per_slice)
+    assert e["heuristic"] == e["candidates"][0]
 
 
 def test_load_launches_sums_the_record(tmp_path):

@@ -69,6 +69,15 @@ def test_serve_cluster_matches_reference(capsys, monkeypatch, reference,
         else:
             # the killed shard's tenants lose at most their uncommitted tell
             assert 2 <= t["n"] <= 3
+    # Each spawned worker's start, stage by stage (no CUDA stage on the
+    # CPU), the revived shard 0 last.
+    starts = got["worker_starts"]
+    assert [w["shard"] for w in starts] == [0, 1] + [0] * (run == "kill")
+    for w in starts:
+        assert set(w) == {"shard", "endpoint_s", "imports", "gateway",
+                          "restore", "bind"}
+        assert all(v >= 0.0 for k, v in w.items() if k != "shard")
+        assert w["endpoint_s"] >= w["gateway"] + w["restore"] + w["bind"]
     if run == "kill":
         assert got["kill"]["revived"]
         assert "[supervisor] shard 0 SIGKILLed after epoch 1" in out

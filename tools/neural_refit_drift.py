@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Where the card's neural-basis refit leaves float32, stage by stage.
 
-    python3 tools/neural_refit_drift.py [--plans heuristic,r8x2]
-        [--tanh stock|float64] [--out F]
+    python3 tools/neural_refit_drift.py [--plans table,heuristic,r8x2,...]
+        [--ops] [--out F]
 
 Runs on one card, from the repository root.  For each plan of the float
-engine key (48, 1024, 5, float) of the fused EI (`heuristic`: the kernel's
-heuristic, 6 k-slices; `r8x2`: R 8 at 2 k-slices, the race's best), it
-drives `chip_smoke.py`'s float engine phase, its profile round and its
-neural phase, keeps the escalated slot's inputs (the promotion's ledger,
-costs and params, the 40 absorbs) and reports:
+engine key (48, 1024, 5, float) of the fused EI (`table`: the committed
+`acq_plans.json`'s; `heuristic`: the kernel's heuristic, 6 k-slices;
+`r<R>x<S>`: tile R at S k-slices, any candidate of the key, such as
+`r8x2`), it drives `chip_smoke.py`'s float engine phase, its profile round
+and its neural phase on that plan, keeps the escalated slot's inputs (the
+promotion's ledger, costs and params, the 40 absorbs) and reports:
 
   * `rule`: the neural phase's verdict, and the card's state against a
     CPU float64 replay by `chip_smoke.held_f64_rule` (2x the worst error
     of the CPU float32 replays in the `NEURAL_ORDERS` contraction orders,
     or the head's kappa bound) and by the rule it replaced (2x the plain
     CPU float32 replay's error, or the kappa bound: `old_rule_fails`);
-  * `ops` (r8x2 only): each op of one refit step, and the head's rebuild,
+  * `ops` (with `--ops`, the first plan only): each op of one refit
+    step, and the head's rebuild,
     on float32 inputs rounded from a float64 evaluation at the promotion's
     params and at the card's final params, computed on the card and on
     the CPU in float32 against float64: the error over the op's float32
@@ -24,7 +26,7 @@ costs and params, the 40 absorbs) and reports:
     2^-24) and in units of the output's last place; tanh also evaluated
     in float64 and rounded;
   * `trajectory`: the 40 absorbs replayed with one stage at a time moved
-    to float64 on the card (forward GEMMs, tanh, the masked MSE's sum,
+    to float64 on the card (forward GEMMs, the masked MSE's sum,
     autograd's backward GEMMs, the Adam step, the head's rebuild), the CPU
     float32 replays in each contraction order, the CPU replay from params
     one ulp away, and the card's replay with TF32 on and with every GEMM
@@ -32,9 +34,8 @@ costs and params, the 40 absorbs) and reports:
     negative control): each one's error against float64 and the keys on
     which it fails the rule (and the old rule).
 
-`--tanh float64` runs the whole tool with every float32 `torch.tanh` on
-the card evaluated in float64 and rounded (the MLP's tanh, as the
-trajectory's tanh stage does from the promotion on).  Each part is one
+The MLP's tanh is the package's own (`neural_basis._tanh`: float64,
+rounded), so the trajectory has no tanh stage.  Each part is one
 JSON line on standard output, appended to `--out`
 (`chiprun_out/neural_refit_drift.jsonl` by default).
 """
@@ -59,8 +60,24 @@ import chip_smoke as cs  # noqa: E402
 
 U32 = 2.0 ** -24
 FLOAT_KEY = (48, 1024, 5, False)
-PLANS = {"heuristic": None, "r8x2": (8, 16)}   # (rows, tiles_per_slice)
 GEMMS = ("aten.mm.default", "aten.mv.default")
+
+
+def plan_config(plan: str):
+    """The fused EI's config for a plan name of `--plans`, or None for
+    the committed table's (the package's own lookup)."""
+    from repro_torch.kernels import acq
+    if plan == "table":
+        return None
+    if plan == "heuristic":
+        return acq.heuristic_config(*FLOAT_KEY[:2])
+    rows, slices = (int(v) for v in plan.removeprefix("r").split("x"))
+    k_tiles = -(-FLOAT_KEY[1] // acq.TK)
+    cfg = acq.AcqTileConfig(rows, -(-k_tiles // slices), True)
+    if cfg not in acq.candidates(*FLOAT_KEY) or \
+            -(-k_tiles // cfg.tiles_per_slice) != slices:
+        raise ValueError(f"{plan}: not a candidate of {FLOAT_KEY}")
+    return cfg
 
 
 class Stage(TorchDispatchMode):
@@ -78,7 +95,9 @@ class Stage(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         on = torch.is_grad_enabled()
-        if not (self.active and str(func) in self.kinds and
+        f32 = any(isinstance(a, torch.Tensor) and a.dtype == torch.float32
+                  for a in args)
+        if not (self.active and f32 and str(func) in self.kinds and
                 self.grad_enabled in (None, on)):
             return func(*args, **kwargs)
         self.moved["forward" if on else "backward"] += 1
@@ -132,31 +151,11 @@ def patched(nb, stage: str | None, mode: Stage | None):
 
 STAGES = {   # stage: (aten ops, forward pass / backward / both) or a patch
     "forward GEMMs": (GEMMS, True),
-    "tanh": (("aten.tanh.default", "aten.tanh_backward.default"), None),
     "masked MSE sum": (("aten.sum.default",), True),
     "backward GEMMs": (GEMMS, False),
     "Adam step": "adam",
     "head rebuild": "rebuild",
 }
-
-
-@contextlib.contextmanager
-def float64_tanh(on: bool):
-    """Every float32 `torch.tanh` on the card evaluated in float64 and
-    rounded, while the context lasts (when `on`)."""
-    stock = torch.tanh
-
-    def tanh(x, *args, **kw):
-        if x.is_cuda and x.dtype == torch.float32:
-            return stock(x.double(), *args, **kw).float()
-        return stock(x, *args, **kw)
-
-    if on:
-        torch.tanh = tanh
-    try:
-        yield
-    finally:
-        torch.tanh = stock
 
 
 def errors(st, exact) -> dict:
@@ -341,11 +340,13 @@ def trajectory(start, absorbs, card, exact, cpu32s, probes, ncfg, dev
     return rows
 
 
-def run_plan(dev, plan: str, tanh: str, out) -> None:
+def run_plan(dev, plan: str, ops: bool, out) -> None:
     from repro_torch.kernels import acq
     acq._ACQ_TUNE_CACHE.clear()
-    if PLANS[plan] is not None:
-        acq._ACQ_TUNE_CACHE[FLOAT_KEY] = acq.AcqTileConfig(*PLANS[plan], True)
+    cfg = plan_config(plan)
+    if cfg is not None:
+        acq._ACQ_TUNE_CACHE[FLOAT_KEY] = cfg
+    used = acq.acq_tile_config(*FLOAT_KEY)
     t0 = time.perf_counter()
     _, eng, studies, units, _ = cs.engine_path(dev, False)
     cs.profile_engine("engine", eng, studies, units)
@@ -374,17 +375,20 @@ def run_plan(dev, plan: str, tanh: str, out) -> None:
     probes = torch.rand((cs.NEURAL_PROBES, eng.dim), generator=gen,
                         device=dev)
     held = cs.held_neural_state(card, cpu32s, exact, probes, ncfg)
-    emit(out, {"plan": plan, "part": "rule", "tanh": tanh,
+    emit(out, {"plan": plan, "part": "rule",
+               "config": {"rows": used.rows,
+                          "tiles_per_slice": used.tiles_per_slice,
+                          "measured": used.measured},
                "neural_phase": phase, "slot": slot, **held,
                "old_rule_fails": verdict(card, cpu32s, exact, probes,
                                          ncfg)["old_rule_fails"],
                "seconds": time.perf_counter() - t0})
-    if plan == "r8x2":
+    if ops:
         for r in op_table(start, card, ncfg, dev):
-            emit(out, {"plan": plan, "part": "ops", "tanh": tanh, **r})
+            emit(out, {"plan": plan, "part": "ops", **r})
     for r in trajectory(start, absorbs, card, exact, cpu32s, probes, ncfg,
                         dev):
-        emit(out, {"plan": plan, "part": "trajectory", "tanh": tanh, **r})
+        emit(out, {"plan": plan, "part": "trajectory", **r})
     del eng, card
     torch.cuda.empty_cache()
 
@@ -398,10 +402,10 @@ def emit(out, line: dict) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--plans", default="heuristic,r8x2")
-    p.add_argument("--tanh", default="stock", choices=["stock", "float64"],
-                   help="float64: every float32 tanh on the card evaluated "
-                        "in float64 and rounded")
+    p.add_argument("--plans", default="table,heuristic",
+                   help="comma-separated: table, heuristic or r<R>x<S>")
+    p.add_argument("--ops", action="store_true",
+                   help="the op-by-op table on the first plan")
     p.add_argument("--out", default=os.path.join(
         ROOT, "chiprun_out", "neural_refit_drift.jsonl"))
     a = p.parse_args(argv)
@@ -412,12 +416,15 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.kernels import _build
     dev = resolve_device("cuda")
     os.makedirs(os.path.dirname(a.out), exist_ok=True)
-    with open(a.out, "a") as out, float64_tanh(a.tanh == "float64"):
+    plans = a.plans.split(",")
+    for plan in plans:
+        plan_config(plan)           # a name that is no plan fails first
+    with open(a.out, "a") as out:
         emit(out, {"part": "device", "nvidia_smi": cs.nvidia_smi_line(),
                    "torch": torch.__version__, "cuda": torch.version.cuda,
-                   "tanh": a.tanh, "build_seconds": _build.build()})
-        for plan in a.plans.split(","):
-            run_plan(dev, plan, a.tanh, out)
+                   "build_seconds": _build.build()})
+        for i, plan in enumerate(plans):
+            run_plan(dev, plan, a.ops and i == 0, out)
     return 0
 
 
