@@ -308,10 +308,12 @@ Phases, each printing one JSON line:
                trace over RPC with the same migration (streams, moves,
                n_obs / best_value A's, each resident study's digest over
                RPC A's), then a SIGKILL of worker 0 and its revival under
-               the same law; each worker's spawn-to-endpoint seconds and
-               slowest ping.  (4) The 24 asyncio clients on A, then on
-               C, each fresh from the records (one run of each: the
-               phase's depth cut to keep the script in its time):
+               the same law by C's warm standby worker (`revive_s`, the
+               revived worker's start stages in `revive_start`); each
+               worker's spawn-to-endpoint seconds and slowest ping.
+               (4) The 24 asyncio clients on A, then on C, each fresh
+               from the records (one run of each: the phase's depth cut
+               to keep the script in its time):
                suggestions a second, p50 / p95 tick ms by shard, beside
                the gateway phase's.  `federation` counts A's own
                launches (B's taken out, after the trace's launches are
@@ -420,8 +422,9 @@ the card's loss of the same sequence):
                hpo_service with the categorical tenant and its resume,
                parallel_hpo with faults and its resume, serve (12 studies
                on 4 slots, q 4, a resume), serve_cluster with shard 0
-               killed and revived, train_e2e (100m preset 50 steps,
-               resumed to 60; granite-3-2b reduced 20 steps).  Each run
+               killed and revived (at its defaults, and at 0.3 s with
+               trials of 0.05 s, while every client serves), train_e2e
+               (100m preset 50 steps, resumed to 60; granite-3-2b reduced 20 steps).  Each run
                starts from PyTorch's default precision settings and must
                leave the reference's (the example set them), and is held
                to its contract (`example_contract`); the six TPU kernels'
@@ -429,8 +432,11 @@ the card's loss of the same sequence):
                none of their fused-EI launches may miss the plan table
                (the phase runs through `AcqPlanRecorder`, as the paths
                do).  serve_cluster's line carries its workers' start
-               stages (`worker_starts`).  One line a run with its seconds
-               and totals.
+               stages (`worker_starts`; the revived shard's worker is the
+               standby, `standby_s`), the kill-to-reconciled seconds
+               (`revive_s`) and each client's failover retries, at most
+               the reference's 50.  One line a run with its seconds and
+               totals.
 Then one AdamW step each of the lm phase, of lm_moe's and of lm_mamba's
 profiled (`lm_step_profile`: device kernels, span, busy, host ms, device
 ms by kind of kernel and the top 15 kernels), and one decode step each of
@@ -5303,7 +5309,7 @@ COUNTED_WORKER = '''\
 repro_torch.hpo.shard_worker ARGS`, which also writes the worker's kernel
 launches, its fused-EI launches that missed the plan table and the plan
 keys it read to <ckpt-dir>/launches-<pid>.json when it exits (a worker
-that is SIGKILLed writes none)."""
+that is SIGKILLed writes none, nor does a standby never given a store)."""
 import json
 import os
 import sys
@@ -5312,10 +5318,19 @@ args = sys.argv[1:]
 if args[:2] != ["-m", "repro_torch.hpo.shard_worker"]:
     raise SystemExit(f"not a shard worker command: {{args}}")
 argv = args[2:]
-from repro_torch.hpo.transport import main  # noqa: E402
+from repro_torch.hpo import transport  # noqa: E402
+
+served = []         # the store it served: from --ckpt-dir or an assignment
+serve = transport._worker_main
+
+
+async def counted_main(ckpt_dir, *rest):
+    served.append(ckpt_dir)
+    return await serve(ckpt_dir, *rest)
+transport._worker_main = counted_main
 
 try:
-    rc = main(argv)
+    rc = transport.main(argv)
 finally:
     from repro_torch.kernels import KERNEL_MODULES, acq, trsv
     counts = {{m.__name__.rsplit(".", 1)[1]: m.LAUNCHES
@@ -5325,9 +5340,10 @@ finally:
     counts["acq_misses"] = acq.MISSES
     counts["acq_launches"] = [[*k, c] for k, c in
                               sorted(acq.KEY_LAUNCHES.items())]
-    d = argv[argv.index("--ckpt-dir") + 1]
-    with open(os.path.join(d, f"launches-{{os.getpid()}}.json"), "w") as f:
-        json.dump(counts, f)
+    for d in served:
+        with open(os.path.join(d, f"launches-{{os.getpid()}}.json"),
+                  "w") as f:
+            json.dump(counts, f)
 sys.exit(rc)
 '''
 
@@ -5392,9 +5408,9 @@ def timed_transport(dev, template, root):
             self.ping_ms = {i: [] for i in range(FED_SHARDS)}
             self.dead = []
 
-        async def _spawn_shard(self, i):
+        async def _spawn_shard(self, i, standby=False):
             t0 = time.perf_counter()
-            client = await super()._spawn_shard(i)
+            client = await super()._spawn_shard(i, standby)
             self.spawn_s[i].append(time.perf_counter() - t0)
             call = client.call
 
@@ -5431,16 +5447,17 @@ def timed_transport(dev, template, root):
 
 
 async def close_transport(c) -> None:
-    """Shut C's workers down and wait for every one to exit; kill any
-    that does not."""
+    """Shut C's workers and its standby down and wait for every one to
+    exit; kill any that does not."""
+    children = [p for p in [*c.procs, c.standby] if p is not None]
     try:
         await asyncio.wait_for(c.aclose(), 60)
     finally:
-        for p in c.procs:
-            if p is not None and p.poll() is None:
+        for p in children:
+            if p.poll() is None:
                 p.kill()
                 p.wait()
-    if any(p is not None for p in c.procs):
+    if any(p is not None for p in [*c.procs, c.standby]):
         raise AssertionError("federation C: a worker outlived aclose()")
 
 
@@ -5538,6 +5555,7 @@ async def transport_steps(dev, template, root, records, objective, twin,
             await c.drain()
             return {s: t.unit.tobytes() for s, t in zip(sids, trials)}
         lost = await one_round(by_shard[0] + by_shard[1])
+        standby_pid = c.standby.pid
         c.kill_shard(0)
         if c.procs[0].poll() != -signal.SIGKILL:
             raise AssertionError("federation C: worker 0 not killed")
@@ -5545,6 +5563,11 @@ async def transport_steps(dev, template, root, records, objective, twin,
         t0 = time.perf_counter()
         await c.revive_shard(0)
         line["revive_s"] = time.perf_counter() - t0
+        line["revive_start"] = c.worker_starts[-1]
+        if c.procs[0].pid != standby_pid or "standby_s" not in \
+                line["revive_start"]:
+            raise AssertionError("federation C: shard 0 was not revived "
+                                 "in the standby worker")
         for s, n in n0.items():
             want = n if c.shard_of(s) == 0 else n + 2
             got = (await c.study_info(s))["n_obs"]
@@ -7337,6 +7360,10 @@ EXAMPLE_RUNS = (
     ("serve", "q4", ["--q", "4"]),
     ("serve", "resumed", ["--ckpt-dir", "{c}"]),
     ("serve_cluster", "kill", ["--kill"]),
+    # the kill while every client still serves (6 trials of 0.05-0.1 s
+    # and their asks outlast 0.3 s): the options of the CPU test
+    ("serve_cluster", "kill mid-serve", ["--kill", "--latency", "0.05",
+                                         "--kill-after", "0.3"]),
     ("train_e2e", "100m", ["--preset", "100m", "--steps", "50",
                            "--ckpt-dir", "{d}"]),
     ("train_e2e", "100m resumed", ["--preset", "100m", "--steps", "60",
@@ -7350,6 +7377,7 @@ EX_TENANTS, EX_TENANT_BUDGET = 8, 12           # hpo_service
 EX_HPO_BUDGET = 16                             # parallel_hpo
 EX_SERVE_STUDIES, EX_SERVE_BUDGET = 12, 8      # serve
 EX_CLUSTER_STUDIES, EX_CLUSTER_BUDGET = 8, 6   # serve_cluster
+EX_CLUSTER_RETRIES = 50       # the JAX example's failover budget a client
 
 
 def example_contract(name: str, run: str, got: dict, runs: dict,
@@ -7426,6 +7454,16 @@ def example_contract(name: str, run: str, got: dict, runs: dict,
             # only the killed shard's uncommitted round may be lost
             lo = budget - 1 if t["shard"] == 0 else budget
             need(lo <= t["n"] <= budget, f"{k}: n {t['n']} on {t['shard']}")
+        # the reference's budget (examples/serve_cluster.py:69-70), and the
+        # revived shard served by the standby
+        retries = got["client_retries"]
+        need(len(retries) == EX_CLUSTER_STUDIES and max(retries.values())
+             <= EX_CLUSTER_RETRIES, f"retries {retries}")
+        starts = got["worker_starts"]
+        need([w["shard"] for w in starts] == [0, 1, 0]
+             and "standby_s" in starts[-1]
+             and not any("standby_s" in w for w in starts[:-1]),
+             f"worker starts {starts}")
     elif name == "train_e2e":
         losses = got["losses"]
         need(all(math.isfinite(x) for x in losses)
@@ -7496,10 +7534,14 @@ def examples_path(dev) -> tuple[dict, dict]:
             mine = by_example.setdefault(name, {k: 0 for k in counts})
             for k, v in counts.items():
                 mine[k] += v
+            failover = {} if name != "serve_cluster" else {
+                "revive_s": got["kill"]["revive_s"],
+                "revive_start": got["worker_starts"][-1],
+                "client_retries": got["client_retries"]}
             emit({"phase": "examples", "example": name, "run": run,
                   "argv": argv, "seconds": seconds,
                   "peak_memory_bytes": peak, "launches": counts,
-                  "totals": got, "nvidia_smi": smi})
+                  **failover, "totals": got, "nvidia_smi": smi})
     # The six TPU kernels: the general solve is trsv.cu's too.
     six = {"matern": totals["matern"], "chol": totals["chol"],
            "trsv": totals["trsv"] + totals["trsv_general"],

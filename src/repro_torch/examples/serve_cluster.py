@@ -13,9 +13,10 @@ as length-prefixed JSON frames.  Each worker serves on `--device`.
 
 With `--kill` the supervisor SIGKILLs shard 0 mid-serve: parked asks on
 that shard fail with `ShardConnectionError`, the health sweep marks it
-dead, and `revive_shard` respawns a fresh worker that restores from its
-own latest committed epoch; clients resume and only the uncommitted round
-is lost (re-derived from the persisted per-study generator streams).
+dead, and `revive_shard` hands the shard to the front end's warm standby
+worker, which restores from the shard's latest committed epoch; clients
+resume and only the uncommitted round is lost (re-derived from the
+persisted per-study generator streams).
 
 With `--ckpt-dir` pointing at a persistent directory a second invocation
 restores the whole federation (registry epoch first, then every shard
@@ -40,15 +41,11 @@ from repro_torch.hpo.transport import (ShardConnectionError, TransportConfig,
                                        TransportFederation)
 
 
-# Retries of 0.2 s a client waits for its shard's revive, past the 50 of
-# the JAX example.  On H100 hosts a worker took 10-12 s to start where
-# every process compiles torch anew (no bytecode written), 5-6 s with the
-# bytecode cached: nearly all of it the interpreter's start and imports,
-# torch's (the port's modules, the gateway and its restore take a
-# fraction of a second: `worker_starts`).  With 50, a `--kill` run
-# without the cache ran out of retries; with it, two passed on 145 and
-# 155 retries across the killed shard's four clients, near their 200.
-MAX_RETRIES = 300
+# Retries of 0.2 s a client waits for its shard's revive: the JAX
+# example's 50.  The revive starts no interpreter (the federation's warm
+# standby worker takes the shard), so it costs the gateway, the restore,
+# the bind and the reconcile (`worker_starts`, `revive_s`).
+MAX_RETRIES = 50
 
 
 def make_objective(sid: int, latency: float):
@@ -87,17 +84,22 @@ async def client(tf: TransportFederation, sid: int, budget: int,
 
 async def supervisor(tf: TransportFederation, kill_after: float) -> dict:
     """Checkpoint, SIGKILL shard 0, observe the health sweep declare it
-    dead, respawn it from its committed epoch."""
+    dead, respawn it from its committed epoch.  `revive_s` runs from the
+    kill to the shard respawned and reconciled."""
     await asyncio.sleep(kill_after)
     epoch = await tf.checkpoint()
+    t0 = time.perf_counter()
     tf.kill_shard(0)
     print(f"  [supervisor] shard 0 SIGKILLed after epoch {epoch}")
     dead = await tf.check_health()
     if dead:     # the kill already marked it dead: the sweep finds no more
         raise RuntimeError(f"health sweep found shards {dead} newly dead")
     await tf.revive_shard(0)
+    revive_s = time.perf_counter() - t0
     print("  [supervisor] shard 0 respawned + reconciled")
-    return {"killed_after_epoch": epoch, "revived": True}
+    print(f"  [supervisor] revive_s={revive_s:.3f}")
+    return {"killed_after_epoch": epoch, "revived": True,
+            "revive_s": revive_s}
 
 
 async def serve(args, root: str) -> dict:
@@ -128,9 +130,12 @@ async def serve(args, root: str) -> dict:
         elapsed = time.perf_counter() - t0
 
         summary = await tf.summary()
-        retries = sum(r for r in results if isinstance(r, int))
+        client_retries = dict(zip(sids, results))
+        retries = sum(client_retries.values())
         served = args.budget * len(sids)
         await tf.checkpoint()
+        if args.kill:
+            print(f"  [supervisor] retries by study {client_retries}")
         print(f"\nserved {served} suggestions for {len(sids)} tenants on "
               f"{args.shards} worker processes in {elapsed:.2f}s "
               f"({served / max(elapsed, 1e-9):.1f} suggestions/s, "
@@ -158,6 +163,7 @@ async def serve(args, root: str) -> dict:
             "resumed": bool(restored), "ticks": summary["ticks"],
             "evictions": summary["evictions"], "worst_p95_tick_ms": worst_p95,
             "kill": kill, "tenants": tenants,
+            "client_retries": client_retries,
             "worker_starts": tf.worker_starts}
 
 

@@ -42,8 +42,10 @@ Layers:
     `copy_study_version` across the shared root by the front end, adopt
     on the destination, detach from the source, in that order.  Failover
     is health-check driven: `miss_limit` missed pings mark a shard dead;
-    `revive_shard` kills any zombie process first, respawns, lets the
-    worker restore from its own epoch, and reconciles it against the
+    `revive_shard` kills any zombie process first, hands the shard to a
+    warm standby worker (a front end that spawns shards keeps one, its
+    interpreter started, torch imported and its CUDA context made), lets
+    it restore from the shard's own epoch, and reconciles it against the
     federation registry over RPC.
 
 The wire, the spec and the stores are the reference's, so a port front
@@ -63,6 +65,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import base64
+import contextlib
 import dataclasses
 import hashlib
 import inspect
@@ -520,13 +523,30 @@ class ShardServer:
 
 
 # -- worker entry point ------------------------------------------------------
-async def _worker_main(ckpt_dir: str, spec_path: str, host: str,
-                       port: int) -> None:
-    # Seconds of each stage of the start: the interpreter and imports
-    # (from the front end's spawn, when it says when), the CUDA context on
-    # a card, the gateway, its restore, the bind.
+def _spawn_stages() -> dict:
+    """The interpreter's start and imports, from the front end's spawn
+    when it says when (`SPAWNED_AT_ENV`)."""
     spawned = os.environ.get(SPAWNED_AT_ENV)
-    stages = {"imports": time.time() - float(spawned) if spawned else None}
+    return {"imports": time.time() - float(spawned) if spawned else None}
+
+
+def _cuda_context(dev: torch.device) -> bool:
+    """Create the CUDA context on `dev` where there is a card; True if
+    it did."""
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return False
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    return True
+
+
+async def _worker_main(ckpt_dir: str, spec_path: str, host: str,
+                       port: int, stages: dict | None = None) -> None:
+    # Seconds of each stage of the start: the interpreter and imports, the
+    # CUDA context on a card (both measured by a standby before its
+    # assignment, and passed in as `stages`), the gateway, its restore,
+    # the bind.
+    stages = _spawn_stages() if stages is None else stages
     t = time.perf_counter()
 
     def stage(name):
@@ -537,9 +557,7 @@ async def _worker_main(ckpt_dir: str, spec_path: str, host: str,
     with open(spec_path) as f:
         spec = json.load(f)
     dev = torch.device(spec.get("device", "cuda"))
-    if dev.type == "cuda" and torch.cuda.is_available():
-        torch.zeros(1, device=dev)
-        torch.cuda.synchronize(dev)
+    if "cuda" not in stages and _cuda_context(dev):
         stage("cuda")
     gw = gateway_from_spec(spec, ckpt_dir)
     stage("gateway")
@@ -561,20 +579,59 @@ async def _worker_main(ckpt_dir: str, spec_path: str, host: str,
     await server.serve_until_shutdown()
 
 
+def _standby_main(device: str, ready_fd: int, host: str, port: int) -> int:
+    """A warm standby: the imports done, the CUDA context made on
+    `device` (where there is a card), it writes `ready` to `ready_fd` and
+    blocks on one assignment line from stdin, `{"ckpt_dir": ..., "spec":
+    ...}`, then starts as a worker of that store.  It touches no store and
+    binds no socket before the assignment, and exits if stdin closes
+    first (a front end that closed or died)."""
+    stages = _spawn_stages()
+    t = time.perf_counter()
+    if _cuda_context(torch.device(device)):
+        stages["cuda"] = time.perf_counter() - t
+    try:
+        with os.fdopen(ready_fd, "w") as ready:
+            ready.write("ready\n")
+    except BrokenPipeError:     # the front end stopped waiting: closed
+        return 0
+    line = sys.stdin.readline()
+    if not line:
+        return 0
+    job = json.loads(line)
+    asyncio.run(_worker_main(job["ckpt_dir"], job["spec"], host, port,
+                             stages))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         description="repro_torch federation shard worker: one "
                     "StudyGateway "
                     "behind length-prefixed JSON-frame RPC")
-    ap.add_argument("--ckpt-dir", required=True,
+    ap.add_argument("--ckpt-dir", default=None,
                     help="this shard's checkpoint store (a shard dir "
-                         "under the shared federation root)")
+                         "under the shared federation root); required "
+                         "unless --standby")
     ap.add_argument("--spec", default=None,
                     help="gateway spec JSON (default <ckpt-dir>/spec.json)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=0,
                     help="0 = ephemeral (published in endpoint.json)")
+    ap.add_argument("--standby", metavar="DEVICE", default=None,
+                    help="written by the front end: start warm on DEVICE, "
+                         "say so on --ready-fd, then serve the store of "
+                         "one assignment line read from stdin")
+    ap.add_argument("--ready-fd", type=int, default=None,
+                    help="the pipe a standby writes `ready` to")
     args = ap.parse_args(argv)
+    if args.standby is not None:
+        if args.ready_fd is None:
+            ap.error("--standby needs --ready-fd")
+        return _standby_main(args.standby, args.ready_fd, args.host,
+                             args.port)
+    if args.ckpt_dir is None:
+        ap.error("--ckpt-dir is required")
     spec = args.spec or os.path.join(args.ckpt_dir, SPEC_FILE)
     asyncio.run(_worker_main(args.ckpt_dir, spec, args.host, args.port))
     return 0
@@ -685,6 +742,17 @@ class ShardClient:
 
 
 # -- the front end -----------------------------------------------------------
+def _end(proc: subprocess.Popen) -> None:
+    """SIGKILL `proc` if it still runs, reap it, and close the pipe to its
+    stdin (a standby's)."""
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    if proc.stdin is not None:
+        with contextlib.suppress(BrokenPipeError):
+            proc.stdin.close()
+
+
 @dataclasses.dataclass(frozen=True)
 class TransportConfig:
     """Cross-host deployment knobs (routing/registry shape still comes
@@ -729,8 +797,17 @@ class TransportFederation(FederationBase):
         self._misses = [0] * self.fed.n_shards
         # Each spawned worker's start: seconds to its endpoint, and its own
         # stages (`_worker_main`), in spawn order (the shard alone while
-        # the worker comes up).
+        # the worker comes up).  A revive's record counts `endpoint_s` from
+        # the assignment and adds `standby_s`, the standby's spawn to its
+        # readiness, paid before the kill.
         self.worker_starts: list[dict] = []
+        # A front end that spawns any shard keeps one warm standby worker
+        # (`revive_shard` hands it a dead shard); its readiness task
+        # returns its seconds from spawn to ready.
+        self._spawns = not self.transport.connect or \
+            "" in self.transport.connect
+        self.standby: subprocess.Popen | None = None
+        self._standby_ready: asyncio.Task | None = None
         self._health_task: asyncio.Task | None = None
         self._started = False
 
@@ -742,13 +819,15 @@ class TransportFederation(FederationBase):
         restored shards against the registry.  Returns True when a
         federation epoch was restored."""
         restored = self._load_epoch()
-        # The workers start side by side: a worker's start is nearly all
-        # its interpreter's imports, which one worker need not wait out
-        # for another's.  Every start runs to its end before the first
-        # failure, in shard order, is raised.
-        outs = await asyncio.gather(
-            *(self._start_shard(i) for i in range(self.fed.n_shards)),
-            return_exceptions=True)
+        # The workers and the standby start side by side: a worker's start
+        # is nearly all its interpreter's imports, which one worker need
+        # not wait out for another's.  Every start runs to its end before
+        # the first failure, in shard order (the standby last), is raised.
+        starts = [self._start_shard(i) for i in range(self.fed.n_shards)]
+        if self._spawns:
+            self._spawn_standby()
+            starts.append(self._standby_ready)
+        outs = await asyncio.gather(*starts, return_exceptions=True)
         for out in outs:
             if isinstance(out, BaseException):
                 raise out
@@ -760,39 +839,75 @@ class TransportFederation(FederationBase):
         self._started = True
         return restored
 
-    async def _start_shard(self, i: int) -> None:
+    async def _start_shard(self, i: int, revive: bool = False) -> None:
         endpoint = self.transport.connect[i] \
             if self.transport.connect else ""
         if endpoint:
             host, port = endpoint.rsplit(":", 1)
             self.clients[i] = await ShardClient.connect(host, int(port))
         else:
-            self.clients[i] = await self._spawn_shard(i)
+            self.clients[i] = await self._spawn_shard(i, standby=revive)
         self._misses[i] = 0
 
-    async def _spawn_shard(self, i: int) -> ShardClient:
-        d = self.shard_dir(i)
-        os.makedirs(d, exist_ok=True)
-        _write_json_atomic(os.path.join(d, SPEC_FILE),
-                           build_spec(self._template_space, self.cfg,
-                                      self.gw, device=self.device))
-        ep_path = os.path.join(d, ENDPOINT_FILE)
-        if os.path.exists(ep_path):
-            os.unlink(ep_path)
-        # the worker must import `repro_torch` however the front end did
-        # (the parent's sys.path does not inherit): prepend the package root
+    def _worker_cmd(self, *args: str) -> tuple[list[str], dict]:
+        """A worker's command line and environment: the worker must import
+        `repro_torch` however the front end did (the parent's sys.path
+        does not inherit), so the package root goes first on its
+        PYTHONPATH; `SPAWNED_AT_ENV` lets it time its own start."""
         import repro_torch
         pkg_root = os.path.dirname(os.path.dirname(repro_torch.__file__))
         env = dict(os.environ)
         env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
         env[SPAWNED_AT_ENV] = repr(time.time())
-        t0 = time.perf_counter()
+        return [self.transport.python, "-m", "repro_torch.hpo.shard_worker",
+                *args], env
+
+    async def _spawn_shard(self, i: int, standby: bool = False) -> ShardClient:
+        """Start shard i's worker and connect: a fresh interpreter, or,
+        with `standby`, the warm standby given shard i by one assignment
+        line (its `Popen` goes into `procs` once it has published its
+        endpoint)."""
+        d = self.shard_dir(i)
+        os.makedirs(d, exist_ok=True)
+        spec_path = os.path.join(d, SPEC_FILE)
+        _write_json_atomic(spec_path, build_spec(
+            self._template_space, self.cfg, self.gw, device=self.device))
+        ep_path = os.path.join(d, ENDPOINT_FILE)
+        if os.path.exists(ep_path):
+            os.unlink(ep_path)
         start = {"shard": i}
         self.worker_starts.append(start)
-        proc = subprocess.Popen(
-            [self.transport.python, "-m", "repro_torch.hpo.shard_worker",
-             "--ckpt-dir", d], env=env)
-        self.procs[i] = proc
+        if standby:
+            proc, start["standby_s"] = await self._take_standby()
+            t0 = time.perf_counter()
+            try:
+                try:
+                    proc.stdin.write(json.dumps(
+                        {"ckpt_dir": d, "spec": spec_path}).encode() + b"\n")
+                    proc.stdin.close()
+                except BrokenPipeError:
+                    raise TransportError(
+                        f"standby worker exited rc={proc.wait()} before "
+                        "its assignment") from None
+                await self._await_endpoint(i, proc, ep_path)
+            except BaseException:
+                _end(proc)
+                raise
+            self.procs[i] = proc
+        else:
+            cmd, env = self._worker_cmd("--ckpt-dir", d)
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, env=env)
+            self.procs[i] = proc
+            await self._await_endpoint(i, proc, ep_path)
+        with open(ep_path) as f:
+            info = json.load(f)
+        start.update(endpoint_s=time.perf_counter() - t0,
+                     **(info.get("start_seconds") or {}))
+        return await ShardClient.connect(info["host"], info["port"])
+
+    async def _await_endpoint(self, i: int, proc: subprocess.Popen,
+                              ep_path: str) -> None:
         loop = asyncio.get_running_loop()
         deadline = loop.time() + self.transport.spawn_timeout_s
         while not os.path.exists(ep_path):
@@ -806,11 +921,71 @@ class TransportFederation(FederationBase):
                     f"shard {i} worker did not publish {ep_path} within "
                     f"{self.transport.spawn_timeout_s}s")
             await asyncio.sleep(0.05)
-        with open(ep_path) as f:
-            info = json.load(f)
-        start.update(endpoint_s=time.perf_counter() - t0,
-                     **(info.get("start_seconds") or {}))
-        return await ShardClient.connect(info["host"], info["port"])
+
+    # -- the standby worker --
+    def _spawn_standby(self) -> None:
+        """Spawn the standby (`python -m repro_torch.hpo.shard_worker
+        --standby DEVICE`, the workers' interpreter and environment) and
+        start the task that awaits its `ready` on a pipe of its own."""
+        cmd, env = self._worker_cmd("--standby", str(self.device))
+        r, w = os.pipe()
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.Popen(cmd + ["--ready-fd", str(w)], env=env,
+                                    stdin=subprocess.PIPE, pass_fds=(w,))
+        except BaseException:
+            os.close(r)
+            raise
+        finally:
+            os.close(w)
+        self.standby = proc
+        self._standby_ready = asyncio.ensure_future(
+            self._await_ready(proc, r, t0))
+
+    async def _await_ready(self, proc: subprocess.Popen, r: int,
+                           t0: float) -> float:
+        loop = asyncio.get_running_loop()
+        got = loop.create_future()
+
+        def readable():
+            if not got.done():
+                got.set_result(os.read(r, 64))
+        loop.add_reader(r, readable)
+        try:
+            said = await asyncio.wait_for(got,
+                                          self.transport.spawn_timeout_s)
+        except asyncio.TimeoutError:
+            _end(proc)
+            raise TransportError(
+                f"standby worker not ready within "
+                f"{self.transport.spawn_timeout_s}s") from None
+        finally:
+            loop.remove_reader(r)
+            os.close(r)
+        if said != b"ready\n":     # EOF: it closed the pipe as it exited
+            raise TransportError(
+                f"standby worker exited rc={proc.wait(timeout=10.0)} "
+                "before it was ready")
+        return time.perf_counter() - t0
+
+    async def _take_standby(self) -> tuple[subprocess.Popen, float]:
+        """The standby, awaited until ready, and its seconds from spawn to
+        ready; it is no longer the standby.  Raises TransportError with
+        its exit code if it has exited."""
+        proc, ready = self.standby, self._standby_ready
+        if proc is None:
+            raise TransportError("no standby worker to revive a shard")
+        self.standby = self._standby_ready = None
+        try:
+            standby_s = await ready
+            if proc.poll() is not None:
+                raise TransportError(f"standby worker exited "
+                                     f"rc={proc.returncode} before its "
+                                     "assignment")
+        except BaseException:
+            _end(proc)
+            raise
+        return proc, standby_s
 
     async def aclose(self) -> None:
         if self._health_task is not None:
@@ -826,15 +1001,26 @@ class TransportFederation(FederationBase):
                 pass
             c.close()
             self.clients[i] = None
-        for i, p in enumerate(self.procs):
+        # The standby: a ready one exits on the EOF of its stdin; one
+        # still importing holds nothing and is not waited out.
+        standby, ready = self.standby, self._standby_ready
+        self.standby = self._standby_ready = None
+        if ready is not None:
+            was_ready = ready.done()
+            ready.cancel()
+            await asyncio.gather(ready, return_exceptions=True)
+            if not was_ready:
+                _end(standby)
+        if standby is not None:
+            standby.stdin.close()
+        for p in [*self.procs, standby]:
             if p is None:
                 continue
             try:
                 p.wait(timeout=15.0)
             except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
-            self.procs[i] = None
+                _end(p)
+        self.procs = [None] * self.fed.n_shards
 
     # -- routing plumbing --
     def _live(self, i: int) -> ShardClient:
@@ -1027,26 +1213,29 @@ class TransportFederation(FederationBase):
         """SIGKILL a spawned worker (adopted workers are just marked
         dead — the front end cannot signal across hosts) and sever its
         connection: parked asks cancel, control calls fail."""
-        p = self.procs[i]
-        if p is not None and p.poll() is None:
-            p.kill()
-            p.wait()
+        if self.procs[i] is not None:
+            _end(self.procs[i])
         self._mark_dead(i, f"shard {i} killed")
 
     async def revive_shard(self, i: int) -> None:
-        """Respawn a dead shard and fold it back in: kill any zombie
-        first (a half-dead writer must never touch the store again), let
-        the fresh worker restore from ITS latest epoch, then reconcile
-        its restored registry against the federation's over RPC — the
-        same recovery law as the in-memory `revive_shard`."""
+        """Bring a dead shard back and fold it in: kill any zombie first
+        (a half-dead writer must never touch the store again), hand the
+        shard to the warm standby (no interpreter starts on this path),
+        let it restore from the shard's latest epoch, then reconcile its
+        restored registry against the federation's over RPC — the same
+        recovery law as the in-memory `revive_shard`.  A new standby is
+        then spawned; a revive before it is ready waits for it.  A
+        standby that has exited makes the revive raise TransportError."""
         if self.clients[i] is not None:
             raise RuntimeError(f"shard {i} is already live")
-        p = self.procs[i]
-        if p is not None and p.poll() is None:
-            p.kill()
-            p.wait()
-        await self._start_shard(i)
-        await self._reconcile_shard_rpc(i)
+        if self.procs[i] is not None:
+            _end(self.procs[i])
+        try:
+            await self._start_shard(i, revive=True)
+            await self._reconcile_shard_rpc(i)
+        finally:
+            if self._spawns and self.standby is None:
+                self._spawn_standby()
 
     async def _reconcile_shard_rpc(self, i: int) -> None:
         c = self._live(i)

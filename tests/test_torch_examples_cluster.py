@@ -5,7 +5,7 @@ started as a subprocess before the first test.  Without a kill every
 tenant's n and shard are the reference's.  With `--kill` shard 0 is
 SIGKILLed and revived, and a tenant of shard 0 may lose its one
 uncommitted tell; that run is held to the reference's run without a
-kill, its lines less the supervisor's two.  (The JAX example's own
+kill, its lines less the supervisor's.  (The JAX example's own
 `--kill` run is not started here: under a loaded test run its revived
 worker once failed to find its spec file and the run hung.)  The worker
 processes' own lines (`[shard-worker ...]`, standard error) are not
@@ -18,6 +18,12 @@ from repro_torch.examples import serve_cluster
 
 CLUSTER = ["--studies", "4", "--budget", "3", "--latency", "0.05",
            "--kill-after", "0.3"]
+
+
+def test_failover_budget_is_the_references():
+    """`examples/serve_cluster.py:69-70`: `retried += 1; if retried > 50:
+    raise`."""
+    assert serve_cluster.MAX_RETRIES == 50
 
 
 @pytest.fixture(scope="module")
@@ -70,17 +76,24 @@ def test_serve_cluster_matches_reference(capsys, monkeypatch, reference,
             # the killed shard's tenants lose at most their uncommitted tell
             assert 2 <= t["n"] <= 3
     # Each spawned worker's start, stage by stage (no CUDA stage on the
-    # CPU), the revived shard 0 last.
+    # CPU), the revived shard 0 last: the standby's, whose record adds its
+    # spawn to ready (`standby_s`) and counts `endpoint_s` from the
+    # assignment.
     starts = got["worker_starts"]
     assert [w["shard"] for w in starts] == [0, 1] + [0] * (run == "kill")
-    for w in starts:
-        assert set(w) == {"shard", "endpoint_s", "imports", "gateway",
-                          "restore", "bind"}
+    first = {"shard", "endpoint_s", "imports", "gateway", "restore", "bind"}
+    for j, w in enumerate(starts):
+        assert set(w) == (first | {"standby_s"} if j >= 2 else first)
         assert all(v >= 0.0 for k, v in w.items() if k != "shard")
         assert w["endpoint_s"] >= w["gateway"] + w["restore"] + w["bind"]
+    retries = got["client_retries"]
+    assert len(retries) == len(got["tenants"]) == 4
+    assert sum(retries.values()) == got["retries"]
+    assert all(0 <= r <= 50 for r in retries.values()), retries
     if run == "kill":
-        assert got["kill"]["revived"]
+        assert got["kill"]["revived"] and got["kill"]["revive_s"] > 0.0
         assert "[supervisor] shard 0 SIGKILLed after epoch 1" in out
         assert "[supervisor] shard 0 respawned + reconciled" in out
+        assert "[supervisor] retries by study" in out
     else:
         assert got["kill"] is None and got["retries"] == 0

@@ -9,8 +9,9 @@ settings as `chip_smoke.py` does (`child_bytecode_cache`), then runs
 `chip_smoke.examples_path` `--runs` times in one process, each through
 `chip_smoke.AcqPlanRecorder` (a fused-EI launch that misses the committed
 plan table fails the run).  Each run prints the phase's own lines (one a
-run of an example: serve_cluster's carries its failover retries and its
-workers' start stages, `worker_starts`), then
+run of an example: serve_cluster's carry each client's failover retries,
+the kill-to-reconciled seconds `revive_s` and the workers' start stages,
+`worker_starts`, the standby's last), then
 `{"examples_phase_run": i, "seconds": ...}`.  Stops at the first run that
 fails: exit code 1.
 """
